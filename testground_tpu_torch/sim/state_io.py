@@ -1,0 +1,49 @@
+"""Carrying a run's state between the two packages.
+
+The JAX package's loop-carried state is a pytree of arrays; the port's
+is a nested ``dict`` of tensors with the same keys, shapes and dtypes.
+``state_from_numpy`` takes the JAX state as numpy arrays (what
+``jax.device_get`` returns) and gives the port's state on ``device``;
+``state_to_numpy`` goes back. With them a run can start in one package
+and go on in the other, bit for bit (tests/test_torch_dht.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+
+def state_from_numpy(np_state: dict, device="cuda") -> dict:
+    """A nested dict of numpy arrays (or numpy scalars) as the port's
+    state dict of tensors on ``device``. Dtypes are kept as they are."""
+    dev = resolve_device(device)
+
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return torch.from_numpy(np.array(v, copy=True)).to(dev)
+
+    return conv(np_state)
+
+
+def state_to_numpy(state: dict) -> dict:
+    """The port's state dict as a nested dict of numpy arrays."""
+    if isinstance(state, dict):
+        return {k: state_to_numpy(v) for k, v in state.items()}
+    return state.detach().cpu().numpy()
+
+
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """``{"net/inbox": array, ...}``: the leaves of a nested state dict
+    keyed by their path, for leaf-by-leaf comparisons."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flatten(v, path + "/"))
+        else:
+            out[path] = v
+    return out
