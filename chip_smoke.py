@@ -7,19 +7,45 @@ Phases, in order (any failure raises and the exit code is not 0):
 
 1. device report: the card's name, and its name and power limit as
    ``nvidia-smi`` gives them;
-2. build: the deliver-front kernel from ``testground_tpu_torch/csrc``
-   (nvcc, at first use), with its build seconds;
-3. kernel vs plain on the card, bit-equal: the seven randomized front
-   regimes of the deliver-front tests at N = 10,000 and N = 1,000,003,
-   plus a starvation state that must take the reference branch; the
-   kernel's, the plain version's and the bound's times for each;
-4. the slice at full size: dht find-providers at n = 10,000 (20 ms
-   links, 5% loss, 5% churn over 100-5,000 ms, 500 ms query timeout,
-   3 retries) through the kernel, to termination, with zero egress
-   overflow, zero net and metric drops, and kernel launches equal to
-   the ticks that took the kernel branch;
-5. the GPU path against the CPU path: dht at n = 300 on both, every
-   state leaf bit-equal.
+2. build: both kernels from ``testground_tpu_torch/csrc`` (one nvcc per
+   source, started together), with their build seconds;
+3. deliver-front kernel vs plain on the card, bit-equal: the seven
+   randomized front regimes of the deliver-front tests at N = 10,000 and
+   N = 1,000,003, plus a starvation state that must take the reference
+   branch; the kernel's, the plain version's and the bound's times;
+3b. ring-merge kernel vs plain on the card, bit-equal: dht shapes at
+   N = 10,000, gossipsub@1M's shape (N = 1,048,576, CAP 64, W 6), the
+   microbenchmark's shapes at N = 100,000, 1,000,000 and 1,000,003,
+   k_eff of 0 / random / A, k_eff = CAP on a full ring, w near 2**30 and
+   A > CAP; kernel, plain, ``ring.clone()`` and bound times;
+3c. the ported ring-merge microbenchmark
+   (``testground_tpu_torch/tools/microbench_append.py``) at N = 100,000
+   and 1,000,000: merge alone and staging + merge + read, plain vs
+   kernel, and its exactness check;
+4. dht find-providers at n = 10,000 (20 ms links, 5% loss, 5% churn over
+   100-5,000 ms, 500 ms query timeout, 3 retries) through the fused
+   deliver front (``pallas_front=True``), to termination, with zero
+   egress overflow, zero net and metric drops; the deliver-front kernel
+   launched on every tick that took its branch, the ring-merge kernel on
+   every tick;
+4b. a torch.profiler window over the phase-4 tick;
+5. the GPU path against the CPU path: dht at n = 300 through the fused
+   front on both, every state leaf bit-equal;
+6. gossipsub mesh-propagation at n = 4,096 on the default lowering
+   (degree 8, 50 ms links, 0% loss, event skip): full coverage, zero
+   overflow and drops; ticks, ticks executed, wall and p50/p99
+   propagation; 6b. a profiler window over its tick;
+7. dht find-providers at n = 10,000 on the default lowering (default
+   deliver front, event skip): phase 4's assertions, the ring-merge
+   kernel on every executed tick, the deliver-front kernel on none, and
+   the final state equal to phase 4's but for ``ticks_executed``;
+   7b. a profiler window over its tick;
+8. gossipsub and dht at n = 300 on the default lowering, GPU path vs
+   CPU path, every state leaf bit-equal;
+9. gossipsub at n = 1,048,576 on the default lowering (the bounded
+   append behind the egress queue, ``send_slots = n // 4``): phase 6's
+   assertions, ticks, wall and ring-merge launches; 9b. a profiler
+   window over its tick.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernel measurements, and ``{"ok": true, "device": {...}}``. Everything
@@ -44,6 +70,10 @@ DHT_PARAMS = {
     "link_latency_ms": 20, "link_loss_pct": 5,
     "query_timeout_ms": 500, "max_retries": 3,
 }
+KERNELS = ("deliver_front", "ring_merge")
+# gossipsub's large leg: BASELINE.md's 1M row (send_slots = n // 4)
+GOSSIP_BIG_N = 1_048_576
+GOSSIPSUB_PARAMS = {"degree": 8, "link_latency_ms": 50, "link_loss_pct": 0}
 # (name, seed, kwargs) — the regimes of the deliver-front tests
 REGIMES = [
     ("mixed", 0, {}),
@@ -148,6 +178,52 @@ def lane_inputs(torch, net, spec, send, running, tick, key, n):
 def flat_outputs(res):
     pend, *rest = res
     return [pend[k] for k in sorted(pend)] + list(rest)
+
+
+# ------------------------------------------------------------ merge inputs
+
+# (label, n, case, cap, width, arrival slots) — the ring-merge checks on
+# the card; the first rows are the main paths' shapes (dht@10k, then
+# gossipsub@1M)
+MERGE_CASES = [
+    ("dht", 10_000, "k_random", 32, 7, 8),
+    ("gossipsub", GOSSIP_BIG_N, "k_random", 64, 6, 8),
+    ("dht", 10_000, "k_zero", 32, 7, 8),
+    ("dht", 10_000, "k_all", 32, 7, 8),
+    ("dht", 10_000, "w_near_2_30", 32, 7, 8),
+    ("tool", 100_000, "k_random", 64, 8, 8),
+    ("tool", 1_000_000, "k_random", 64, 8, 8),
+    ("tool_ragged", 1_000_003, "k_random", 64, 8, 8),
+    ("tool_ragged", 1_000_003, "w_near_2_30", 64, 8, 8),
+    ("full_ring", 10_000, "full_ring", 4, 7, 8),
+    ("a_over_cap", 10_000, "a_over_cap", 4, 8, 8),
+]
+
+
+def merge_case(np, name, n, seed, cap=32, width=7, A=8):
+    """Ring-merge inputs (numpy, from ``seed``): ring f32 [n, cap, width],
+    w and k_eff int32 [n], staging f32 [A*n, width]. ``name`` picks the
+    counts: k_zero (nothing lands), k_random, k_all (A per row),
+    full_ring (k_eff = cap: every slot written), w_near_2_30, a_over_cap
+    (random counts; with A > cap later passes overwrite earlier ones)."""
+    rng = np.random.default_rng(seed)
+    ring = (rng.random((n, cap, width)) * 100).astype(np.float32)
+    arr = (rng.random((A * n, width)) * 100 + 200).astype(np.float32)
+    w = rng.integers(0, 10_000, n).astype(np.int32)
+    if name == "k_zero":
+        k = np.zeros(n, np.int32)
+    elif name in ("k_random", "a_over_cap"):
+        k = rng.integers(0, A + 1, n).astype(np.int32)
+    elif name == "k_all":
+        k = np.full(n, A, np.int32)
+    elif name == "full_ring":
+        k = np.full(n, cap, np.int32)
+    elif name == "w_near_2_30":
+        w = (2**30 - rng.integers(0, 3 * cap, n)).astype(np.int32)
+        k = rng.integers(0, A + 1, n).astype(np.int32)
+    else:
+        raise ValueError(name)
+    return ring, w, k, arr
 
 
 def bit_equal(torch, a, b):
@@ -284,9 +360,63 @@ def kernel_phase(torch, np, dev, report):
     return rows, max_err
 
 
+def merge_phase(torch, np, dev, report):
+    """[3b] the ring-merge kernel against ``merge_plain`` on the card."""
+    from testground_tpu_torch.sim import ring_merge as rm
+
+    rows = []
+    max_err = 0.0
+    for seed, (label, n, case, cap, width, A) in enumerate(MERGE_CASES):
+        ring, w, k, arr = (
+            torch.as_tensor(a, device=dev)
+            for a in merge_case(np, case, n, seed, cap, width, A))
+        got = rm.merge(ring, w, k, arr)
+        want = rm.merge_plain(ring, w, k, arr)
+        ok, err = bit_equal(torch, [got], [want])
+        max_err = max(max_err, err)
+        if not ok:
+            raise AssertionError(f"ring merge kernel != plain: {label} "
+                                 f"{case} @ {n}")
+        reps = 200 if n <= 10_000 else 20
+        k_ms, how = device_ms(torch, lambda: rm.merge(ring, w, k, arr), reps)
+        p_ms, _ = device_ms(torch, lambda: rm.merge_plain(ring, w, k, arr),
+                            reps)
+        c_ms, _ = device_ms(torch, ring.clone, reps)
+        # each output cell is read from the staging if a record lands
+        # there, else from the ring, so the reads of both together are
+        # one ring's worth whatever k_eff holds; plus the ring written
+        # and w and k_eff read
+        moved = nbytes([ring, w, k, got])
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        rows.append({
+            "shape": label, "case": case, "n": n, "cap": cap, "width": width,
+            "arrival_slots": A, "bit_equal": True, "kernel_ms": k_ms,
+            "plain_ms": p_ms, "clone_ms": c_ms, "bound_ms": bound_ms,
+            "bytes": moved, "timing": how,
+        })
+        log(f"  merge {label:11s} {case:12s} n={n:>9,d} cap={cap:2d} "
+            f"W={width} A={A}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+            f"clone {c_ms:.4f} ms, bound {bound_ms:.4f} ms, bit-equal")
+        del ring, w, k, arr, got, want
+    report["merge"] = rows
+    report["merge_max_abs_err"] = max_err
+    return rows, max_err
+
+
+def microbench_phase(report):
+    """[3c] the ported microbenchmark at the tool's own N."""
+    from testground_tpu_torch.tools import microbench_append as mb
+
+    report["microbench_append"] = [
+        mb.bench(n, log=log) for n in (100_000, 1_000_000)
+    ]
+
+
 # ------------------------------------------------------------------ dht
 
-def dht_exec(n, device, chunk_ticks=32):
+def dht_exec(n, device, chunk_ticks=32, pallas_front=True):
+    """dht find-providers with the bench's parameters; ``pallas_front``
+    True runs the fused deliver front, None the default lowering."""
     from testground_tpu_torch.plans import dht
     from testground_tpu_torch.sim import (
         BuildContext, GroupSpec, SimConfig, compile_program,
@@ -300,30 +430,71 @@ def dht_exec(n, device, chunk_ticks=32):
     cfg = SimConfig(
         quantum_ms=10.0, max_ticks=60_000, chunk_ticks=chunk_ticks,
         metrics_capacity=8, churn_fraction=0.05, churn_start_ms=100.0,
-        churn_end_ms=5_000.0, pallas_front=True,
+        churn_end_ms=5_000.0, pallas_front=pallas_front,
     )
     return compile_program(dht.find_providers, ctx, cfg, device=device)
 
 
-def dht_phase(torch, np, dev, report):
-    from testground_tpu_torch.sim import deliver_front as df
+def gossipsub_exec(n, device, chunk_ticks=32):
+    """gossipsub mesh-propagation with the bench's parameters
+    (tools/bench_driver_configs.py: degree 8, 50 ms links, 0% loss,
+    10 ms quantum, max_ticks 20,000, metrics capacity 8) on the default
+    lowering."""
+    from testground_tpu_torch.plans import gossipsub
+    from testground_tpu_torch.sim import (
+        BuildContext, GroupSpec, SimConfig, compile_program,
+    )
 
-    n = 10_000
+    ctx = BuildContext(
+        [GroupSpec("single", 0, n,
+                   {k: str(v) for k, v in GOSSIPSUB_PARAMS.items()})],
+        test_case="mesh-propagation", test_run="chip-smoke",
+    )
+    cfg = SimConfig(quantum_ms=10.0, max_ticks=20_000,
+                    chunk_ticks=chunk_ticks, metrics_capacity=8)
+    return compile_program(gossipsub.mesh_propagation, ctx, cfg,
+                           device=device)
+
+
+def reset_launch_counts() -> None:
+    """Every kernel wrapper's launch count (and the front's dispatch
+    counts) to 0, just before a main-path run."""
+    from testground_tpu_torch.sim import deliver_front as df
+    from testground_tpu_torch.sim import ring_merge as rm
+
+    df.reset_counters()
+    rm.merge.launches = 0
+
+
+def dht_phase(torch, dev, report, key, pallas_front, chunk_ticks=32,
+              n=10_000):
+    """dht find-providers @ 10k to termination, through the fused front
+    (``pallas_front=True``, phase 4) or the default lowering (None,
+    phase 7); the launch counts are read right after the run."""
+    from testground_tpu_torch.sim import deliver_front as df
+    from testground_tpu_torch.sim import ring_merge as rm
+
     t0 = time.monotonic()
-    ex = dht_exec(n, dev)
+    ex = dht_exec(n, dev, chunk_ticks, pallas_front=pallas_front)
     ex.tick_fn()
     build_s = time.monotonic() - t0
-    df.reset_counters()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
     res = ex.run()
     launches = df.front_lanes.launches
+    merges = rm.merge.launches
     st = res.statuses()[:n]
     out = {
-        "n": n, "ticks": res.ticks, "wall_seconds": res.wall_seconds,
+        "n": n, "pallas_front": bool(pallas_front),
+        "event_skip": ex.event_skip, "ticks": res.ticks,
+        "ticks_executed": res.ticks_executed,
+        "wall_seconds": res.wall_seconds,
         "ms_per_tick": res.wall_seconds / max(res.ticks, 1) * 1e3,
         "build_seconds": build_s,
         "ok": int((st == 1).sum()), "failed": int((st == 2).sum()),
         "crashed": int((st == 3).sum()),
-        "launches": launches, "kernel_ticks": df.front.kernel_ticks,
+        "launches": launches, "merge_launches": merges,
+        "kernel_ticks": df.front.kernel_ticks,
         "reference_ticks": df.front.reference_ticks,
         "host_reads": df.front.host_reads,
         "host_read_seconds": df.front.host_read_seconds,
@@ -334,33 +505,117 @@ def dht_phase(torch, np, dev, report):
         "payload_sanitized": res.net_payload_sanitized(),
         "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
     }
-    report["dht10k"] = out
-    log(f"  dht@{n}: {out['ticks']} ticks, {out['wall_seconds']:.3f} s wall "
+    report[key] = out
+    log(f"  dht@{n}: {out['ticks']} ticks ({out['ticks_executed']} "
+        f"executed), {out['wall_seconds']:.3f} s wall "
         f"({out['ms_per_tick']:.2f} ms/tick); {out['ok']} ok / "
-        f"{out['failed']} failed / {out['crashed']} churned; kernel "
-        f"launches {launches}, reference ticks {out['reference_ticks']}, "
-        f"host reads {out['host_reads']} ({out['host_read_seconds']:.3f} s)")
+        f"{out['failed']} failed / {out['crashed']} churned; front "
+        f"launches {launches}, merge launches {merges}, reference ticks "
+        f"{out['reference_ticks']}, host reads {out['host_reads']} "
+        f"({out['host_read_seconds']:.3f} s)")
     assert not res.timed_out(), f"timed out at tick {res.ticks}"
     assert out["egress_overflow"] == 0, "egress overflow"
     assert out["net_dropped"] == 0, "inbox drops"
     assert out["metrics_dropped"] == 0, "metric ring too small"
-    assert launches > 0 and launches == out["kernel_ticks"], (
-        launches, out["kernel_ticks"])
     assert out["ok"] > 0
+    # every loop iteration runs the bounded append, so the ring merge;
+    # iterations past the end of the run (the rest of the last chunk)
+    # are identities but launch all the same
+    iters = out["kernel_ticks"] + out["reference_ticks"]
+    if pallas_front:
+        assert launches > 0 and launches == out["kernel_ticks"], (
+            launches, out["kernel_ticks"])
+        assert merges == iters, (merges, iters)
+    else:
+        assert launches == 0 and iters == 0, (launches, iters)
+        assert (out["ticks_executed"] <= merges
+                < out["ticks_executed"] + chunk_ticks), (
+            merges, out["ticks_executed"])
+    return out, res.state
+
+
+def compare_leaves(np, a, b, what, skip=()):
+    """Every leaf of two flattened states bit-equal (floats by their
+    bits), but the leaves named in ``skip``."""
+    a = {k: v for k, v in a.items() if k not in skip}
+    b = {k: v for k, v in b.items() if k not in skip}
+    assert set(a) == set(b), (what, set(a) ^ set(b))
+    for k in sorted(a):
+        x, y = a[k], b[k]
+        assert x.dtype == y.dtype and x.shape == y.shape, (what, k)
+        if x.dtype.kind == "f":
+            x, y = x.view(np.int32), y.view(np.int32)
+        assert np.array_equal(x, y), f"{what}: differ at leaf {k}"
+    return len(a)
+
+
+def gossipsub_phase(torch, dev, report, key, n, chunk_ticks=32):
+    """gossipsub mesh-propagation @ n on the default lowering, to full
+    coverage; the ring-merge launches are read right after the run."""
+    from testground_tpu_torch.sim import deliver_front as df
+    from testground_tpu_torch.sim import ring_merge as rm
+
+    t0 = time.monotonic()
+    ex = gossipsub_exec(n, dev, chunk_ticks)
+    ex.tick_fn()
+    build_s = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    res = ex.run()
+    merges = rm.merge.launches
+    st = res.statuses()[:n]
+    lat = sorted(r["value"] for r in res.metrics_records()
+                 if r["name"] == "propagation_ms")
+    out = {
+        "n": n, "send_slots": ex.program.net_spec.send_slots,
+        "event_skip": ex.event_skip, "ticks": res.ticks,
+        "ticks_executed": res.ticks_executed,
+        "wall_seconds": res.wall_seconds,
+        "ms_per_tick": res.wall_seconds / max(res.ticks, 1) * 1e3,
+        "build_seconds": build_s, "covered": int((st == 1).sum()),
+        "p50_propagation_ms": lat[len(lat) // 2] if lat else None,
+        "p99_propagation_ms": lat[int(len(lat) * 0.99)] if lat else None,
+        "merge_launches": merges,
+        "front_launches": df.front_lanes.launches,
+        "egress_overflow": res.net_egress_overflow(),
+        "egress_deferred": res.net_egress_deferred(),
+        "net_dropped": res.net_dropped(),
+        "metrics_dropped": res.metrics_dropped(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+    }
+    report[key] = out
+    log(f"  gossipsub@{n:,d}: {out['covered']:,d}/{n:,d} covered in "
+        f"{out['ticks']} ticks ({out['ticks_executed']} executed), "
+        f"{out['wall_seconds']:.3f} s wall ({out['ms_per_tick']:.2f} "
+        f"ms/tick); p50 propagation {out['p50_propagation_ms']} ms, p99 "
+        f"{out['p99_propagation_ms']} ms; merge launches {merges}; peak "
+        f"{out['max_memory_allocated'] / 1e9:.2f} GB")
+    assert not res.timed_out(), f"stalled at tick {res.ticks}"
+    assert out["covered"] == n, "coverage"
+    assert out["metrics_dropped"] == 0, "metric ring too small"
+    assert out["egress_overflow"] == 0, "egress overflow"
+    assert out["net_dropped"] == 0, "inbox drops"
+    assert out["front_launches"] == 0
+    if out["send_slots"] is not None:  # the bounded append
+        assert (out["ticks_executed"] <= merges
+                < out["ticks_executed"] + chunk_ticks), (
+            merges, out["ticks_executed"])
+    else:
+        assert merges == 0
     return out
 
 
-def profile_phase(torch, dev, report, wall_ms_per_tick, warm_ticks=100,
+def profile_phase(torch, report, key, ex, wall_ms_per_tick, warm_ticks=100,
                   window=20):
-    """Where the dht@10k tick's device time goes: ``window`` ticks after
-    ``warm_ticks`` under torch.profiler (CUPTI). Device busy time is the
-    sum of the kernels' (and copies') own durations; its share is taken
-    against the unprofiled wall per tick of the main run, since the
-    profiler slows the host."""
+    """Where a composition's tick's device time goes: ``window`` loop
+    iterations of the executor ``ex`` after ``warm_ticks`` under
+    torch.profiler (CUPTI). Device busy time is the sum of the kernels'
+    (and copies') own durations; its share is taken against the
+    unprofiled wall per tick of the main run, since the profiler slows
+    the host."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ex = dht_exec(10_000, dev)
     st = ex.init_state()
     for _ in range(warm_ticks):
         st = ex.guarded_tick(st)
@@ -392,7 +647,7 @@ def profile_phase(torch, dev, report, wall_ms_per_tick, warm_ticks=100,
         "top": [{"name": k[:100], "device_ms_per_tick": us / window / 1e3,
                  "calls_per_tick": c / window} for k, (us, c) in top],
     }
-    report["dht10k_profile"] = out
+    report[key] = out
     if busy_us == 0:
         log("  profile: torch.profiler saw no device activity "
             "(device busy share not measured)")
@@ -408,28 +663,23 @@ def profile_phase(torch, dev, report, wall_ms_per_tick, warm_ticks=100,
     return out
 
 
-def parity_phase(torch, np, dev, report):
+def parity_phase(np, dev, report, key, make, n=300):
+    """One composition at ``n`` on the card and on the CPU: every state
+    leaf bit-equal."""
     from testground_tpu_torch.sim.state_io import flatten, state_to_numpy
 
-    n = 300
     states, walls = {}, {}
     for d in (dev, "cpu"):
-        res = dht_exec(n, d).run()
+        res = make(n, d).run()
         states[str(d)] = flatten(state_to_numpy(res.state))
         walls[str(d)] = (res.ticks, res.wall_seconds)
-    a, b = states[str(dev)], states["cpu"]
-    assert set(a) == set(b), set(a) ^ set(b)
-    for k in sorted(a):
-        x, y = a[k], b[k]
-        assert x.dtype == y.dtype and x.shape == y.shape, k
-        if x.dtype.kind == "f":
-            x, y = x.view(np.int32), y.view(np.int32)
-        assert np.array_equal(x, y), f"GPU != CPU at leaf {k}"
-    report["dht300_parity"] = {
-        "leaves": len(a), "bit_equal": True,
+    leaves = compare_leaves(np, states[str(dev)], states["cpu"],
+                            f"{key}: GPU vs CPU")
+    report[key] = {
+        "leaves": leaves, "bit_equal": True,
         "gpu": walls[str(dev)], "cpu": walls["cpu"],
     }
-    log(f"  dht@{n}: GPU vs CPU bit-equal over {len(a)} leaves "
+    log(f"  {key}: GPU vs CPU bit-equal over {leaves} leaves "
         f"(ticks {walls[str(dev)][0]}, GPU {walls[str(dev)][1]:.2f} s, "
         f"CPU {walls['cpu'][1]:.2f} s)")
 
@@ -455,8 +705,9 @@ def main() -> int:
         return 1
     import numpy as np
 
+    from concurrent.futures import ThreadPoolExecutor
+
     from testground_tpu_torch.kernels import build as kbuild
-    from testground_tpu_torch.sim import deliver_front as df
 
     t_start = time.monotonic()
     dev = torch.device("cuda", 0)
@@ -468,42 +719,98 @@ def main() -> int:
     log(f"[1] device: {name} | nvidia-smi: {smi} | torch {torch.__version__}"
         f" cuda {torch.version.cuda}")
 
-    path, build_s = kbuild.build("deliver_front")
-    report["build_seconds"] = build_s
-    ptxas = path.parent / f"{path.stem}.ptxas.txt"
-    log(f"[2] built deliver_front: {build_s:.2f} s -> {path.name}")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "Compiling" in line:
-                log(f"    {line.strip()}")
+    # one nvcc per source, started together
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = dict(zip(KERNELS, pool.map(kbuild.build, KERNELS)))
+    report["build_seconds"] = {k: b[1] for k, b in built.items()}
+    for kname, (path, build_s) in built.items():
+        log(f"[2] built {kname}: {build_s:.2f} s -> {path.name}")
+        ptxas = path.parent / f"{path.stem}.ptxas.txt"
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "registers" in line or "Compiling" in line:
+                    log(f"    {line.strip()}")
 
     log("[3] deliver-front kernel vs plain on the card")
     rows, max_err = kernel_phase(torch, np, dev, report)
-
-    log("[4] dht find-providers @ 10,000 through the kernel")
-    dht = dht_phase(torch, np, dev, report)
-
+    log("[3b] ring-merge kernel vs plain on the card")
+    merge_rows, merge_err = merge_phase(torch, np, dev, report)
+    log("[3c] ring-merge microbenchmark (plain vs kernel)")
+    microbench_phase(report)
+    log("[4] dht find-providers @ 10,000 through the fused front")
+    dht, fused_state = dht_phase(torch, dev, report, "dht10k", True)
     log("[4b] dht@10k tick under torch.profiler")
-    profile_phase(torch, dev, report, dht["ms_per_tick"])
+    profile_phase(torch, report, "dht10k_profile", dht_exec(10_000, dev),
+                  dht["ms_per_tick"])
+    log("[5] dht @ 300 through the fused front: GPU vs CPU")
+    parity_phase(np, dev, report, "dht300_parity", dht_exec)
+    log("[6] gossipsub mesh-propagation @ 4,096, default lowering")
+    gossip = gossipsub_phase(torch, dev, report, "gossipsub4096", 4096)
+    log("[6b] gossipsub@4,096 tick under torch.profiler")
+    profile_phase(torch, report, "gossipsub4096_profile",
+                  gossipsub_exec(4096, dev), gossip["ms_per_tick"],
+                  warm_ticks=20)
+    log("[7] dht find-providers @ 10,000, default lowering")
+    dht_default, state = dht_phase(torch, dev, report, "dht10k_default",
+                                   None)
+    from testground_tpu_torch.sim.state_io import flatten, state_to_numpy
 
-    log("[5] dht @ 300: GPU path vs CPU path")
-    parity_phase(torch, np, dev, report)
+    leaves = compare_leaves(
+        np, flatten(state_to_numpy(state)),
+        flatten(state_to_numpy(fused_state)),
+        "dht@10k default vs fused front", skip=("ticks_executed",))
+    report["dht10k_default"]["equal_to_fused_leaves"] = leaves
+    log(f"  final state equal to phase 4's on {leaves} leaves "
+        "(all but ticks_executed)")
+    del state, fused_state
+    log("[7b] dht@10k default-lowering tick under torch.profiler")
+    profile_phase(torch, report, "dht10k_default_profile",
+                  dht_exec(10_000, dev, pallas_front=None),
+                  dht_default["ms_per_tick"])
+    log("[8] gossipsub @ 300 and dht @ 300, default lowering: GPU vs CPU")
+    parity_phase(np, dev, report, "gossipsub300_parity", gossipsub_exec)
+    parity_phase(np, dev, report, "dht300_default_parity",
+                 lambda n, d: dht_exec(n, d, pallas_front=None))
+    log(f"[9] gossipsub mesh-propagation @ {GOSSIP_BIG_N:,d}, default "
+        "lowering (bounded append)")
+    gossip_big = gossipsub_phase(torch, dev, report, "gossipsub_big",
+                                 GOSSIP_BIG_N)
+    log(f"[9b] gossipsub@{GOSSIP_BIG_N:,d} tick under torch.profiler")
+    profile_phase(torch, report, "gossipsub_big_profile",
+                  gossipsub_exec(GOSSIP_BIG_N, dev),
+                  gossip_big["ms_per_tick"], warm_ticks=40, window=10)
 
-    main_row = next(r for r in rows if r["n"] == 10_000
-                    and r["regime"] == "mixed")
-    kernels = {"kernels": [{
-        "name": "deliver_front",
-        "route": "cuda",
-        "source": "testground_tpu_torch/csrc/deliver_front.cu",
-        "replaces": "testground_tpu/sim/pallas_front.py:214",
-        "launches": dht["launches"],
-        "max_abs_err": max_err,
-        "ms": main_row["kernel_ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-    }]}
+    front_row = next(r for r in rows if r["n"] == 10_000
+                     and r["regime"] == "mixed")
+    merge_row = merge_rows[0]  # dht@10k's shape
+    kernels = {"kernels": [
+        {
+            "name": "deliver_front",
+            "route": "cuda",
+            "source": "testground_tpu_torch/csrc/deliver_front.cu",
+            "replaces": "testground_tpu/sim/pallas_front.py:214",
+            "launches": dht["launches"],
+            "max_abs_err": max_err,
+            "ms": front_row["kernel_ms"],
+            "plain_ms": front_row["plain_ms"],
+            "bound_ms": front_row["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        },
+        {
+            "name": "ring_merge",
+            "route": "cuda",
+            "source": "testground_tpu_torch/csrc/ring_merge.cu",
+            "replaces": "tools/microbench_pallas_append.py:76",
+            "launches": dht_default["merge_launches"],
+            "max_abs_err": merge_err,
+            "ms": merge_row["kernel_ms"],
+            "plain_ms": merge_row["plain_ms"],
+            "bound_ms": merge_row["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": None,
+        },
+    ]}
     report["kernels"] = kernels["kernels"]
     report["seconds"] = time.monotonic() - t_start
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -17,6 +17,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
@@ -75,3 +77,19 @@ def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` (built on first use)."""
     path, _ = build(name)
     return ctypes.CDLL(str(path))
+
+
+def check(t, name, dtype, shape, device) -> int:
+    """A launch argument's pointer, after checking that it is a
+    contiguous tensor of ``dtype`` and ``shape`` on ``device``."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+    return t.data_ptr()

@@ -14,6 +14,7 @@ import functools
 
 import torch
 
+from .build import check as _check
 from .build import load
 
 NAME = "deliver_front"
@@ -30,20 +31,6 @@ def library() -> ctypes.CDLL:
     lib.deliver_front_blocks.argtypes = [ctypes.c_int]
     lib.deliver_front_blocks.restype = ctypes.c_int
     return lib
-
-
-def _check(t, name, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-    return t.data_ptr()
 
 
 def launch(pend, send, running, enab_ok, eg_latency, eg_loss, u_loss,

@@ -11,8 +11,8 @@ Counterpart of ``testground_tpu/sim/core.py``. Per tick:
 3. signals are ranked by lane (the sync service's arrival order) and
    counted; metrics append into the per-lane ring;
 4. the network applies ConfigureNetwork writes, delivers this tick's
-   sends through the deliver front (sim/deliver_front.py) and consumes
-   what the phases read.
+   sends (sim/net.py; with ``pallas_front`` through the deliver-front
+   kernel, sim/deliver_front.py) and consumes what the phases read.
 
 The state is a ``dict`` of tensors whose leaves keep the JAX state's
 names, shapes and dtypes, so the two compare leaf by leaf
@@ -21,10 +21,13 @@ back every ``chunk_ticks`` ticks, and a tick past the point where the
 JAX loop would have stopped is an identity (every leaf is selected back
 to its old value), so ``SimResult.ticks`` equals the JAX run's.
 
-This slice runs the dense loop with the fused deliver front
-(``SimConfig.pallas_front=True``). Faults, trace, telemetry, replay,
-sweep, topic appends, event skip and the default deliver front raise
-``NotImplementedError`` naming the ROADMAP.md module that ports them.
+Under event skip (on by default unless ``pallas_front=True``) each
+executed tick is followed by a jump of ``tick`` to the next event
+(``next_event_tick``), as the JAX package's ``event_skip_loop`` does;
+the jump is guarded like the tick. Entry mode runs on both fronts.
+Count mode, faults, trace, telemetry, replay, sweep and topic appends
+raise ``NotImplementedError`` naming the ROADMAP.md module that ports
+them.
 """
 
 from __future__ import annotations
@@ -107,6 +110,42 @@ def live_lanes(st: dict):
     """Lanes that keep the run alive: RUNNING instances (CRASHED lanes
     with a scheduled restart belong to the fault plane, not ported)."""
     return st["status"] == RUNNING
+
+
+# "no scheduled event" sentinel of the event-horizon min (int32 max)
+_EV_NEVER = 2**31 - 1
+
+# state leaves that exist only on a skip-enabled executor; the JAX
+# package's list, kept whole (the count-mode leaves are not ported)
+EVENT_SKIP_STATE_LEAVES = ("ticks_executed", "staging_cnt", "wheel_occ")
+
+
+def next_event_tick(out: dict, nt):
+    """The event-horizon min: the earliest tick >= ``nt`` at which the
+    post-tick state ``out`` can evolve (every tick before it is provably
+    an identity), from the terms that exist without faults, replay,
+    telemetry or count mode: RUNNING lanes wake at max(blocked_until,
+    nt), pending kills land at max(kill_tick, nt), and a queued egress
+    send can leave on any tick. ``nt`` when no lane lives."""
+    run_m = out["status"] == RUNNING
+    never = torch.full_like(out["blocked_until"], _EV_NEVER)
+    ev = torch.min(
+        torch.where(run_m, torch.maximum(out["blocked_until"], nt), never)
+    )
+    kill_p = run_m & (out["kill_tick"] >= 0)
+    ev = torch.minimum(
+        ev,
+        torch.min(torch.where(kill_p, torch.maximum(out["kill_tick"], nt),
+                              never)),
+    )
+    if "net" in out and "pend_dest" in out["net"]:
+        ev = torch.minimum(
+            ev,
+            torch.where(torch.any(out["net"]["pend_dest"] >= 0), nt,
+                        _EV_NEVER),
+        )
+    live_any = torch.any(live_lanes(out))
+    return torch.where(live_any, torch.maximum(ev, nt), nt)
 
 
 def _ranked_scatter(ids: torch.Tensor, table_size: int,
@@ -348,17 +387,10 @@ class SimExecutable:
                     program.net_spec, pallas_front=True
                 ),
             )
-        if self.event_skip:
-            raise _not_ported(
-                "event-horizon scheduling (SimConfig.event_skip, on by "
-                "default without pallas_front=True)", 5, "tick and loop",
-            )
-        if program.net_spec is not None and not program.net_spec.pallas_front:
-            raise _not_ported(
-                "a net plane without SimConfig.pallas_front=True (the "
-                "default deliver front / count mode)", 7,
-                "entry-mode data plane",
-            )
+        spec = program.net_spec
+        if spec is not None and (not spec.store_entries or spec.uses_dials):
+            raise _not_ported("count mode / dial handshake registers", 4,
+                              "count-mode data plane")
         if program.topics.specs():
             raise _not_ported("topics (publish / wait_topic)", 5,
                               "tick and loop")
@@ -403,6 +435,10 @@ class SimExecutable:
         }
         if prog.net_spec is not None:
             state["net"] = netmod.init_net_state(n, prog.net_spec, dev)
+        if self.event_skip:
+            # executed tick_fn iterations (the gap to ``tick`` is the
+            # dead time the event-horizon jump skipped)
+            state["ticks_executed"] = z((), i32)
         return state
 
     # ----------------------------------------------------------- tick fn
@@ -728,12 +764,27 @@ class SimExecutable:
             self._tick_fn = self._make_tick_fn()
         return self._tick_fn
 
+    def skip_step(self, st: dict) -> dict:
+        """One iteration of the JAX package's ``event_skip_loop`` body:
+        count it in ``ticks_executed``, run ``tick_fn``, then jump
+        ``tick`` to the next event (bounded by ``max_ticks``). The jump
+        stays on the device."""
+        executed = st["ticks_executed"] + 1
+        out = self.tick_fn()(st)
+        out["ticks_executed"] = executed
+        nxt = next_event_tick(out, out["tick"])
+        out["tick"] = torch.clamp(nxt, max=self.config.max_ticks)
+        return out
+
     def guarded_tick(self, st: dict) -> dict:
-        """One tick of the dense loop: ``tick_fn`` where the JAX loop's
-        condition (tick < max_ticks and a lane still running) holds, an
-        identity on every leaf where it does not. No host read."""
+        """One iteration of the loop (``skip_step`` under event skip,
+        ``tick_fn`` otherwise) where the JAX loop's condition (tick <
+        max_ticks and a lane still running) holds, an identity on every
+        leaf (the jump and ``ticks_executed`` included) where it does
+        not. No host read."""
         go = (st["tick"] < self.config.max_ticks) & torch.any(live_lanes(st))
-        return _tree_where(go, self.tick_fn()(st), st)
+        step = self.skip_step if self.event_skip else self.tick_fn()
+        return _tree_where(go, step(st), st)
 
     def run(self) -> "SimResult":
         """Run the dense loop to completion: ``chunk_ticks`` guarded ticks
@@ -771,6 +822,18 @@ class SimResult:
     @property
     def ticks(self) -> int:
         return int(self.state["tick"])
+
+    @property
+    def ticks_executed(self) -> int:
+        """tick_fn iterations actually run: equals :attr:`ticks` under
+        dense ticking; under event skip the gap is the jumped dead time."""
+        return int(self.state.get("ticks_executed", self.state["tick"]))
+
+    @property
+    def skip_ratio(self) -> float:
+        """ticks_executed / ticks simulated (1.0 = every tick executed)."""
+        t = self.ticks
+        return (self.ticks_executed / t) if t else 1.0
 
     def statuses(self) -> np.ndarray:
         return _np(self.state["status"])

@@ -77,63 +77,17 @@ _PEND_KEYS = (
 )
 
 
-def _isum(mask):
-    return torch.sum(mask, dtype=torch.int32)
-
-
 def front_reference(spec, tick, u_loss, send, running, pend, eg_latency,
                     eg_loss, enab_ok):
     """The net.deliver front restricted to the eligible feature set: the
     starvation branch of ``front`` and the contract the kernel is held
-    to. Line for line the JAX package's ``_front_reference``."""
-    send_dest, send_tag, send_port, send_size, send_payload = send
-    n = send_dest.shape[0]
+    to. The JAX package's ``_front_reference``, through the same egress
+    queue and record build as the default front (sim/net.py)."""
+    n = send[0].shape[0]
     t = tick.to(torch.float32)
-
-    abandoned = (pend["pend_dest"] >= 0) & ~running
-    abandoned_add = _isum(abandoned)
-    pend_dest = torch.where(abandoned, -1, pend["pend_dest"])
-    has_pending = pend_dest >= 0
-    new_valid = send_dest >= 0
-    eff_dest = torch.where(has_pending, pend_dest, send_dest)
-    eff_tag = torch.where(has_pending, pend["pend_tag"], send_tag)
-    eff_port = torch.where(has_pending, pend["pend_port"], send_port)
-    eff_size = torch.where(has_pending, pend["pend_size"], send_size)
-    eff_pay = torch.where(has_pending[:, None], pend["pend_pay"],
-                          send_payload)
-    wants = (eff_dest >= 0) & running
-    age = torch.where(has_pending, pend["pend_tick"], tick)
-    go = netmod._egress_admit(tick, age, wants, spec.send_slots, n)
-    deferred = wants & ~go
-    overflow = deferred & has_pending & new_valid
-    stash_new = ~deferred & has_pending & new_valid
-    keep = deferred | stash_new
-    nxt_dest = torch.where(deferred, eff_dest, send_dest)
-    out = {
-        "pend_tick": torch.where(
-            keep, torch.where(deferred & has_pending, pend["pend_tick"], tick),
-            0,
-        ),
-        "pend_dest": torch.where(keep, nxt_dest, -1),
-        "pend_tag": torch.where(
-            keep, torch.where(deferred, eff_tag, send_tag), 0
-        ),
-        "pend_port": torch.where(
-            keep, torch.where(deferred, eff_port, send_port), 0
-        ),
-        "pend_size": torch.where(
-            keep, torch.where(deferred, eff_size, send_size), 0.0
-        ),
-        "pend_pay": torch.where(
-            keep[:, None],
-            torch.where(deferred[:, None], eff_pay, send_payload),
-            0.0,
-        ),
-    }
-    deferred_add = _isum(deferred | stash_new)
-    overflow_add = _isum(overflow)
-    send_dest2 = torch.where(go, eff_dest, -1)
-
+    out, capped, ctr3 = netmod.egress_queue(pend, tick, send, running,
+                                            spec.send_slots)
+    send_dest2, eff_tag, eff_port, eff_size, eff_pay = capped
     sending = (send_dest2 >= 0) & running
     transmits = sending & enab_ok
     if eg_loss is not None:
@@ -143,13 +97,10 @@ def front_reference(spec, tick, u_loss, send, running, pend, eg_latency,
     deliverable = transmits & ~lost
     visible = _visible(t, eg_latency, n)
     data_ok = deliverable & (eff_tag != TAG_SYN)
-    rec, dest_app, sanitized_add = _records(
+    rec, dest_app, sanitized_add = netmod.build_records(
         visible, eff_tag, eff_port, eff_size, eff_pay, data_ok, send_dest2
     )
-    counters = torch.stack(
-        [abandoned_add, deferred_add, overflow_add, sanitized_add]
-    )
-    return out, rec, dest_app, counters
+    return out, rec, dest_app, torch.cat([ctr3, sanitized_add[None]])
 
 
 def _visible(t, eg_latency, n):
@@ -161,27 +112,6 @@ def _visible(t, eg_latency, n):
     return torch.maximum(
         t + torch.maximum(eg_latency, torch.zeros_like(eg_latency)), one
     )
-
-
-def _records(visible, eff_tag, eff_port, eff_size, eff_pay, data_ok, sd2):
-    """The record build + sanitize tail shared by both branches."""
-    n = visible.shape[0]
-    src_ids = torch.arange(n, dtype=torch.int32, device=visible.device)
-    rec = torch.cat(
-        [
-            visible[:, None],
-            src_ids.to(torch.float32)[:, None],
-            eff_tag.to(torch.float32)[:, None],
-            eff_port.to(torch.float32)[:, None],
-            eff_size[:, None],
-            eff_pay,
-        ],
-        dim=-1,
-    )
-    rec, rec_clean = netmod.sanitize_records(rec)
-    sanitized_add = _isum(~rec_clean & data_ok[:, None])
-    dest_app = torch.where(data_ok, sd2, -1)
-    return rec, dest_app, sanitized_add
 
 
 def front_lanes_plain(pend, send, running, enab_ok, eg_latency, eg_loss,
@@ -257,8 +187,9 @@ def front_lanes_plain(pend, send, running, enab_ok, eg_latency, eg_loss,
         deliverable = transmits
     visible = _visible(t, eg_latency, n)
     data_ok = deliverable & (eff_tag != TAG_SYN)
-    counters = torch.stack([_isum(abandoned), _isum(deferred | stash),
-                            _isum(ovf)])
+    isum = netmod._isum
+    counters = torch.stack([isum(abandoned), isum(deferred | stash),
+                            isum(ovf)])
     return (out, sd2, eff_tag, eff_port, eff_size, eff_pay, visible,
             data_ok, counters)
 
@@ -345,7 +276,7 @@ def front(net, spec, tick, rng_key, send, status_running, n):
     (pend_out, sd2, eff_tag, eff_port, eff_size, eff_pay, visible, data_ok,
      ctr3) = front_lanes(pend, send, running, enab_ok, eg_latency, eg_loss,
                          u_loss, adm_scal)
-    rec, dest_app, sanitized_add = _records(
+    rec, dest_app, sanitized_add = netmod.build_records(
         visible, eff_tag, eff_port, eff_size, eff_pay, data_ok, sd2
     )
     counters = torch.cat([ctr3, sanitized_add[None]])

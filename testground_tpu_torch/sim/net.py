@@ -1,13 +1,16 @@
 """The network data plane, entry-mode half: link-state tensors + the
 per-instance inbox rings, in torch.
 
-Counterpart of ``testground_tpu/sim/net.py``. This slice ports what the
-entry-mode egress queue with the fused deliver front
-(``SimConfig.pallas_front=True``) runs: the net state, the
-ConfigureNetwork writes, the record wire contract, the FIFO egress
-admitter, the bounded two-level append into the inbox rings, and the
-head cache / visible prefix / consume reads. Count mode, dials, filter
-rules and the default (non-kernel) front raise ``NotImplementedError``.
+Counterpart of ``testground_tpu/sim/net.py``, entry mode: the net
+state, the ConfigureNetwork writes, the record wire contract, the FIFO
+egress queue, the loss / rate / jitter / latency / reorder / duplicate /
+corrupt shaping (iid or Markov-correlated toxics), both appends into the
+inbox rings (the ranked scatter without a queue; the bounded two-level
+append, whose ring merge is sim/ring_merge.py, behind one), and the
+head cache / visible prefix / consume reads. ``deliver`` runs the
+default front, or the deliver-front kernel with
+``SimConfig.pallas_front=True``. Count mode, dials and filter rules
+raise ``NotImplementedError``.
 
 Inbox entry layout (NET_HDR + payload floats):
 ``[visible_tick, src, tag, port, size, payload...]``
@@ -25,7 +28,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .program import _not_ported
+from . import prng, ring_merge
+from .program import TAG_SYN, _not_ported
 
 NET_HDR = 5  # visible, src, tag, port, size
 F_VISIBLE, F_SRC, F_TAG, F_PORT, F_SIZE = range(NET_HDR)
@@ -259,9 +263,10 @@ def _append_messages_bounded(net: dict, spec: NetSpec, dest, records,
     """Entry-mode append when the egress queue guarantees at most
     ``max_valid`` valid lanes: compact, rank within the compact domain,
     stage into a flat [arrival_slots*N, width] buffer at rank*N + dest,
-    then merge staging into the ring with arrival_slots dense passes.
-    Drops (ring space, same-tick fan-in beyond arrival_slots) are counted
-    in ``inbox_dropped``."""
+    then merge staging into the ring (sim/ring_merge.py: the ring-merge
+    kernel on the card, arrival_slots dense passes on the CPU). Drops
+    (ring space, same-tick fan-in beyond arrival_slots) are counted in
+    ``inbox_dropped``."""
     n = dest.shape[0]
     N = net["inbox_r"].shape[0]
     cap = spec.inbox_capacity
@@ -293,47 +298,305 @@ def _append_messages_bounded(net: dict, spec: NetSpec, dest, records,
     space = r + cap - w
     k_eff = torch.minimum(torch.clamp(k_all, max=A), space)
     net = dict(net)
-    ring = net["inbox"]
-    slots = torch.arange(cap, device=ring.device)
-    for a in range(A):
-        pos = torch.remainder(w + a, cap)
-        mask = (slots[None, :] == pos[:, None]) & (a < k_eff)[:, None]
-        ring = torch.where(
-            mask[:, :, None], arr[a * N:(a + 1) * N, None, :], ring
-        )
-    net["inbox"] = ring
+    net["inbox"] = ring_merge.merge(net["inbox"], w, k_eff, arr)
     net["inbox_w"] = w + k_eff
     net["inbox_dropped"] = net["inbox_dropped"] + (k_all - k_eff)
     return net
 
 
+def _isum(mask):
+    return torch.sum(mask, dtype=torch.int32)
+
+
+def _append_messages(net: dict, spec: NetSpec, dest, records) -> dict:
+    """Ranked scatter of message records into destination inboxes: the
+    UNBOUNDED path (no egress queue), where every lane may send. A lane's
+    rank among same-dest senders (ordered by lane) fixes its slot
+    ``w + rank``; lanes past the ring's space drop, counted in
+    ``inbox_dropped``. dest: [n] (-1 = no message, n = 2N when duplicates
+    double the lane domain); records: [n, width]."""
+    n = dest.shape[0]
+    N = net["inbox_r"].shape[0]
+    cap = spec.inbox_capacity
+    valid = dest >= 0
+    safe = torch.where(valid, dest, n)  # n = drop lane
+    order, _, rank_sorted = sort_rank(safe)
+    rank = torch.empty_like(rank_sorted)
+    rank[order] = rank_sorted
+
+    r, w = net["inbox_r"], net["inbox_w"]
+    # the JAX package gathers w[min(safe, n - 1)] and its gather clamps
+    # past the N rows; only in-capacity lanes use the value
+    dc = torch.clamp(safe, max=N - 1)
+    slot = w[dc] + rank
+    in_cap = (safe < n) & (slot < r[dc] + cap)
+    pos = torch.remainder(slot, cap)
+    lands = in_cap & (safe < N)  # rows past N drop, as mode="drop" does
+    width = records.shape[1]
+    buf = torch.cat([net["inbox"].reshape(N * cap, width),
+                     records.new_zeros((1, width))])
+    # (row, pos) pairs of landing lanes are unique by rank; the rest go
+    # to the drop row N*cap, which is sliced off
+    buf[torch.where(lands, safe.to(torch.int64) * cap + pos, N * cap)] = \
+        records
+    net = dict(net)
+    net["inbox"] = buf[:N * cap].reshape(N, cap, width)
+    ones = torch.ones_like(safe)
+    wq = torch.cat([w, w.new_zeros(1)])
+    wq.index_add_(0, torch.where(lands, safe, N), ones)
+    net["inbox_w"] = wq[:N]
+    lost = valid & ~in_cap & (safe < N)
+    dropped = torch.cat([net["inbox_dropped"],
+                         net["inbox_dropped"].new_zeros(1)])
+    dropped.index_add_(0, torch.where(lost, safe, N), ones)
+    net["inbox_dropped"] = dropped[:N]
+    return net
+
+
+def _toxic_event(net: dict, key, name: str, n: int, sending, rate):
+    """Per-packet toxic decision on each sender lane (True = the toxic
+    fires): iid ``u < rate``, or, with a configured correlation
+    (``eg_<name>_corr``), a first-order Markov chain per sender lane
+    (P(event | prev event) = p + c(1-p), P(event | no event) = p(1-c))
+    whose register ``ar_<name>`` advances only on ``sending`` lanes.
+    Mutates ``net`` (the caller has already copied it)."""
+    u = prng.uniform(key, (n,))
+    ar = f"ar_{name}"
+    if ar not in net:
+        return u < rate
+    c = net[f"eg_{name}_corr"]
+    prev = net[ar] > 0.5
+    thr = torch.where(prev, rate + c * (1.0 - rate), rate * (1.0 - c))
+    ev = u < thr
+    net[ar] = torch.where(sending, ev.to(torch.float32), net[ar])
+    return ev
+
+
+def egress_queue(pend: dict, tick, send, running, M: int):
+    """The entry-mode egress queue: at most ``M`` sends leave per tick,
+    oldest first; the rest wait in the depth-1 per-sender ``pend_*``
+    registers. A dead lane abandons its queued send; a new send arriving
+    while the queued one is deferred again overflows (tail drop).
+
+    Returns ``(pend_out, capped send, counters)``: the new ``pend_*``
+    lanes, the effective send set with ``send_dest = -1`` on lanes that
+    do not leave this tick, and int32 [3] (abandoned, deferred + stashed,
+    overflowed)."""
+    send_dest, send_tag, send_port, send_size, send_payload = send
+    n = send_dest.shape[0]
+    abandoned = (pend["pend_dest"] >= 0) & ~running
+    pend_dest = torch.where(abandoned, -1, pend["pend_dest"])
+    has_pending = pend_dest >= 0
+    new_valid = send_dest >= 0
+    eff_dest = torch.where(has_pending, pend_dest, send_dest)
+    eff_tag = torch.where(has_pending, pend["pend_tag"], send_tag)
+    eff_port = torch.where(has_pending, pend["pend_port"], send_port)
+    eff_size = torch.where(has_pending, pend["pend_size"], send_size)
+    eff_pay = torch.where(has_pending[:, None], pend["pend_pay"],
+                          send_payload)
+    wants = (eff_dest >= 0) & running
+    age = torch.where(has_pending, pend["pend_tick"], tick)
+    go = _egress_admit(tick, age, wants, M, n)
+    deferred = wants & ~go
+    overflow = deferred & has_pending & new_valid
+    # a deferred send stays queued; a delivered pending frees the slot
+    # for the simultaneous new send (stashed, admitted now)
+    stash_new = ~deferred & has_pending & new_valid
+    keep = deferred | stash_new
+    out = {
+        "pend_tick": torch.where(
+            keep,
+            torch.where(deferred & has_pending, pend["pend_tick"], tick),
+            0,
+        ),
+        "pend_dest": torch.where(
+            keep, torch.where(deferred, eff_dest, send_dest), -1
+        ),
+        "pend_tag": torch.where(
+            keep, torch.where(deferred, eff_tag, send_tag), 0
+        ),
+        "pend_port": torch.where(
+            keep, torch.where(deferred, eff_port, send_port), 0
+        ),
+        "pend_size": torch.where(
+            keep, torch.where(deferred, eff_size, send_size), 0.0
+        ),
+        "pend_pay": torch.where(
+            keep[:, None],
+            torch.where(deferred[:, None], eff_pay, send_payload),
+            0.0,
+        ),
+    }
+    counters = torch.stack(
+        [_isum(abandoned), _isum(deferred | stash_new), _isum(overflow)]
+    )
+    capped = (torch.where(go, eff_dest, -1), eff_tag, eff_port, eff_size,
+              eff_pay)
+    return out, capped, counters
+
+
+def build_records(visible, send_tag, send_port, send_size, send_payload,
+                  data_ok, send_dest):
+    """The entry records ``[visible, src, tag, port, size, payload...]``
+    of every lane, sanitized. Returns (records, dest_app, sanitized):
+    ``dest_app`` is the dest on data_ok lanes, -1 elsewhere, and
+    ``sanitized`` counts the values rewritten on data_ok lanes."""
+    n = visible.shape[0]
+    src_ids = torch.arange(n, dtype=torch.int32, device=visible.device)
+    rec = torch.cat(
+        [
+            visible[:, None],
+            src_ids.to(torch.float32)[:, None],
+            send_tag.to(torch.float32)[:, None],
+            send_port.to(torch.float32)[:, None],
+            send_size[:, None],
+            send_payload,
+        ],
+        dim=-1,
+    )
+    rec, rec_clean = sanitize_records(rec)
+    sanitized = _isum(~rec_clean & data_ok[:, None])
+    return rec, torch.where(data_ok, send_dest, -1), sanitized
+
+
+def _corrupt(net, rng_key, n, transmits, data_ok, send_payload):
+    """netem corrupt: bit 22 of ONE rng-chosen payload float flips on each
+    corrupted data lane; a flip into the zero-exponent range becomes the
+    finite sentinel -3e38 (so the append-time flush cannot undo it)."""
+    corrupted = _toxic_event(
+        net, prng.fold_in(rng_key, 3), "corrupt", n, transmits,
+        net["eg_corrupt"],
+    ) & data_ok
+    flipped = (send_payload.view(torch.int32) ^ 0x00400000).view(
+        torch.float32)
+    flipped = torch.where(torch.abs(flipped) < FLT_MIN_NORMAL, -3.0e38,
+                          flipped)
+    pay_w = send_payload.shape[-1]
+    hit_lane = prng.randint(prng.fold_in(rng_key, 5), (n,), 0, pay_w)
+    hit = corrupted[:, None] & (
+        torch.arange(pay_w, device=hit_lane.device)[None, :]
+        == hit_lane[:, None]
+    )
+    return torch.where(hit, flipped, send_payload)
+
+
 def deliver(net: dict, spec: NetSpec, tick, rng_key, send_dest, send_tag,
             send_port, send_size, send_payload, status_running) -> dict:
-    """One tick of the data plane through the fused deliver front: egress
-    queue + admission + loss/latency masks + record build in
-    sim/deliver_front.py, then the bounded append into the inboxes."""
-    if not (spec.pallas_front and "pend_dest" in net):
-        raise _not_ported(
-            "the default (non-kernel) entry-mode deliver front", 7,
-            "entry-mode data plane",
+    """One tick of the entry-mode data plane: the egress queue (with
+    ``send_slots``), destination viability, the loss / rate / jitter /
+    latency / reorder / duplicate / corrupt shaping, the record build,
+    and the append into the inboxes (bounded behind the queue, the
+    ranked scatter without it). With ``spec.pallas_front`` the front up
+    to the records runs as the deliver-front kernel
+    (sim/deliver_front.py)."""
+    if not spec.store_entries or spec.uses_dials:
+        raise _not_ported("count mode / dial handshake registers", 4,
+                          "count-mode data plane")
+    if spec.use_pair_rules or spec.use_class_rules:
+        raise _not_ported("filter rules", 7, "entry-mode data plane")
+    net = dict(net)
+    if spec.pallas_front and "pend_dest" in net:
+        from . import deliver_front
+
+        pend_out, rec, dest_app, ctr = deliver_front.front(
+            net, spec, tick, rng_key,
+            (send_dest, send_tag, send_port, send_size, send_payload),
+            status_running, send_dest.shape[0],
         )
-    from . import deliver_front
+        net.update(pend_out)
+        net["egress_abandoned"] = net["egress_abandoned"] + ctr[0]
+        net["egress_deferred"] = net["egress_deferred"] + ctr[1]
+        net["egress_overflow"] = net["egress_overflow"] + ctr[2]
+        net["payload_sanitized"] = net["payload_sanitized"] + ctr[3]
+        return _append_messages_bounded(
+            net, spec, dest_app, rec, max_valid=spec.send_slots
+        )
 
     n = send_dest.shape[0]
-    pend_out, rec, dest_app, ctr = deliver_front.front(
-        net, spec, tick, rng_key,
-        (send_dest, send_tag, send_port, send_size, send_payload),
-        status_running, n,
+    t = tick.to(torch.float32)
+    has_queue = "pend_dest" in net
+    if has_queue:
+        pend_out, send, ctr = egress_queue(
+            net, tick, (send_dest, send_tag, send_port, send_size,
+                        send_payload),
+            status_running, spec.send_slots,
+        )
+        net.update(pend_out)
+        net["egress_abandoned"] = net["egress_abandoned"] + ctr[0]
+        net["egress_deferred"] = net["egress_deferred"] + ctr[1]
+        net["egress_overflow"] = net["egress_overflow"] + ctr[2]
+        send_dest, send_tag, send_port, send_size, send_payload = send
+
+    sending = (send_dest >= 0) & status_running
+    dest_c = torch.clamp(send_dest, 0, n - 1)
+    # destination viability: a crashed or finished instance has no host
+    dest_ok = (net["net_enabled"] > 0) & status_running
+    enabled = (net["net_enabled"] > 0) & dest_ok[dest_c]
+    transmits = sending & enabled
+
+    if "eg_loss" in net:
+        lost = _toxic_event(net, rng_key, "loss", n, transmits,
+                            net["eg_loss"])
+    else:
+        lost = torch.zeros_like(transmits)
+    deliverable = transmits & ~lost
+    # serialization delay on the sender's link (HTB rate analog)
+    if "eg_rate" in net:
+        rate = net["eg_rate"]
+        ser = torch.where(
+            rate > 0,
+            send_size / torch.maximum(rate, rate.new_tensor(1e-9)),
+            0.0,
+        )
+        start = torch.maximum(t, net["eg_busy"])
+        net["eg_busy"] = torch.where(transmits, start + ser, net["eg_busy"])
+    else:
+        ser, start = 0.0, t
+    # jitter: uniform in [-j, +j]
+    if "eg_jitter" in net:
+        jit = net["eg_jitter"] * (
+            2.0 * prng.uniform(prng.fold_in(rng_key, 1), (n,)) - 1.0
+        )
+    else:
+        jit = 0.0
+    lat = net["eg_latency"] if "eg_latency" in net else 0.0
+    lj = lat + jit
+    lj = (torch.maximum(lj, torch.zeros_like(lj))
+          if isinstance(lj, torch.Tensor) else max(lj, 0.0))
+    visible = torch.maximum(start + ser + lj, t + 1.0).expand(n)
+    if "eg_reorder" in net:
+        # netem gap-style reorder: the selected packets skip the delay
+        reordered = _toxic_event(
+            net, prng.fold_in(rng_key, 2), "reorder", n, transmits,
+            net["eg_reorder"],
+        )
+        visible = torch.where(reordered, t + 1.0, visible)
+    data_ok = deliverable & (send_tag != TAG_SYN)
+    dup = None
+    if "eg_duplicate" in net:
+        dup = _toxic_event(
+            net, prng.fold_in(rng_key, 4), "duplicate", n, transmits,
+            net["eg_duplicate"],
+        ) & data_ok
+    if "eg_corrupt" in net:
+        send_payload = _corrupt(net, rng_key, n, transmits, data_ok,
+                                send_payload)
+    rec, dest_app, sanitized = build_records(
+        visible, send_tag, send_port, send_size, send_payload, data_ok,
+        send_dest,
     )
-    net = dict(net)
-    net.update(pend_out)
-    net["egress_abandoned"] = net["egress_abandoned"] + ctr[0]
-    net["egress_deferred"] = net["egress_deferred"] + ctr[1]
-    net["egress_overflow"] = net["egress_overflow"] + ctr[2]
-    net["payload_sanitized"] = net["payload_sanitized"] + ctr[3]
-    return _append_messages_bounded(
-        net, spec, dest_app, rec, max_valid=spec.send_slots
-    )
+    net["payload_sanitized"] = net["payload_sanitized"] + sanitized
+    if dup is not None:
+        # netem duplicate: the copy shares the original's visibility and
+        # ranks after every original (lanes N..2N-1)
+        dest_app = torch.cat([dest_app, torch.where(dup, send_dest, -1)])
+        rec = torch.cat([rec, rec])
+    if has_queue:
+        return _append_messages_bounded(
+            net, spec, dest_app, rec,
+            max_valid=spec.send_slots * (2 if dup is not None else 1),
+        )
+    return _append_messages(net, spec, dest_app, rec)
 
 
 def head_cache(net: dict, spec: NetSpec) -> torch.Tensor:

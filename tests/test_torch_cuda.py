@@ -1,6 +1,7 @@
 """Card-only checks of the port (marked ``cuda``; they skip without a
-GPU): the deliver-front CUDA kernel against its plain torch version on
-the same tensors, and the dht slice on the card against the port's CPU
+GPU): the deliver-front and ring-merge CUDA kernels against their plain
+torch versions on the same tensors, and the dht slice (fused front and
+default lowering) and gossipsub on the card against the port's CPU
 path. This file imports no jax, so it runs on the GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -19,6 +20,7 @@ sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
 from testground_tpu_torch.sim import deliver_front as df  # noqa: E402
+from testground_tpu_torch.sim import ring_merge as rm  # noqa: E402
 from testground_tpu_torch.sim.state_io import (  # noqa: E402
     flatten,
     state_to_numpy,
@@ -62,3 +64,47 @@ def test_dht_gpu_matches_cpu():
         if x.dtype.kind == "f":
             x, y = x.view(np.int32), y.view(np.int32)
         np.testing.assert_array_equal(x, y, err_msg=k)
+
+
+@pytest.mark.parametrize("label,n,case,cap,width,A", [
+    (label, min(n, 20_011), case, cap, width, A)
+    for label, n, case, cap, width, A in cs.MERGE_CASES
+])
+def test_ring_merge_kernel_matches_plain(label, n, case, cap, width, A):
+    dev = _cuda()
+    ring, w, k, arr = (torch.as_tensor(a, device=dev) for a in cs.merge_case(
+        np, case, n, 11, cap, width, A))
+    before = ring.clone()
+    launches = rm.merge.launches
+    got = rm.merge(ring, w, k, arr)
+    assert rm.merge.launches == launches + 1
+    want = rm.merge_plain(ring, w, k, arr)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(ring.view(torch.int32), before.view(torch.int32))
+
+
+def test_ring_merge_wrapper_refuses_bad_input():
+    dev = _cuda()
+    ring, w, k, arr = (torch.as_tensor(a, device=dev) for a in cs.merge_case(
+        np, "k_random", 64, 0))
+    with pytest.raises(ValueError):
+        rm.merge(ring, w, k, arr[1:])  # not [A*N, W]
+    with pytest.raises(TypeError):
+        rm.merge(ring, w.to(torch.int64), k, arr)
+    with pytest.raises(ValueError):
+        rm.merge(ring, w, k, arr.t().contiguous().t())  # not contiguous
+
+
+@pytest.mark.parametrize("make", ["dht_default", "gossipsub"])
+def test_default_lowering_gpu_matches_cpu(make):
+    dev = _cuda()
+    n = 200
+    if make == "gossipsub":
+        mk = cs.gossipsub_exec
+    else:
+        def mk(n, d):
+            return cs.dht_exec(n, d, pallas_front=None)
+    a = flatten(state_to_numpy(mk(n, dev).run().state))
+    b = flatten(state_to_numpy(mk(n, "cpu").run().state))
+    cs.compare_leaves(np, a, b, make)

@@ -3,7 +3,9 @@ with the bench's parameters (20 ms links, 5% loss, 5% churn over
 100-5,000 ms, 500 ms query timeout, 3 retries) and the fused deliver
 front, both on the CPU. Every state leaf must be bit-equal by name, and
 so must ticks, statuses and metric records; a state carried from a JAX
-run mid-way must tick identically in the port."""
+run mid-way must tick identically in the port. The default lowering
+(default deliver front and event skip) is held to the JAX run and to the
+port's fused-front run alike."""
 
 import importlib.util
 from pathlib import Path
@@ -49,16 +51,18 @@ def _groups(cls, n):
     return [cls("single", 0, n, {k: str(v) for k, v in PARAMS.items()})]
 
 
-def jax_exec(n):
+def jax_exec(n, **over):
     ctx = JCtx(_groups(JGroup, n), test_case="find-providers", test_run="t")
-    return j_compile(_jax_plan(), ctx, JConfig(chunk_ticks=100_000, **CFG),
+    return j_compile(_jax_plan(), ctx,
+                     JConfig(chunk_ticks=100_000, **{**CFG, **over}),
                      mesh=instance_mesh(jax.devices()[:1]))
 
 
-def torch_exec(n):
+def torch_exec(n, **over):
     ctx = TCtx(_groups(TGroup, n), test_case="find-providers", test_run="t")
     return t_compile(tdht.find_providers, ctx,
-                     TConfig(chunk_ticks=16, **CFG), device="cpu")
+                     TConfig(chunk_ticks=16, **{**CFG, **over}),
+                     device="cpu")
 
 
 def assert_leaves_equal(jax_state, torch_state):
@@ -116,3 +120,45 @@ def test_dht_small_n_is_ineligible_in_both():
         jax_exec(n)
     with pytest.raises(ValueError, match="pallas_front"):
         torch_exec(n)
+
+
+def test_dht_default_lowering_bit_equal():
+    """dht on the default lowering (pallas_front unset: the default
+    deliver front, the bounded append with the ring merge, event skip)
+    equals the JAX run, and the port's fused-front run but for the skip
+    plane's ``ticks_executed``."""
+    n = 300
+    jex, tex = jax_exec(n, pallas_front=None), torch_exec(n,
+                                                          pallas_front=None)
+    assert tex.event_skip and not tex.program.net_spec.pallas_front
+    jres, tres = jex.run(), tex.run()
+    assert tres.ticks == jres.ticks
+    assert tres.ticks_executed == jres.ticks_executed
+    np.testing.assert_array_equal(tres.statuses(), jres.statuses())
+    assert tres.metrics_records() == jres.metrics_records()
+    assert_leaves_equal(jres.state, tres.state)
+    fused = torch_exec(n).run()
+    a = flatten(state_to_numpy(tres.state))
+    b = flatten(state_to_numpy(fused.state))
+    assert a.pop("ticks_executed") <= tres.ticks
+    assert set(a) == set(b)
+    for k in sorted(a):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_dht_default_lowering_carried_state_steps_alike():
+    """The skip plane's state carried across: run JAX's event-skip loop
+    k executed iterations, carry its state (ticks_executed and the
+    egress-queue leaves included) into the port, take one more
+    iteration in each: every leaf must agree."""
+    n = 200
+    jex, tex = jax_exec(n, pallas_front=None), torch_exec(n,
+                                                          pallas_front=None)
+    run_chunk = jex._compile_chunk()
+    st = jex._init_jitted()()
+    for k in (1, 3, 40, 150):
+        st = run_chunk(st, jnp.int32(60_000), jnp.int32(k))
+        carried = state_from_numpy(jax.device_get(st), "cpu")
+        assert "ticks_executed" in carried and "pend_dest" in carried["net"]
+        st = run_chunk(st, jnp.int32(60_000), jnp.int32(1))  # donates st
+        assert_leaves_equal(st, tex.guarded_tick(carried))

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from testground_tpu_torch.device import resolve_device
-from testground_tpu_torch.plans import dht
+from testground_tpu_torch.plans import dht, gossipsub
 from testground_tpu_torch.sim import BuildContext, GroupSpec, compile_program
 from testground_tpu_torch.sim.state_io import state_from_numpy
 
@@ -44,8 +44,15 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert "testground_tpu_torch.sim.core" in out["modules"]
-    assert "testground_tpu_torch.kernels.deliver_front" in out["modules"]
+    for mod in (
+        "testground_tpu_torch.sim.core",
+        "testground_tpu_torch.sim.ring_merge",
+        "testground_tpu_torch.kernels.deliver_front",
+        "testground_tpu_torch.kernels.ring_merge",
+        "testground_tpu_torch.plans.gossipsub",
+        "testground_tpu_torch.tools.microbench_append",
+    ):
+        assert mod in out["modules"]
     assert out["bad"] == []
 
 
@@ -59,6 +66,8 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="cuda"):
         compile_program(dht.find_providers, _ctx())
+    with pytest.raises(RuntimeError, match="cuda"):
+        compile_program(gossipsub.mesh_propagation, _ctx())
     with pytest.raises(RuntimeError, match="cuda"):
         state_from_numpy({"tick": np.int32(0)})
     with pytest.raises(ValueError):
