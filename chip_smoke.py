@@ -7,12 +7,20 @@ Phases, in order (any failure raises and the exit code is not 0):
 
 1. device report: the card's name, and its name and power limit as
    ``nvidia-smi`` gives them;
-2. build: both kernels from ``testground_tpu_torch/csrc`` (one nvcc per
-   source, started together), with their build seconds;
-3. deliver-front kernel vs plain on the card, bit-equal: the seven
-   randomized front regimes of the deliver-front tests at N = 10,000 and
-   N = 1,000,003, plus a starvation state that must take the reference
-   branch; the kernel's, the plain version's and the bound's times;
+2. build: both kernels from ``testground_tpu_torch/csrc``, and the
+   earlier deliver-front kernel (``deliver_front_v1.cu``, timed in
+   phase 3 only), one nvcc per source, started together, with their
+   build seconds;
+3. deliver-front kernel vs plain on the card, bit-equal, and the whole
+   dispatch bit-equal to ``front_reference``: the seven randomized
+   front regimes of the deliver-front tests and the nine ``STARVATION``
+   states (waits at and past 4,095 ticks, ages past the tick and near
+   -2**31) at N = 10,000 and N = 1,000,003; the kernel's, the plain
+   version's and the bound's times in each; then the whole front
+   dispatch captured in a CUDA graph, replayed bit-equal to its eager
+   call, and timed beside the earlier dispatch (``front_v1``), and the
+   two kernels alone; 3a. the kernel's phases, from its -DFRONT_TRACE
+   build;
 3b. ring-merge kernel vs plain on the card, bit-equal: dht shapes at
    N = 10,000, gossipsub@1M's shape (N = 1,048,576, CAP 64, W 6), the
    microbenchmark's shapes at N = 100,000, 1,000,000 and 1,000,003,
@@ -26,8 +34,7 @@ Phases, in order (any failure raises and the exit code is not 0):
    100-5,000 ms, 500 ms query timeout, 3 retries) through the fused
    deliver front (``pallas_front=True``), to termination, with zero
    egress overflow, zero net and metric drops; the deliver-front kernel
-   launched on every tick that took its branch, the ring-merge kernel on
-   every tick;
+   and the ring-merge kernel launched once on every loop iteration;
 4b. a torch.profiler window over the phase-4 tick;
 5. the GPU path against the CPU path: dht at n = 300 through the fused
    front on both, every state leaf bit-equal;
@@ -71,6 +78,11 @@ DHT_PARAMS = {
     "query_timeout_ms": 500, "max_retries": 3,
 }
 KERNELS = ("deliver_front", "ring_merge")
+# (source, -D defines): built beside the kernels, for phase 3 only — the
+# earlier deliver-front kernel (no path of the port calls it) and the
+# deliver-front kernel with its phase timestamps
+TRACE_BUILD = ("deliver_front", ("FRONT_TRACE",))
+BUILDS = [(k, ()) for k in KERNELS] + [("deliver_front_v1", ()), TRACE_BUILD]
 # gossipsub's large leg: BASELINE.md's 1M row (send_slots = n // 4)
 GOSSIP_BIG_N = 1_048_576
 GOSSIPSUB_PARAMS = {"degree": 8, "link_latency_ms": 50, "link_loss_pct": 0}
@@ -101,37 +113,91 @@ def nvidia_smi_line() -> str:
 
 # ------------------------------------------------------------ front inputs
 
-def front_case(torch, np, n, seed, dev, pending_p=0.3, send_p=0.5,
-               dead_p=0.1, wait_span=5, weird_pay=False, loss=True,
-               lat=True, tick=100):
-    """A randomized deliver-front state (numpy, from ``seed``): the
-    generator of the deliver-front tests, on ``dev``."""
-    from testground_tpu_torch.sim import prng
-    from testground_tpu_torch.sim.net import NetSpec, init_net_state
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+# (name, seed, kwargs) — front states past the counting admitter's reach
+# (max wait >= 4095, where the JAX package sorts by age) and at its
+# edges; every one is bit-equal to the JAX package on the CPU
+# (tests/test_torch_front.py) and kernel vs plain on the card
+STARVATION = [
+    # waits 3,000-5,199: the boundary falls inside the starved set
+    ("straddle_4095", 11, {"ages": "straddle", "pending_p": 0.8}),
+    # every wanting lane pends, starved, three distinct ages
+    ("all_starved_ties", 12, {"ages": "all_starved", "pending_p": 1.0}),
+    # the branch edge: the largest wait exactly 4,094 / 4,095
+    ("max_wait_4094", 13, {"ages": "edge_4094", "pending_p": 0.8}),
+    ("max_wait_4095", 14, {"ages": "edge_4095", "pending_p": 0.8}),
+    # send_slots = n - 1 >= the wanting lanes
+    ("slots_cover_wanting", 15, {"ages": "straddle", "slots_frac": 1.0}),
+    # starved, the boundary among ages at and past the tick
+    ("ages_past_tick", 16, {"ages": "past_tick", "pending_p": 0.8,
+                            "slots_frac": 0.5}),
+    # ... and among ages INT32_MAX, tied with the lanes that do not want
+    ("ages_at_int32_max", 17, {"ages": "past_tick", "pending_p": 0.8,
+                               "slots_frac": 0.8}),
+    # ages near -2**31: the wraparound wait is 0 (counting branch) ...
+    ("ages_near_int32_min", 18, {"ages": "int32_min", "pending_p": 0.8}),
+    # ... but the raw age is the oldest (sort branch)
+    ("ages_near_int32_min_starved", 19, {"ages": "int32_min_starved",
+                                         "pending_p": 0.8}),
+]
 
+
+def _starve_ages(np, rng, mode, n, tick, arrs, running):
+    """Rewrite the pend_tick lane (and for the edge modes lane 0) of a
+    front state for one of the STARVATION modes."""
+    r = rng.random(n)
+    if mode == "straddle":
+        pt = tick - rng.integers(3000, 5200, n)
+    elif mode == "all_starved":
+        pt = tick - 4100 - rng.integers(0, 3, n)
+    elif mode in ("edge_4094", "edge_4095"):
+        w = int(mode[-4:])
+        pt = tick - rng.integers(0, w + 1, n)
+        pt[0] = tick - w  # lane 0 pends, runs, and waits exactly w
+        arrs["pend_dest"][0] = 1
+        running[0] = True
+    elif mode == "past_tick":
+        pt = np.where(r < 0.3, tick - 4200 - rng.integers(0, 5, n),
+                      np.where(r < 0.8, tick + rng.integers(0, 3, n),
+                               INT32_MAX))
+    elif mode == "int32_min":
+        pt = np.where(r < 0.2, INT32_MIN + rng.integers(0, 10, n),
+                      tick - rng.integers(0, 50, n))
+    elif mode == "int32_min_starved":
+        pt = np.where(r < 0.2, INT32_MIN + rng.integers(0, 10, n),
+                      np.where(r < 0.3, tick - 4500,
+                               tick - rng.integers(0, 50, n)))
+    else:
+        raise ValueError(mode)
+    arrs["pend_tick"] = np.asarray(pt, np.int64).astype(np.int32)
+
+
+def front_arrays(np, n, seed, pending_p=0.3, send_p=0.5, dead_p=0.1,
+                 wait_span=5, weird_pay=False, loss=True, lat=True,
+                 tick=None, ages=None, slots_frac=None):
+    """A randomized deliver-front state in numpy, from ``seed`` (the
+    generator of the deliver-front tests): the net lanes it sets, the
+    send lanes, running, the tick and send_slots. ``ages`` picks a
+    STARVATION mode (tick 5,000), ``slots_frac`` sets send_slots to that
+    share of n (at most n - 1)."""
+    P = 2
+    if tick is None:
+        tick = 5000 if ages else 100
     rng = np.random.default_rng(seed)
-    spec = NetSpec(
-        inbox_capacity=8, payload_len=2, head_k=1, send_slots=max(4, n // 8),
-        uses_latency=lat, uses_jitter=False, uses_rate=False, uses_loss=loss,
-        pallas_front=True,
-    )
-    P = spec.payload_len
-    net = init_net_state(n, spec, dev)
-    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    net["pend_dest"] = t(np.where(
+    a = {}
+    a["pend_dest"] = np.where(
         rng.random(n) < pending_p, rng.integers(0, n, n), -1
-    ).astype(np.int32))
-    net["pend_tick"] = t(
-        (tick - rng.integers(0, wait_span, n)).astype(np.int32))
-    net["pend_tag"] = t(np.zeros(n, np.int32))
-    net["pend_port"] = t(rng.integers(0, 5, n).astype(np.int32))
-    net["pend_size"] = t(rng.random(n).astype(np.float32) * 64)
-    net["pend_pay"] = t(rng.random((n, P)).astype(np.float32))
+    ).astype(np.int32)
+    a["pend_tick"] = (tick - rng.integers(0, wait_span, n)).astype(np.int32)
+    a["pend_tag"] = np.zeros(n, np.int32)
+    a["pend_port"] = rng.integers(0, 5, n).astype(np.int32)
+    a["pend_size"] = rng.random(n).astype(np.float32) * 64
+    a["pend_pay"] = rng.random((n, P)).astype(np.float32)
     if lat:
-        net["eg_latency"] = t((rng.random(n) * 5).astype(np.float32))
+        a["eg_latency"] = (rng.random(n) * 5).astype(np.float32)
     if loss:
-        net["eg_loss"] = t((rng.random(n) * 0.3).astype(np.float32))
-    net["net_enabled"] = t((rng.random(n) > 0.05).astype(np.int32))
+        a["eg_loss"] = (rng.random(n) * 0.3).astype(np.float32)
+    a["net_enabled"] = (rng.random(n) > 0.05).astype(np.int32)
     send_dest = np.where(
         rng.random(n) < send_p, rng.integers(0, n, n), -1
     ).astype(np.int32)
@@ -141,16 +207,45 @@ def front_case(torch, np, n, seed, dev, pending_p=0.3, send_p=0.5,
         spay[rng.random((n, P)) < 0.1] = np.inf
         spay[rng.random((n, P)) < 0.1] = 1e-40  # denormal
     send = (
-        t(send_dest),
-        t(np.zeros(n, np.int32)),
-        t(rng.integers(0, 5, n).astype(np.int32)),
-        t((rng.random(n) * 64).astype(np.float32)),
-        t(spay),
+        send_dest,
+        np.zeros(n, np.int32),
+        rng.integers(0, 5, n).astype(np.int32),
+        (rng.random(n) * 64).astype(np.float32),
+        spay,
     )
-    running = t(rng.random(n) > dead_p)
+    running = rng.random(n) > dead_p
+    if ages:
+        _starve_ages(np, rng, ages, n, tick, a, running)
+    send_slots = max(4, n // 8)
+    if slots_frac is not None:
+        send_slots = min(n - 1, max(4, int(n * slots_frac)))
+    return a, send, running, tick, send_slots
+
+
+def front_spec_kw(n, send_slots, loss=True, lat=True):
+    """The NetSpec fields of a front state (both packages take them)."""
+    return dict(
+        inbox_capacity=8, payload_len=2, head_k=1, send_slots=send_slots,
+        uses_latency=lat, uses_jitter=False, uses_rate=False, uses_loss=loss,
+    )
+
+
+def front_case(torch, np, n, seed, dev, **kw):
+    """``front_arrays`` as the port's net state and inputs on ``dev``:
+    (net, spec, send, running, tick, key)."""
+    from testground_tpu_torch.sim import prng
+    from testground_tpu_torch.sim.net import NetSpec, init_net_state
+
+    arrs, send, running, tick, send_slots = front_arrays(np, n, seed, **kw)
+    spec = NetSpec(**front_spec_kw(n, send_slots, kw.get("loss", True),
+                                   kw.get("lat", True)), pallas_front=True)
+    net = init_net_state(n, spec, dev)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    for k, v in arrs.items():
+        net[k] = t(v)
     key = prng.PRNGKey(seed, device=dev)
-    return net, spec, send, running, torch.tensor(tick, dtype=torch.int32,
-                                                   device=dev), key
+    return (net, spec, tuple(t(s) for s in send), t(running),
+            torch.tensor(tick, dtype=torch.int32, device=dev), key)
 
 
 def lane_inputs(torch, net, spec, send, running, tick, key, n):
@@ -159,25 +254,143 @@ def lane_inputs(torch, net, spec, send, running, tick, key, n):
     from testground_tpu_torch.sim import prng
 
     pend = {k: net[k] for k in df._PEND_KEYS}
-    pd0 = torch.where((pend["pend_dest"] >= 0) & ~running, -1,
-                      pend["pend_dest"])
-    eff_dest = torch.where(pd0 >= 0, pd0, send[0])
-    dest_ok = ((net["net_enabled"] > 0) & running).to(torch.int32)
-    enab_ok = (net["net_enabled"] > 0) & (
-        dest_ok[torch.clamp(eff_dest, 0, n - 1)] > 0)
-    wants = (eff_dest >= 0) & running
-    age = torch.where(pd0 >= 0, net["pend_tick"], tick)
-    wait = torch.clamp(tick - age, min=0)
     eg_loss = net.get("eg_loss")
     u = prng.uniform(key, (n,)) if eg_loss is not None else None
-    adm = df.admission_scalars(tick, wants, wait, spec.send_slots)
-    return (pend, send, running, enab_ok, net.get("eg_latency"), eg_loss, u,
-            adm)
+    return (pend, send, running, net["net_enabled"], net.get("eg_latency"),
+            eg_loss, u, tick, spec.send_slots)
+
+
+def reference_of(torch, net, spec, ins):
+    """``front_reference`` on the kernel's inputs ``ins``."""
+    from testground_tpu_torch.sim import deliver_front as df
+
+    pend, send, running, net_enabled, lat, loss, u, tick, _ = ins
+    enab = df.viability(pend["pend_dest"], send[0], running, net_enabled)
+    return df.front_reference(spec, tick, u, send, running, pend, lat, loss,
+                              enab)
 
 
 def flat_outputs(res):
     pend, *rest = res
     return [pend[k] for k in sorted(pend)] + list(rest)
+
+
+# ------------------------------------------- the earlier front, for timing
+
+def _v1_library():
+    """ctypes binding of csrc/deliver_front_v1.cu, the earlier two-launch
+    kernel, kept only to time the earlier dispatch beside the new one."""
+    import ctypes
+
+    from testground_tpu_torch.kernels.build import load
+
+    lib = load("deliver_front_v1")
+    lib.deliver_front_launch.argtypes = (
+        [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 33)
+    lib.deliver_front_launch.restype = ctypes.c_int
+    lib.deliver_front_blocks.argtypes = [ctypes.c_int]
+    lib.deliver_front_blocks.restype = ctypes.c_int
+    return lib
+
+
+def front_v1_inputs(torch, net, spec, tick, key, send, running, n,
+                    host_reads=False):
+    """The earlier dispatch's glue before its kernel: viability and wait
+    glue, the two one-hot admission histograms and ``_boundary_of``,
+    contiguous send lanes. It read three scalars back to the host per
+    tick (the starvation predicate, and the two boundaries inside
+    ``_boundary_of``'s 0-dim index); those reads happen only with
+    ``host_reads``, so that the rest can be captured. Returns the
+    two-launch kernel's inputs."""
+    from testground_tpu_torch.sim import deliver_front as df
+    from testground_tpu_torch.sim import net as netmod
+    from testground_tpu_torch.sim import prng
+
+    B = 64
+    eg_latency, eg_loss = net.get("eg_latency"), net.get("eg_loss")
+    u = prng.uniform(key, (n,)) if eg_loss is not None else None
+    pend = {k: net[k] for k in df._PEND_KEYS}
+    pd0 = torch.where((pend["pend_dest"] >= 0) & ~running, -1,
+                      pend["pend_dest"])
+    eff_dest = torch.where(pd0 >= 0, pd0, send[0])
+    dest_ok = ((net["net_enabled"] > 0) & running).to(torch.int32)
+    g = dest_ok[torch.clamp(eff_dest, 0, n - 1)]
+    enab_ok = (net["net_enabled"] > 0) & (g > 0)
+    wants = (eff_dest >= 0) & running
+    age = torch.where(pd0 >= 0, net["pend_tick"], tick)
+    wait = torch.clamp(tick - age, min=0)
+    max_wait = torch.max(torch.where(wants, wait, torch.zeros_like(wait)))
+    if host_reads:
+        bool(max_wait >= B * B - 1)
+    wc = torch.clamp(wait, max=B * B - 1)
+    c, f = wc // B, wc % B
+    bins = torch.arange(B, dtype=torch.int32, device=wait.device)
+    hist_c = torch.sum(((c[:, None] == bins[None, :]) & wants[:, None])
+                       .to(torch.int32), dim=0, dtype=torch.int32)
+    cstar, slots_c = netmod._boundary_of(hist_c, spec.send_slots)
+    if host_reads:
+        int(cstar)
+    in_c = wants & (c == cstar)
+    hist_f = torch.sum(((f[:, None] == bins[None, :]) & in_c[:, None])
+                       .to(torch.int32), dim=0, dtype=torch.int32)
+    fstar, slots_f = netmod._boundary_of(hist_f, slots_c)
+    if host_reads:
+        int(fstar)
+    adm = torch.stack([tick.to(torch.int32), cstar.to(torch.int32),
+                       fstar.to(torch.int32),
+                       torch.as_tensor(slots_f).to(torch.int32)])
+    send = tuple(s.contiguous() for s in send)
+    return pend, send, running, enab_ok, eg_latency, eg_loss, u, adm
+
+
+def front_v1_kernel(torch, lib, pend, send, running, enab_ok, eg_latency,
+                    eg_loss, u, adm):
+    """The earlier kernel alone: zeroed counters, then its two launches
+    (per-block boundary counts, then ranks and lanes)."""
+    from testground_tpu_torch.sim import deliver_front as df
+
+    n, P = send[4].shape
+    i32, f32 = torch.int32, torch.float32
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=running.device)
+
+    out = {"pend_dest": empty(n, i32), "pend_tick": empty(n, i32),
+           "pend_tag": empty(n, i32), "pend_port": empty(n, i32),
+           "pend_size": empty(n, f32), "pend_pay": empty((n, P), f32)}
+    sd2, eff_tag, eff_port = empty(n, i32), empty(n, i32), empty(n, i32)
+    eff_size, eff_pay, visible = empty(n, f32), empty((n, P), f32), \
+        empty(n, f32)
+    data_ok = empty(n, torch.bool)
+    counters = torch.zeros(3, dtype=i32, device=running.device)
+    block_counts = empty(max(lib.deliver_front_blocks(n), 1), i32)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = lib.deliver_front_launch(
+        n, P, *[ptr(pend[k]) for k in df._PEND_KEYS], *map(ptr, send),
+        ptr(running), ptr(enab_ok), ptr(eg_latency), ptr(eg_loss), ptr(u),
+        ptr(adm), *[ptr(out[k]) for k in df._PEND_KEYS], ptr(sd2),
+        ptr(eff_tag), ptr(eff_port), ptr(eff_size), ptr(eff_pay),
+        ptr(visible), ptr(data_ok), ptr(counters), ptr(block_counts),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"deliver_front_v1 launch failed: cudaError {err}")
+    return (out, sd2, eff_tag, eff_port, eff_size, eff_pay, visible, data_ok,
+            counters)
+
+
+def front_v1(torch, lib, net, spec, tick, key, send, running, n,
+             host_reads=False):
+    """The earlier dispatch of the fused front, whole: its glue, its
+    kernel and the record build (these states take its kernel branch)."""
+    from testground_tpu_torch.sim import net as netmod
+
+    ins = front_v1_inputs(torch, net, spec, tick, key, send, running, n,
+                          host_reads)
+    (out, sd2, eff_tag, eff_port, eff_size, eff_pay, visible, data_ok,
+     counters) = front_v1_kernel(torch, lib, *ins)
+    rec, dest_app, sanitized = netmod.build_records(
+        visible, eff_tag, eff_port, eff_size, eff_pay, data_ok, sd2)
+    return out, rec, dest_app, torch.cat([counters, sanitized[None]])
 
 
 # ------------------------------------------------------------ merge inputs
@@ -244,10 +457,8 @@ def bit_equal(torch, a, b):
     return same, err
 
 
-def device_ms(torch, fn, reps):
-    """Device time of one ``fn()`` call: captured once in a CUDA graph and
-    replayed ``reps`` times between two CUDA events (host overhead out).
-    Returns (ms, how)."""
+def _warm(torch, fn):
+    """Three calls on a side stream, as CUDA-graph capture wants."""
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
@@ -255,9 +466,28 @@ def device_ms(torch, fn, reps):
             fn()
     torch.cuda.current_stream().wait_stream(s)
     torch.cuda.synchronize()
+
+
+def graph_of(torch, fn, calls=1):
+    """``fn()`` captured ``calls`` times in one CUDA graph (a host read
+    inside fails the capture); returns (graph, the last captured call's
+    output tensors)."""
+    _warm(torch, fn)
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        fn()
+        for _ in range(calls):
+            out = fn()
+    return g, out
+
+
+def device_ms(torch, fn, reps, calls=1):
+    """Device time of one ``fn()`` call: ``calls`` calls captured in one
+    CUDA graph, replayed ``reps`` times between two CUDA events. A replay
+    costs the host ~7 us whatever the graph holds, so a call shorter than
+    that needs ``calls`` > 1 to be timed on the device and not on the
+    host; consecutive calls in a graph still pay the gap between kernels.
+    Returns (ms, how)."""
+    g, _ = graph_of(torch, fn, calls)
     g.replay()
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -267,7 +497,14 @@ def device_ms(torch, fn, reps):
         g.replay()
     e1.record()
     torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps, "cuda-graph replay"
+    return (e0.elapsed_time(e1) / (reps * calls),
+            f"cuda-graph replay, {calls} calls a graph")
+
+
+def calls_for(n):
+    """Calls a graph for a shape of n lanes (rows): 20 at 10k and below,
+    where a call takes less than the replay's host cost."""
+    return 20 if n <= 10_000 else 1
 
 
 def eager_ms(torch, fn, reps):
@@ -289,75 +526,173 @@ def nbytes(ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-def kernel_phase(torch, np, dev, report):
+def front_bytes(ins, out):
+    """The bytes the front must move: each input read once, each output
+    written once."""
+    pend, send, *rest = ins
+    return nbytes(list(pend.values()) + list(send)
+                  + [t for t in rest[:-1]] + flat_outputs(out))
+
+
+def kernel_phase(torch, np, dev, report, sizes=(10_000, 1_000_003)):
+    """[3] the deliver-front kernel against its plain version on every
+    regime and starvation state at N = 10,000 and 1,000,003, the whole
+    dispatch against ``front_reference``, times against the bound; then
+    the whole dispatch captured in a CUDA graph (bit-equal to its eager
+    call) and timed beside the earlier dispatch (``front_v1``)."""
+    from testground_tpu_torch.kernels import deliver_front as kern
     from testground_tpu_torch.sim import deliver_front as df
 
-    rows = []
+    starved_names = {name for name, _, _ in STARVATION}
+    v1 = _v1_library()
+    rows, dispatch = [], []
     max_err = 0.0
-    for n in (10_000, 1_000_003):
-        for name, seed, kw in REGIMES:
+    for n in sizes:
+        plan = kern.plan(n, device=dev)
+        log(f"  plan n={n:,d}: {plan}")
+        reps = 50
+        calls = calls_for(n)
+        for name, seed, kw in REGIMES + STARVATION:
             net, spec, send, running, tick, key = front_case(
                 torch, np, n, seed, dev, **kw)
             ins = lane_inputs(torch, net, spec, send, running, tick, key, n)
+            launches = df.front_lanes.launches
             got = df.front_lanes(*ins)
+            assert df.front_lanes.launches == launches + 1, "no launch"
             want = df.front_lanes_plain(*ins)
             ok, err = bit_equal(torch, flat_outputs(got), flat_outputs(want))
             max_err = max(max_err, err)
             if not ok:
                 raise AssertionError(f"kernel != plain: {name} @ {n}")
-            # the whole dispatch (glue + kernel + record build) against
-            # the reference transcription of net.deliver's front
-            before = df.front.kernel_ticks
+            # the whole dispatch (kernel + record build) against the
+            # reference transcription of net.deliver's front
             disp = df.front(net, spec, tick, key, send, running, n)
-            assert df.front.kernel_ticks == before + 1, "took the reference"
-            ref = df.front_reference(
-                spec, tick, ins[6], send, running, ins[0], ins[4], ins[5],
-                ins[3])
+            ref = reference_of(torch, net, spec, ins)
             ok, _ = bit_equal(torch, flat_outputs(disp), flat_outputs(ref))
             if not ok:
                 raise AssertionError(f"front != reference: {name} @ {n}")
-            reps = 200 if n <= 10_000 else 50
-            k_ms, how = device_ms(torch, lambda: df.front_lanes(*ins), reps)
+            k_ms, how = device_ms(torch, lambda: df.front_lanes(*ins), reps,
+                                  calls)
             p_ms, _ = device_ms(torch, lambda: df.front_lanes_plain(*ins),
-                                reps)
+                                reps, calls)
             k_eager = eager_ms(torch, lambda: df.front_lanes(*ins), reps)
-            moved = nbytes(
-                [t for t in ins if not isinstance(t, (dict, tuple))]
-                + list(ins[0].values()) + list(ins[1])
-                + flat_outputs(got)
-            )
+            moved = front_bytes(ins, got)
             bound_ms = moved / HBM_BYTES_PER_S * 1e3
-            row = {
-                "regime": name, "n": n, "bit_equal": True,
-                "kernel_ms": k_ms, "plain_ms": p_ms,
+            rows.append({
+                "regime": name, "n": n, "starved_case": name in starved_names,
+                "bit_equal": True, "kernel_ms": k_ms, "plain_ms": p_ms,
                 "kernel_eager_ms": k_eager, "bound_ms": bound_ms,
-                "bytes": moved, "timing": how,
-            }
-            rows.append(row)
-            log(f"  front {name:18s} n={n:>9,d}: kernel {k_ms:.4f} ms "
+                "bound_share": bound_ms / k_ms, "bytes": moved,
+                "timing": how,
+            })
+            log(f"  front {name:27s} n={n:>9,d}: kernel {k_ms:.4f} ms "
                 f"(eager {k_eager:.4f}), plain {p_ms:.4f} ms, bound "
-                f"{bound_ms:.5f} ms ({moved:,d} B), bit-equal")
+                f"{bound_ms:.5f} ms ({100 * bound_ms / k_ms:.0f}%), "
+                "bit-equal to plain and reference")
+            del net, send, running, ins, got, want, disp, ref
 
-    # starvation: waits past 4095 ticks must take the reference branch
-    n = 10_000
-    net, spec, send, running, tick, key = front_case(
-        torch, np, n, 7, dev, tick=5000)
-    rng = np.random.default_rng(7)
-    net["pend_tick"] = torch.as_tensor(
-        (5000 - rng.integers(0, 4600, n)).astype(np.int32), device=dev)
-    launches, refs = df.front_lanes.launches, df.front.reference_ticks
-    disp = df.front(net, spec, tick, key, send, running, n)
-    assert df.front.reference_ticks == refs + 1, "starvation took the kernel"
-    assert df.front_lanes.launches == launches
-    ins = lane_inputs(torch, net, spec, send, running, tick, key, n)
-    ref = df.front_reference(spec, tick, ins[6], send, running, ins[0],
-                             ins[4], ins[5], ins[3])
-    ok, _ = bit_equal(torch, flat_outputs(disp), flat_outputs(ref))
-    assert ok, "starvation branch != reference"
-    log("  starvation state: reference branch taken, bit-equal")
+        # the whole front dispatch: captured in a CUDA graph (so no host
+        # read), replayed bit-equal to its eager call; timed beside the
+        # earlier dispatch in turns (old, new, new, old)
+        net, spec, send, running, tick, key = front_case(
+            torch, np, n, 0, dev)
+
+        def new():
+            return df.front(net, spec, tick, key, send, running, n)
+
+        def old():
+            return front_v1(torch, v1, net, spec, tick, key, send, running, n)
+
+        def old_eager():
+            return front_v1(torch, v1, net, spec, tick, key, send, running, n,
+                            host_reads=True)
+
+        eager_out = new()
+        g, captured = graph_of(torch, new)
+        for buf in flat_outputs(captured):
+            buf.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        ok, _ = bit_equal(torch, flat_outputs(captured),
+                          flat_outputs(eager_out))
+        assert ok, f"graph replay != eager front @ {n}"
+        ok, _ = bit_equal(torch, flat_outputs(old()), flat_outputs(eager_out))
+        assert ok, f"earlier dispatch != front @ {n}"
+        old_a, _ = device_ms(torch, old, reps, calls)
+        new_a, _ = device_ms(torch, new, reps, calls)
+        new_b, _ = device_ms(torch, new, reps, calls)
+        old_b, _ = device_ms(torch, old, reps, calls)
+        new_e = eager_ms(torch, new, reps)
+        old_e = eager_ms(torch, old_eager, reps)
+        # the two kernels alone, on the same state, in turns
+        ins = lane_inputs(torch, net, spec, send, running, tick, key, n)
+        v1_ins = front_v1_inputs(torch, net, spec, tick, key, send, running,
+                                 n)
+        kv1_a, _ = device_ms(
+            torch, lambda: front_v1_kernel(torch, v1, *v1_ins), reps, calls)
+        k_a, _ = device_ms(torch, lambda: df.front_lanes(*ins), reps, calls)
+        k_b, _ = device_ms(torch, lambda: df.front_lanes(*ins), reps, calls)
+        kv1_b, _ = device_ms(
+            torch, lambda: front_v1_kernel(torch, v1, *v1_ins), reps, calls)
+        drow = {"n": n, "graph_replay_bit_equal": True,
+                "new_graph_ms": [new_a, new_b], "old_graph_ms": [old_a, old_b],
+                "new_eager_ms": new_e, "old_eager_ms": old_e,
+                "kernel_ms": [k_a, k_b], "old_kernel_ms": [kv1_a, kv1_b]}
+        dispatch.append(drow)
+        log(f"  dispatch n={n:>9,d}: captured and replayed bit-equal; "
+            f"graph new {new_a:.4f}/{new_b:.4f} ms vs earlier "
+            f"{old_a:.4f}/{old_b:.4f} ms; eager new {new_e:.4f} ms vs "
+            f"earlier {old_e:.4f} ms (with its host reads); kernel alone "
+            f"new {k_a:.4f}/{k_b:.4f} ms vs earlier {kv1_a:.4f}/"
+            f"{kv1_b:.4f} ms")
+        del net, send, running, g, captured, eager_out, ins, v1_ins
     report["front"] = rows
+    report["front_dispatch"] = dispatch
     report["front_max_abs_err"] = max_err
     return rows, max_err
+
+
+FRONT_PHASES = ("start", "A: lanes loaded", "A: histogram published",
+                "grid barrier", "B: boundary found", "C: rank base",
+                "D: lanes written", "end")
+
+
+def front_trace_phase(torch, np, dev, report):
+    """[3a] where the deliver-front kernel's time goes: the build with
+    -DFRONT_TRACE, in which each block stamps %globaltimer at its phase
+    boundaries (after a block barrier) into the scratch; per phase the
+    median and the latest block, in us from the first block's start."""
+    import ctypes
+
+    from testground_tpu_torch.kernels import build as kbuild
+    from testground_tpu_torch.kernels import deliver_front as kern
+
+    lib = kern.bind(ctypes.CDLL(str(kbuild.build(*TRACE_BUILD)[0])))
+    # the scratch ends with trace[kMaxGrid = 1024][8] (csrc/deliver_front.cu)
+    off = lib.deliver_front_scratch_bytes() - 1024 * 8 * 8
+    rows = []
+    for n, case in ((10_000, "oversubscribed"), (10_000, "nothing_fresh"),
+                    (1_000_003, "mixed"), (1_000_003, "straddle_4095")):
+        name, seed, kw = next(c for c in REGIMES + STARVATION if c[0] == case)
+        net, spec, send, running, tick, key = front_case(
+            torch, np, n, seed, dev, **kw)
+        ins = lane_inputs(torch, net, spec, send, running, tick, key, n)
+        grid = kern.plan(n, device=dev)["grid"]
+        for _ in range(5):
+            kern.launch(*ins, lib=lib)
+        torch.cuda.synchronize()
+        buf = kern._scratch[(lib._name, dev.index)]
+        tr = (buf[off:off + grid * 64].cpu().numpy().view(np.uint64)
+              .reshape(grid, 8).astype(np.int64))
+        rel = (tr - tr[:, 0].min()) / 1e3
+        row = {"case": case, "n": n, "grid": grid,
+               "median_us": [float(np.median(rel[:, k])) for k in range(8)],
+               "latest_us": [float(rel[:, k].max()) for k in range(8)]}
+        rows.append(row)
+        log(f"  phases {case} n={n:,d} ({grid} blocks): " + "; ".join(
+            f"{p} {m:.2f}/{x:.2f}" for p, m, x in zip(
+                FRONT_PHASES, row["median_us"], row["latest_us"])))
+    report["front_phases"] = rows
 
 
 def merge_phase(torch, np, dev, report):
@@ -378,10 +713,12 @@ def merge_phase(torch, np, dev, report):
             raise AssertionError(f"ring merge kernel != plain: {label} "
                                  f"{case} @ {n}")
         reps = 200 if n <= 10_000 else 20
-        k_ms, how = device_ms(torch, lambda: rm.merge(ring, w, k, arr), reps)
+        calls = calls_for(n)
+        k_ms, how = device_ms(torch, lambda: rm.merge(ring, w, k, arr), reps,
+                              calls)
         p_ms, _ = device_ms(torch, lambda: rm.merge_plain(ring, w, k, arr),
-                            reps)
-        c_ms, _ = device_ms(torch, ring.clone, reps)
+                            reps, calls)
+        c_ms, _ = device_ms(torch, ring.clone, reps, calls)
         # each output cell is read from the staging if a record lands
         # there, else from the ring, so the reads of both together are
         # one ring's worth whatever k_eff holds; plus the ring written
@@ -457,8 +794,8 @@ def gossipsub_exec(n, device, chunk_ticks=32):
 
 
 def reset_launch_counts() -> None:
-    """Every kernel wrapper's launch count (and the front's dispatch
-    counts) to 0, just before a main-path run."""
+    """Every kernel wrapper's launch count to 0, just before a main-path
+    run."""
     from testground_tpu_torch.sim import deliver_front as df
     from testground_tpu_torch.sim import ring_merge as rm
 
@@ -494,10 +831,6 @@ def dht_phase(torch, dev, report, key, pallas_front, chunk_ticks=32,
         "ok": int((st == 1).sum()), "failed": int((st == 2).sum()),
         "crashed": int((st == 3).sum()),
         "launches": launches, "merge_launches": merges,
-        "kernel_ticks": df.front.kernel_ticks,
-        "reference_ticks": df.front.reference_ticks,
-        "host_reads": df.front.host_reads,
-        "host_read_seconds": df.front.host_read_seconds,
         "egress_overflow": res.net_egress_overflow(),
         "net_dropped": res.net_dropped(),
         "metrics_dropped": res.metrics_dropped(),
@@ -510,27 +843,23 @@ def dht_phase(torch, dev, report, key, pallas_front, chunk_ticks=32,
         f"executed), {out['wall_seconds']:.3f} s wall "
         f"({out['ms_per_tick']:.2f} ms/tick); {out['ok']} ok / "
         f"{out['failed']} failed / {out['crashed']} churned; front "
-        f"launches {launches}, merge launches {merges}, reference ticks "
-        f"{out['reference_ticks']}, host reads {out['host_reads']} "
-        f"({out['host_read_seconds']:.3f} s)")
+        f"launches {launches}, merge launches {merges}")
     assert not res.timed_out(), f"timed out at tick {res.ticks}"
     assert out["egress_overflow"] == 0, "egress overflow"
     assert out["net_dropped"] == 0, "inbox drops"
     assert out["metrics_dropped"] == 0, "metric ring too small"
     assert out["ok"] > 0
-    # every loop iteration runs the bounded append, so the ring merge;
-    # iterations past the end of the run (the rest of the last chunk)
-    # are identities but launch all the same
-    iters = out["kernel_ticks"] + out["reference_ticks"]
+    # every loop iteration runs the front (fused front only) and the
+    # bounded append, so the ring merge, once each; iterations past the
+    # end of the run (the rest of the last chunk) are identities but
+    # launch all the same
+    assert (out["ticks_executed"] <= merges
+            < out["ticks_executed"] + chunk_ticks), (
+        merges, out["ticks_executed"])
     if pallas_front:
-        assert launches > 0 and launches == out["kernel_ticks"], (
-            launches, out["kernel_ticks"])
-        assert merges == iters, (merges, iters)
+        assert launches == merges, (launches, merges)
     else:
-        assert launches == 0 and iters == 0, (launches, iters)
-        assert (out["ticks_executed"] <= merges
-                < out["ticks_executed"] + chunk_ticks), (
-            merges, out["ticks_executed"])
+        assert launches == 0, launches
     return out, res.state
 
 
@@ -720,8 +1049,10 @@ def main() -> int:
         f" cuda {torch.version.cuda}")
 
     # one nvcc per source, started together
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        built = dict(zip(KERNELS, pool.map(kbuild.build, KERNELS)))
+    with ThreadPoolExecutor(len(BUILDS)) as pool:
+        built = dict(zip(
+            [name + "".join(f" -D{d}" for d in defs) for name, defs in BUILDS],
+            pool.map(lambda b: kbuild.build(*b), BUILDS)))
     report["build_seconds"] = {k: b[1] for k, b in built.items()}
     for kname, (path, build_s) in built.items():
         log(f"[2] built {kname}: {build_s:.2f} s -> {path.name}")
@@ -733,6 +1064,8 @@ def main() -> int:
 
     log("[3] deliver-front kernel vs plain on the card")
     rows, max_err = kernel_phase(torch, np, dev, report)
+    log("[3a] deliver-front kernel phases (-DFRONT_TRACE build)")
+    front_trace_phase(torch, np, dev, report)
     log("[3b] ring-merge kernel vs plain on the card")
     merge_rows, merge_err = merge_phase(torch, np, dev, report)
     log("[3c] ring-merge microbenchmark (plain vs kernel)")

@@ -38,16 +38,20 @@ def nvcc_path() -> str:
     )
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: tuple = ()) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for d in defines:
+        h.update(d.encode())
+    tag = "".join(f"-{d.lower()}" for d in defines)
+    return BUILD / f"lib{name}{tag}-{h.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> tuple[Path, float]:
-    """Compile ``csrc/<name>.cu`` unless its library exists; returns the
-    library path and the seconds spent compiling (0.0 when cached)."""
-    out = library_path(name)
+def build(name: str, defines: tuple = ()) -> tuple[Path, float]:
+    """Compile ``csrc/<name>.cu`` (with ``-D`` of each of ``defines``)
+    unless its library exists; returns the library path and the seconds
+    spent compiling (0.0 when cached)."""
+    out = library_path(name, defines)
     if out.exists():
         return out, 0.0
     BUILD.mkdir(parents=True, exist_ok=True)
@@ -56,6 +60,7 @@ def build(name: str) -> tuple[Path, float]:
     cmd = [
         nvcc_path(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
         "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        *(f"-D{d}" for d in defines),
         "-o", tmp, str(CSRC / f"{name}.cu"),
     ]
     t0 = time.monotonic()

@@ -1,40 +1,38 @@
-"""The fused entry-mode deliver front: egress queue + FIFO admission +
-loss/latency masks, per lane, as one hand-written CUDA kernel.
+"""The fused entry-mode deliver front: viability, egress queue, FIFO
+admission (both of its branches), loss and latency masks, per lane, as
+one hand-written CUDA kernel in one launch.
 
 Counterpart of ``testground_tpu/sim/pallas_front.py``, whose Pallas TPU
 kernel (``_kernel``, launched by ``_front_kernel``, dispatched by
-``front``) this module's kernel replaces. The kernel itself is
+``front``) this module's kernel replaces, together with the admission
+histograms and the ``lax.cond`` around it. The kernel itself is
 ``testground_tpu_torch/csrc/deliver_front.cu``; its build and ctypes
 binding are ``testground_tpu_torch/kernels/deliver_front.py``.
 
-Pieces, in the order the dispatch runs them:
+Pieces:
 
 - ``eligible``: the static feature-set gate (entry mode + egress queue,
   dial-free, filter-free, iid loss and latency only, ``n < 2**24``),
   unchanged from the JAX package so the port raises where it raises;
-- the glue outside the kernel: the two 64-bucket wait histograms and
-  ``_boundary_of`` give the admission scalars ``(tick, cstar, fstar,
-  slots_f)``, which stay on the device;
-- ``front_lanes``: the kernel's wrapper. A CUDA tensor launches the
-  kernel (or raises); a CPU tensor takes ``front_lanes_plain``, the
-  plain torch version of the same function. ``front_lanes.launches``
-  counts kernel launches;
-- the record build and ``sanitize_records`` stay outside the kernel, as
-  in the JAX package;
-- ``front``: the dispatch. Waits past ``B*B - 1 = 4095`` ticks lose
-  bucket resolution, so those ticks take ``front_reference`` instead (a
-  semantic branch of the JAX package, not a fallback; counted in
-  ``front.reference_ticks``). Deciding it reads one scalar back to the
-  host per tick (``front.host_reads``, ``front.host_read_seconds``).
+- ``front_lanes``: the kernel's wrapper, the whole front up to the
+  records. A CUDA tensor launches the kernel (or raises); a CPU tensor
+  takes ``front_lanes_plain``, the plain torch version of the same
+  function. ``front_lanes.launches`` counts kernel launches. The JAX
+  package's two branches (the counting admitter while every wait is
+  below 4095 ticks, the sort admitter past it) are both inside, chosen
+  on the device: nothing is read back to the host;
+- ``front``: the dispatch, ``front_lanes`` then the record build and
+  ``sanitize_records`` (outside the kernel, as in the JAX package);
+- ``front_reference``: the net.deliver front restricted to the eligible
+  feature set, the contract both branches are held to.
 
 Bit-exactness: the kernel, the plain version and ``front_reference``
-produce identical outputs (tests/test_torch_front.py on the CPU;
-chip_smoke.py on the card).
+produce identical outputs, and ``front`` equals the JAX package's
+``pallas_front.front`` (tests/test_torch_front.py on the CPU;
+chip_smoke.py and tests/test_torch_cuda.py on the card).
 """
 
 from __future__ import annotations
-
-import time
 
 import torch
 
@@ -80,9 +78,10 @@ _PEND_KEYS = (
 def front_reference(spec, tick, u_loss, send, running, pend, eg_latency,
                     eg_loss, enab_ok):
     """The net.deliver front restricted to the eligible feature set: the
-    starvation branch of ``front`` and the contract the kernel is held
-    to. The JAX package's ``_front_reference``, through the same egress
-    queue and record build as the default front (sim/net.py)."""
+    contract both admission branches of the kernel are held to, given
+    the viability mask ``enab_ok`` (``viability``). The JAX package's
+    ``_front_reference``, through the same egress queue and record build
+    as the default front (sim/net.py)."""
     n = send[0].shape[0]
     t = tick.to(torch.float32)
     out, capped, ctr3 = netmod.egress_queue(pend, tick, send, running,
@@ -103,6 +102,19 @@ def front_reference(spec, tick, u_loss, send, running, pend, eg_latency,
     return out, rec, dest_app, torch.cat([ctr3, sanitized_add[None]])
 
 
+def viability(pend_dest, send_dest, running, net_enabled):
+    """Destination viability on the EFFECTIVE dest (pre-admission): the
+    lane's host is enabled, and so is the dest's, which also runs. For
+    admitted lanes it equals the default front's post-admission gather;
+    other lanes never read it."""
+    n = send_dest.shape[0]
+    pd0 = torch.where((pend_dest >= 0) & ~running, -1, pend_dest)
+    eff_dest = torch.where(pd0 >= 0, pd0, send_dest)
+    dest_ok = ((net_enabled > 0) & running).to(torch.int32)
+    return (net_enabled > 0) & (dest_ok[torch.clamp(eff_dest, 0, n - 1)]
+                                > 0)
+
+
 def _visible(t, eg_latency, n):
     """max(t + max(lat, 0), t + 1) per lane (NaN-propagating maxima, as
     jnp.maximum)."""
@@ -114,21 +126,23 @@ def _visible(t, eg_latency, n):
     )
 
 
-def front_lanes_plain(pend, send, running, enab_ok, eg_latency, eg_loss,
-                      u_loss, adm_scal):
-    """The kernel's function in plain torch: per lane, abandon a dead
-    lane's pending send, merge the pending slot with the new send, admit
-    against the boundary scalars ``adm_scal = (tick, cstar, fstar,
-    slots_f)`` with an exclusive prefix rank inside the boundary bucket,
-    write the new pend lanes, and mask loss and visibility.
+def front_lanes_plain(pend, send, running, net_enabled, eg_latency,
+                      eg_loss, u_loss, tick, send_slots):
+    """The kernel's function in plain torch: per lane, destination
+    viability on the effective dest, abandon a dead lane's pending send,
+    merge the pending slot with the new send, admit ``send_slots`` lanes
+    oldest first, write the new pend lanes, and mask loss and
+    visibility. The admission is the JAX package's: the two-level
+    counting admitter (64 coarse x 64 fine wait buckets, an exclusive
+    lane-order rank inside the boundary bucket) while the largest wait
+    of a wanting lane is below 4095, its sort admitter from 4095 on,
+    selected with ``torch.where`` on the device.
 
     Returns ``(pend_out, sd2, eff_tag, eff_port, eff_size, eff_pay,
     visible, data_ok, counters[3])`` with counters = (abandoned,
     deferred + stash, overflow)."""
     send_dest, send_tag, send_port, send_size, send_pay = send
     n = send_dest.shape[0]
-    tick, cstar, fstar, slots_f = adm_scal[0], adm_scal[1], adm_scal[2], \
-        adm_scal[3]
     t = tick.to(torch.float32)
     pd = pend["pend_dest"]
     ptick = pend["pend_tick"]
@@ -142,18 +156,16 @@ def front_lanes_plain(pend, send, running, enab_ok, eg_latency, eg_loss,
     eff_port = torch.where(hp, pend["pend_port"], send_port)
     eff_size = torch.where(hp, pend["pend_size"], send_size)
     eff_pay = torch.where(hp[:, None], pend["pend_pay"], send_pay)
+    enab_ok = viability(pd, send_dest, running, net_enabled)
     wants = (eff_dest >= 0) & running
     age = torch.where(hp, ptick, tick)
-    wait = torch.clamp(tick - age, min=0)
-    wc = torch.clamp(wait, max=_B * _B - 1)
-    c = wc // _B
-    f = wc % _B
-    in_bf = wants & (c == cstar) & (f == fstar)
-    in_bf_i = in_bf.to(torch.int32)
-    pr = torch.cumsum(in_bf_i, 0, dtype=torch.int32) - in_bf_i
-    go = wants & (
-        (c > cstar) | ((c == cstar) & (f > fstar)) | (in_bf & (pr < slots_f))
-    )
+    wait = netmod.wait_of(tick, age)
+    max_wait = torch.max(torch.where(wants, wait, torch.zeros_like(wait)))
+    go_sort = wants & netmod._sort_admit(
+        torch.where(wants, age, torch.full_like(age, netmod._INT32_MAX)),
+        send_slots, n)
+    go = torch.where(max_wait >= netmod._STARVED_WAIT, go_sort,
+                     _count_admit(wants, wait, send_slots))
     deferred = wants & ~go
     ovf = deferred & hp & nv
     stash = ~deferred & hp & nv
@@ -194,28 +206,11 @@ def front_lanes_plain(pend, send, running, enab_ok, eg_latency, eg_loss,
             data_ok, counters)
 
 
-def front_lanes(pend, send, running, enab_ok, eg_latency, eg_loss, u_loss,
-                adm_scal):
-    """The deliver-front kernel's wrapper (same contract as
-    ``front_lanes_plain``). CUDA tensors launch the kernel and bump
-    ``front_lanes.launches``; CPU tensors take the plain version."""
-    if running.is_cuda:
-        from ..kernels import deliver_front as kern
-
-        res = kern.launch(pend, send, running, enab_ok, eg_latency, eg_loss,
-                          u_loss, adm_scal)
-        front_lanes.launches += 1
-        return res
-    return front_lanes_plain(pend, send, running, enab_ok, eg_latency,
-                             eg_loss, u_loss, adm_scal)
-
-
-front_lanes.launches = 0
-
-
-def admission_scalars(tick, wants, wait, send_slots):
-    """The counting admitter's two-level boundary (the glue before the
-    kernel): int32 ``[tick, cstar, fstar, slots_f]`` on the device."""
+def _count_admit(wants, wait, send_slots):
+    """The JAX package's two-level counting admitter (``count_admit2``):
+    coarse buckets ``wc // 64`` and fine buckets ``wc % 64`` of ``wc =
+    min(wait, 4095)``, oldest first, and an exclusive lane-order rank
+    inside the boundary bucket. Exact while every wait is below 4095."""
     wc = torch.clamp(wait, max=_B * _B - 1)
     c = wc // _B
     f = wc % _B
@@ -231,51 +226,44 @@ def admission_scalars(tick, wants, wait, send_slots):
         dim=0, dtype=torch.int32,
     )
     fstar, slots_f = netmod._boundary_of(hist_f, slots_c)
-    return torch.stack(
-        [tick.to(torch.int32), cstar.to(torch.int32), fstar.to(torch.int32),
-         torch.as_tensor(slots_f).to(torch.int32)]
-    )
+    in_bf = in_c & (f == fstar)
+    in_bf_i = in_bf.to(torch.int32)
+    pr = torch.cumsum(in_bf_i, 0, dtype=torch.int32) - in_bf_i
+    return wants & ((c > cstar) | (in_c & (f > fstar))
+                    | (in_bf & (pr < slots_f)))
+
+
+def front_lanes(pend, send, running, net_enabled, eg_latency, eg_loss,
+                u_loss, tick, send_slots):
+    """The deliver-front kernel's wrapper (same contract as
+    ``front_lanes_plain``). CUDA tensors launch the kernel and bump
+    ``front_lanes.launches``; CPU tensors take the plain version."""
+    if running.is_cuda:
+        from ..kernels import deliver_front as kern
+
+        res = kern.launch(pend, send, running, net_enabled, eg_latency,
+                          eg_loss, u_loss, tick, send_slots)
+        front_lanes.launches += 1
+        return res
+    return front_lanes_plain(pend, send, running, net_enabled, eg_latency,
+                             eg_loss, u_loss, tick, send_slots)
+
+
+front_lanes.launches = 0
 
 
 def front(net, spec, tick, rng_key, send, status_running, n):
-    """Dispatch: the kernel in the exact-bucket regime, ``front_reference``
-    past it (max wait >= 4095). Returns (pend updates, rec, dest_app,
-    counters[4]) with counters = [abandoned, deferred, overflow,
-    sanitized] deltas."""
-    send_dest = send[0]
-    running = status_running
+    """Dispatch: the kernel (both admission branches inside), then the
+    record build. Returns (pend updates, rec, dest_app, counters[4])
+    with counters = [abandoned, deferred, overflow, sanitized] deltas.
+    Reads nothing back to the host."""
     eg_latency = net.get("eg_latency")
     eg_loss = net.get("eg_loss")
     u_loss = prng.uniform(rng_key, (n,)) if eg_loss is not None else None
     pend = {k: net[k] for k in _PEND_KEYS}
-
-    # destination viability on the EFFECTIVE dest (pre-admission)
-    pd0 = torch.where((pend["pend_dest"] >= 0) & ~running, -1,
-                      pend["pend_dest"])
-    eff_dest = torch.where(pd0 >= 0, pd0, send_dest)
-    dest_ok = ((net["net_enabled"] > 0) & running).to(torch.int32)
-    g = dest_ok[torch.clamp(eff_dest, 0, n - 1)]
-    enab_ok = (net["net_enabled"] > 0) & (g > 0)
-
-    wants = (eff_dest >= 0) & running
-    age = torch.where(pd0 >= 0, net["pend_tick"], tick)
-    wait = torch.clamp(tick - age, min=0)
-    max_wait = torch.max(torch.where(wants, wait, torch.zeros_like(wait)))
-    t0 = time.perf_counter()
-    starved = bool(max_wait >= _B * _B - 1)  # the one host read per tick
-    front.host_read_seconds += time.perf_counter() - t0
-    front.host_reads += 1
-    if starved:
-        front.reference_ticks += 1
-        return front_reference(spec, tick, u_loss, send, running, pend,
-                               eg_latency, eg_loss, enab_ok)
-    front.kernel_ticks += 1
-    adm_scal = admission_scalars(tick, wants, wait, spec.send_slots)
-    # a phase's constant send field arrives as an expanded (stride-0) view
-    send = tuple(s.contiguous() for s in send)
     (pend_out, sd2, eff_tag, eff_port, eff_size, eff_pay, visible, data_ok,
-     ctr3) = front_lanes(pend, send, running, enab_ok, eg_latency, eg_loss,
-                         u_loss, adm_scal)
+     ctr3) = front_lanes(pend, send, status_running, net["net_enabled"],
+                         eg_latency, eg_loss, u_loss, tick, spec.send_slots)
     rec, dest_app, sanitized_add = netmod.build_records(
         visible, eff_tag, eff_port, eff_size, eff_pay, data_ok, sd2
     )
@@ -283,16 +271,6 @@ def front(net, spec, tick, rng_key, send, status_running, n):
     return pend_out, rec, dest_app, counters
 
 
-front.kernel_ticks = 0
-front.reference_ticks = 0
-front.host_reads = 0
-front.host_read_seconds = 0.0
-
-
 def reset_counters() -> None:
-    """Zero the launch and dispatch counters (before a measured run)."""
+    """Zero the launch count (before a measured run)."""
     front_lanes.launches = 0
-    front.kernel_ticks = 0
-    front.reference_ticks = 0
-    front.host_reads = 0
-    front.host_read_seconds = 0.0

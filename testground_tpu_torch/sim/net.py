@@ -240,22 +240,53 @@ def _boundary_of(hist, slots):
     sat = cum_ge >= slots
     ar = torch.arange(B, dtype=torch.int32, device=hist.device)
     bstar = torch.max(torch.where(sat, ar, torch.full_like(ar, -1)))
-    slots_left = slots - cum_gt[torch.clamp(bstar, min=0)]
+    # a gather, not cum_gt[bstar]: indexing by a 0-dim tensor reads it
+    # back to the host
+    slots_left = slots - cum_gt.gather(
+        0, torch.clamp(bstar, min=0).reshape(1).to(torch.int64))[0]
     return bstar, slots_left
 
 
-def _egress_admit(tick, age, wants, M, n):
-    """Admit the M oldest wanting lanes (age ascending, lane id breaking
-    ties): the egress queue's FIFO allocation. One exact lowering, a
-    stable sort; the JAX package's counting admitters bucket the wait
-    ``max(tick - age, 0)``, so ages past the tick sort as the tick."""
-    key = torch.where(
-        wants, torch.minimum(age, tick), torch.full_like(age, _INT32_MAX)
-    )
+_STARVED_WAIT = _ADMIT_BUCKETS * _ADMIT_BUCKETS - 1  # 4095
+
+
+def wait_of(tick, age):
+    """``max(tick - age, 0)`` with the int32 wraparound subtraction of
+    the JAX package (an age more than 2**31 ticks back wraps to a
+    negative difference, so to a wait of 0)."""
+    d = tick.to(torch.int64) - age.to(torch.int64)
+    d = torch.where(d > _INT32_MAX, d - 2**32, d)
+    d = torch.where(d < -(2**31), d + 2**32, d)
+    return torch.clamp(d, min=0).to(torch.int32)
+
+
+def _sort_admit(key, M, n):
+    """``rank < M`` of every lane in the stable ascending order of
+    ``key`` (lane id breaking ties): the JAX package's ``sort_admit``."""
     order = torch.sort(key, stable=True).indices
     rank = torch.empty_like(order)
     rank[order] = torch.arange(n, dtype=order.dtype, device=order.device)
-    return wants & (rank < M)
+    return rank < M
+
+
+def _egress_admit(tick, age, wants, M, n):
+    """Admit M wanting lanes, oldest first (lane id breaking ties): the
+    egress queue's FIFO allocation, as the JAX package decides it. With
+    ``max_wait`` the largest wait of a wanting lane (``wait_of``):
+    below 4095 its counting admitters order by the wait, descending;
+    from 4095 on its ``sort_admit`` orders every lane by ``age`` (raw,
+    so an age past the tick comes after the tick), a lane that does not
+    want keyed INT32_MAX, where it can take the rank of a wanting lane
+    of larger id and age INT32_MAX. One lowering of both: a stable sort
+    of a key chosen on the device."""
+    wait = wait_of(tick, age)
+    max_wait = torch.max(torch.where(wants, wait, torch.zeros_like(wait)))
+    key = torch.where(
+        wants,
+        torch.where(max_wait >= _STARVED_WAIT, age, -wait),
+        torch.full_like(age, _INT32_MAX),
+    )
+    return wants & _sort_admit(key, M, n)
 
 
 def _append_messages_bounded(net: dict, spec: NetSpec, dest, records,

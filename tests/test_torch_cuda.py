@@ -1,7 +1,8 @@
 """Card-only checks of the port (marked ``cuda``; they skip without a
 GPU): the deliver-front and ring-merge CUDA kernels against their plain
-torch versions on the same tensors, and the dht slice (fused front and
-default lowering) and gossipsub on the card against the port's CPU
+torch versions on the same tensors, the whole front dispatch captured
+in a CUDA graph against its eager call, and the dht slice (fused front
+and default lowering) and gossipsub on the card against the port's CPU
 path. This file imports no jax, so it runs on the GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -36,7 +37,7 @@ def _cuda():
 
 
 @pytest.mark.parametrize("n", [257, 10_000])
-@pytest.mark.parametrize("name,seed,kwargs", cs.REGIMES)
+@pytest.mark.parametrize("name,seed,kwargs", cs.REGIMES + cs.STARVATION)
 def test_kernel_matches_plain(name, seed, kwargs, n):
     dev = _cuda()
     net, spec, send, running, tick, key = cs.front_case(
@@ -50,6 +51,101 @@ def test_kernel_matches_plain(name, seed, kwargs, n):
     same, err = cs.bit_equal(torch, cs.flat_outputs(got),
                              cs.flat_outputs(want))
     assert same, (name, n, err)
+
+
+@pytest.mark.parametrize("name,seed,kwargs", [
+    cs.REGIMES[1], cs.REGIMES[5], cs.STARVATION[0], cs.STARVATION[6]])
+def test_kernel_large_plan_matches_plain(name, seed, kwargs):
+    """More lanes than one a thread on a resident grid: the plan of large
+    N (several tiles a block, lanes cached in shared memory, inputs read
+    in pass D), at a size the card-only tests can afford."""
+    from testground_tpu_torch.kernels import deliver_front as kern
+
+    dev = _cuda()
+    n = 300_007
+    plan = kern.plan(n, device=dev)
+    assert plan["cache"] and not plan["small"] and plan["tiles"] > 1, plan
+    net, spec, send, running, tick, key = cs.front_case(
+        torch, np, n, seed, dev, **kwargs)
+    ins = cs.lane_inputs(torch, net, spec, send, running, tick, key, n)
+    got = df.front_lanes(*ins)
+    want = df.front_lanes_plain(*ins)
+    torch.cuda.synchronize()
+    same, err = cs.bit_equal(torch, cs.flat_outputs(got),
+                             cs.flat_outputs(want))
+    assert same, (name, err)
+
+
+@pytest.mark.parametrize("name,seed,kwargs", [
+    cs.REGIMES[1], cs.STARVATION[0], cs.STARVATION[4]])
+def test_kernel_uncached_plan_matches_plain(name, seed, kwargs):
+    """Blocks of 20,000 lanes: their classification no longer fits in
+    shared memory, so the kernel's later passes read it again from device
+    memory (the plan it takes past ~2M lanes)."""
+    from testground_tpu_torch.kernels import deliver_front as kern
+
+    dev = _cuda()
+    n = 300_007
+    assert not kern.plan(n, 20_000, dev)["cache"]
+    net, spec, send, running, tick, key = cs.front_case(
+        torch, np, n, seed, dev, **kwargs)
+    ins = cs.lane_inputs(torch, net, spec, send, running, tick, key, n)
+    got = kern.launch(*ins, lanes_per_block=20_000)
+    want = df.front_lanes_plain(*ins)
+    torch.cuda.synchronize()
+    same, err = cs.bit_equal(torch, cs.flat_outputs(got),
+                             cs.flat_outputs(want))
+    assert same, (name, err)
+
+
+@pytest.mark.parametrize("name,seed,kwargs", [
+    cs.REGIMES[0], cs.STARVATION[0], cs.STARVATION[7]])
+def test_front_graph_replay_matches_eager(name, seed, kwargs):
+    """deliver_front.front captured in a CUDA graph (the capture fails
+    on a host read) and replayed: bit-equal to the eager call."""
+    dev = _cuda()
+    n = 10_000
+    net, spec, send, running, tick, key = cs.front_case(
+        torch, np, n, seed, dev, **kwargs)
+
+    def call():
+        return df.front(net, spec, tick, key, send, running, n)
+
+    want = call()
+    g, got = cs.graph_of(torch, call)
+    for buf in cs.flat_outputs(got):
+        buf.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    same, err = cs.bit_equal(torch, cs.flat_outputs(got),
+                             cs.flat_outputs(want))
+    assert same, (name, err)
+
+
+def test_front_wrapper_refuses_bad_input():
+    dev = _cuda()
+    n = 300
+    net, spec, send, running, tick, key = cs.front_case(
+        torch, np, n, 0, dev)
+    ins = list(cs.lane_inputs(torch, net, spec, send, running, tick, key, n))
+    bad = dict(ins[0], pend_tick=ins[0]["pend_tick"].to(torch.int64))
+    with pytest.raises(TypeError):
+        df.front_lanes(bad, *ins[1:])
+    bad = dict(ins[0], pend_dest=ins[0]["pend_dest"][:-1])
+    with pytest.raises(ValueError):
+        df.front_lanes(bad, *ins[1:])
+    bad = dict(ins[0], pend_pay=ins[0]["pend_pay"].t().contiguous().t())
+    with pytest.raises(ValueError):  # not contiguous
+        df.front_lanes(bad, *ins[1:])
+    with pytest.raises(ValueError):  # eg_loss without u_loss
+        df.front_lanes(*ins[:6], None, *ins[7:])
+    # a constant send field arrives expanded (stride 0): taken as it is
+    send0 = list(ins[1])
+    send0[1] = torch.zeros((), dtype=torch.int32, device=dev).expand(n)
+    got = df.front_lanes(ins[0], tuple(send0), *ins[2:])
+    want = df.front_lanes_plain(ins[0], tuple(send0), *ins[2:])
+    torch.cuda.synchronize()
+    assert cs.bit_equal(torch, cs.flat_outputs(got), cs.flat_outputs(want))[0]
 
 
 def test_dht_gpu_matches_cpu():

@@ -1,12 +1,16 @@
 """The port's deliver front (testground_tpu_torch/sim/deliver_front.py)
 against the JAX package's fused Pallas front (sim/pallas_front.py, its
-kernel run in interpret mode on the CPU): the seven randomized regimes
-and the starvation state of tests/test_pallas_front.py, the eligibility
-gate over a grid of NetSpecs. Exact equality on every output, floats
-by their bits. (The CUDA kernel against its plain version is
-tests/test_torch_cuda.py, on a card.)"""
+kernel run in interpret mode on the CPU, its branch chosen by
+``lax.cond`` under ``jax.jit``): the seven randomized regimes and the
+starvation state of tests/test_pallas_front.py, the starvation and
+branch-edge states of chip_smoke.STARVATION, the plain version against
+``front_reference``, the eligibility gate over a grid of NetSpecs.
+Exact equality on every output, floats by their bits. (The CUDA kernel
+against its plain version is tests/test_torch_cuda.py, on a card.)"""
 
 import itertools
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +25,9 @@ from testground_tpu_torch.sim import deliver_front as df
 from testground_tpu_torch.sim import prng
 from testground_tpu_torch.sim.net import NetSpec as TNetSpec
 from testground_tpu_torch.sim.net import init_net_state as t_init_net_state
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke as cs  # noqa: E402
 
 
 def _spec_kw(n, loss=True, lat=True):
@@ -121,10 +128,8 @@ def test_front_matches_jax(seed, n, kwargs):
             net, jspec, jnp.int32(100), jax.random.PRNGKey(seed), send,
             running, n)
     )(jnet, jsend, jrun)
-    before = df.front.kernel_ticks
     got = df.front(tnet, tspec, torch.tensor(100, dtype=torch.int32),
                    prng.PRNGKey(seed), tsend, trun, n)
-    assert df.front.kernel_ticks == before + 1  # the kernel branch
     _assert_same(got, want)
 
 
@@ -154,19 +159,101 @@ def test_reference_matches_jax_reference(seed, n, kwargs):
 
 
 def test_front_starvation_takes_reference():
+    """Waits past 4095 ticks: the JAX front takes its reference branch
+    (``lax.cond`` under ``jax.jit``); the port's front, which decides
+    the branch on the device, equals it."""
     n, seed = 512, 7
     jspec, jnet, jsend, jrun, tspec, tnet, tsend, trun = _both(seed, n)
     rng = np.random.default_rng(seed)
     pend_tick = (5000 - rng.integers(0, 4600, n)).astype(np.int32)
     jnet["pend_tick"] = jnp.asarray(pend_tick)
     tnet["pend_tick"] = torch.from_numpy(pend_tick.copy())
-    want = pf.front(jnet, jspec, jnp.int32(5000), jax.random.PRNGKey(seed),
-                    jsend, jrun, n)
-    before = df.front.reference_ticks
+    want = jax.jit(
+        lambda net, send, running: pf.front(
+            net, jspec, jnp.int32(5000), jax.random.PRNGKey(seed), send,
+            running, n)
+    )(jnet, jsend, jrun)
     got = df.front(tnet, tspec, torch.tensor(5000, dtype=torch.int32),
                    prng.PRNGKey(seed), tsend, trun, n)
-    assert df.front.reference_ticks == before + 1
     _assert_same(got, want)
+
+
+def _case(n, seed, kw):
+    """A chip_smoke front state as both packages' inputs."""
+    arrs, send, running, tick, slots = cs.front_arrays(np, n, seed, **kw)
+    skw = cs.front_spec_kw(n, slots, kw.get("loss", True), kw.get("lat", True))
+    jspec, tspec = JNetSpec(**skw), TNetSpec(**skw, pallas_front=True)
+    jnet = dict(j_init_net_state(n, jspec))
+    tnet = t_init_net_state(n, tspec, "cpu")
+    for k, v in arrs.items():
+        jnet[k] = jnp.asarray(v)
+        tnet[k] = torch.from_numpy(v.copy())
+    return (jspec, jnet, tuple(map(jnp.asarray, send)), jnp.asarray(running),
+            tspec, tnet, tuple(torch.from_numpy(s.copy()) for s in send),
+            torch.from_numpy(running.copy()), tick)
+
+
+@pytest.mark.parametrize("name,seed,kwargs", cs.STARVATION)
+def test_front_starvation_matches_jax(name, seed, kwargs):
+    n = 512
+    jspec, jnet, jsend, jrun, tspec, tnet, tsend, trun, tick = _case(
+        n, seed, kwargs)
+    assert pf.eligible(jspec, n) and df.eligible(tspec, n)
+    want = jax.jit(
+        lambda net, send, running: pf.front(
+            net, jspec, jnp.int32(tick), jax.random.PRNGKey(seed), send,
+            running, n)
+    )(jnet, jsend, jrun)
+    got = df.front(tnet, tspec, torch.tensor(tick, dtype=torch.int32),
+                   prng.PRNGKey(seed), tsend, trun, n)
+    _assert_same(got, want)
+
+
+@pytest.mark.parametrize("name,seed,kwargs", cs.STARVATION)
+def test_reference_matches_jax_reference_starved(name, seed, kwargs):
+    """front_reference against the JAX package's _front_reference on the
+    starvation and branch-edge states."""
+    n = 512
+    jspec, jnet, jsend, jrun, tspec, tnet, tsend, trun, tick = _case(
+        n, seed, kwargs)
+    key = jax.random.PRNGKey(seed)
+    u = jax.random.uniform(key, (n,))
+    pd0 = jnp.where((jnet["pend_dest"] >= 0) & ~jrun, -1, jnet["pend_dest"])
+    eff = jnp.where(pd0 >= 0, pd0, jsend[0])
+    ok = ((jnet["net_enabled"] > 0) & jrun).astype(jnp.int32)
+    enab = (jnet["net_enabled"] > 0) & (ok[jnp.clip(eff, 0, n - 1)] > 0)
+    jpend = {k: jnet[k] for k in df._PEND_KEYS}
+    want = jax.jit(
+        lambda pend, send, running, u, enab: pf._front_reference(
+            jspec, jnp.int32(tick), u, send, running, pend,
+            jnet["eg_latency"], jnet["eg_loss"], enab)
+    )(jpend, jsend, jrun, u, enab)
+    tpend = {k: tnet[k] for k in df._PEND_KEYS}
+    t_enab = df.viability(tpend["pend_dest"], tsend[0], trun,
+                          tnet["net_enabled"])
+    np.testing.assert_array_equal(t_enab.numpy(), np.asarray(enab))
+    got = df.front_reference(
+        tspec, torch.tensor(tick, dtype=torch.int32),
+        torch.from_numpy(np.asarray(u).copy()), tsend, trun, tpend,
+        tnet["eg_latency"], tnet["eg_loss"], t_enab)
+    _assert_same(got, want)
+
+
+@pytest.mark.parametrize("name,seed,kwargs", cs.REGIMES + cs.STARVATION)
+def test_plain_matches_reference(name, seed, kwargs):
+    """front_lanes_plain (the kernel's plain version: the counting and
+    sort admitters, chosen on the device) plus the record build, against
+    front_reference (one stable sort, the egress queue of the default
+    front)."""
+    n = 700
+    net, spec, send, running, tick, key = cs.front_case(
+        torch, np, n, seed, "cpu", **kwargs)
+    ins = cs.lane_inputs(torch, net, spec, send, running, tick, key, n)
+    got = df.front(net, spec, tick, key, send, running, n)
+    want = cs.reference_of(torch, net, spec, ins)
+    same, _ = cs.bit_equal(torch, cs.flat_outputs(got),
+                           cs.flat_outputs(want))
+    assert same, name
 
 
 _GRID_FLAGS = ("store_entries", "uses_dials", "use_pair_rules", "uses_rate",

@@ -50,6 +50,57 @@ def test_egress_admit(seed, n, M, wait_span, wants_p):
     _eq(got, want)
 
 
+_I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+
+
+def _edge_ages(rng, mode, n, tick):
+    r = rng.random(n)
+    if mode == "starved_past_tick":  # sort by raw age: past the tick last
+        return np.where(r < 0.3, tick - 4200, tick + rng.integers(0, 3, n))
+    if mode == "starved_int32_max":  # ties with the lanes that do not want
+        return np.where(r < 0.3, tick - 4200,
+                        np.where(r < 0.5, tick, _I32_MAX))
+    if mode == "counting_int32_min":  # wraparound wait 0: admitted last
+        return np.where(r < 0.3, _I32_MIN + rng.integers(0, 5, n),
+                        tick - rng.integers(0, 40, n))
+    if mode == "starved_int32_min":  # raw age: admitted first
+        return np.where(r < 0.3, _I32_MIN + rng.integers(0, 5, n),
+                        np.where(r < 0.4, tick - 5000,
+                                 tick - rng.integers(0, 40, n)))
+    if mode == "edge_4094":
+        return tick - rng.integers(0, 4095, n)
+    assert mode == "edge_4095"
+    return tick - rng.integers(0, 4096, n)
+
+
+@pytest.mark.parametrize("mode,M", [
+    ("starved_past_tick", 200),
+    ("starved_int32_max", 330),
+    ("counting_int32_min", 150),
+    ("starved_int32_min", 150),
+    ("edge_4094", 100),
+    ("edge_4095", 100),
+])
+def test_egress_admit_edge_ages(mode, M):
+    """Ages past the tick, at INT32_MAX and near -2**31, and the largest
+    wait at the counting/sort edge: the JAX package orders by the
+    wraparound wait below 4095 and by the raw age from 4095 on."""
+    n, tick = 600, 5000
+    rng = np.random.default_rng(len(mode) * 7 + M)
+    age = np.asarray(_edge_ages(rng, mode, n, tick), np.int64)
+    if mode.startswith("edge"):
+        age[0] = tick - int(mode[-4:])  # the largest wait, on a wanting lane
+    age = age.astype(np.int32)
+    wants = rng.random(n) < 0.8
+    wants[0] = True
+    want = jax.jit(
+        lambda t, a, w: jn._egress_admit(t, a, w, M, n)
+    )(jnp.int32(tick), jnp.asarray(age), jnp.asarray(wants))
+    got = tn._egress_admit(torch.tensor(tick, dtype=torch.int32), _t(age),
+                           _t(wants), M, n)
+    _eq(got, want)
+
+
 def _ring_state(rng, N, spec):
     cap, W = spec.inbox_capacity, spec.width
     r = rng.integers(0, 1000, N).astype(np.int32)
