@@ -7,10 +7,9 @@ Phases, in order (any failure raises and the exit code is not 0):
 
 1. device report: the card's name, and its name and power limit as
    ``nvidia-smi`` gives them;
-2. build: both kernels from ``testground_tpu_torch/csrc``, and the
-   earlier deliver-front kernel (``deliver_front_v1.cu``, timed in
-   phase 3 only), one nvcc per source, started together, with their
-   build seconds;
+2. build: the three kernels from ``testground_tpu_torch/csrc`` and the
+   deliver-front kernel's -DFRONT_TRACE build, one nvcc per source,
+   started together, with their build seconds;
 3. deliver-front kernel vs plain on the card, bit-equal, and the whole
    dispatch bit-equal to ``front_reference``: the seven randomized
    front regimes of the deliver-front tests and the nine ``STARVATION``
@@ -18,8 +17,7 @@ Phases, in order (any failure raises and the exit code is not 0):
    -2**31) at N = 10,000 and N = 1,000,003; the kernel's, the plain
    version's and the bound's times in each; then the whole front
    dispatch captured in a CUDA graph, replayed bit-equal to its eager
-   call, and timed beside the earlier dispatch (``front_v1``), and the
-   two kernels alone; 3a. the kernel's phases, from its -DFRONT_TRACE
+   call, and timed; 3a. the kernel's phases, from its -DFRONT_TRACE
    build;
 3b. ring-merge kernel vs plain on the card, bit-equal: dht shapes at
    N = 10,000, gossipsub@1M's shape (N = 1,048,576, CAP 64, W 6), the
@@ -52,7 +50,24 @@ Phases, in order (any failure raises and the exit code is not 0):
 9. gossipsub at n = 1,048,576 on the default lowering (the bounded
    append behind the egress queue, ``send_slots = n // 4``): phase 6's
    assertions, ticks, wall and ring-merge launches; 9b. a profiler
-   window over its tick.
+   window over its tick;
+10. count-scatter kernel vs plain (on a CPU copy), bit-equal: storm's
+   staging shape N = 10,000 (uniform, every lane to one of 7 rows, all
+   dropped; ~30% of lanes dropped), N = 1,000,003 (uniform, 7 rows) and
+   the wheel shape 64 x 10,000; the wrapper (sort + kernel), the kernel
+   alone, the sort, the plain version, ``index_add_`` and the bound;
+11. storm at n = 10,000 with bench.py's params and SimConfig, to
+   termination (``testground_tpu_torch.bench``'s assertions: all ok,
+   zero drops, clamps and metric drops, bytes read = bytes sent), the
+   count-scatter kernel on every loop iteration; 11b. a profiler window
+   over its tick;
+12. storm at n = 10,000 shaped with churn (TG_BENCH_SHAPED's 50 ms
+   links, 5% loss, SYN retries, churn-tolerant rendezvous, 2% churn):
+   exactly the scheduled victims crashed, every survivor ok, zero drops
+   and clamps; 12b. a profiler window over its tick;
+13. storm at n = 300 with ``__graft_entry__``'s compressed params,
+   unshaped and shaped with churn: GPU path vs CPU path, every state
+   leaf bit-equal.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernel measurements, and ``{"ok": true, "device": {...}}``. Everything
@@ -77,12 +92,11 @@ DHT_PARAMS = {
     "link_latency_ms": 20, "link_loss_pct": 5,
     "query_timeout_ms": 500, "max_retries": 3,
 }
-KERNELS = ("deliver_front", "ring_merge")
-# (source, -D defines): built beside the kernels, for phase 3 only — the
-# earlier deliver-front kernel (no path of the port calls it) and the
+KERNELS = ("deliver_front", "ring_merge", "count_scatter")
+# (source, -D defines): built beside the kernels, for phase 3a only — the
 # deliver-front kernel with its phase timestamps
 TRACE_BUILD = ("deliver_front", ("FRONT_TRACE",))
-BUILDS = [(k, ()) for k in KERNELS] + [("deliver_front_v1", ()), TRACE_BUILD]
+BUILDS = [(k, ()) for k in KERNELS] + [TRACE_BUILD]
 # gossipsub's large leg: BASELINE.md's 1M row (send_slots = n // 4)
 GOSSIP_BIG_N = 1_048_576
 GOSSIPSUB_PARAMS = {"degree": 8, "link_latency_ms": 50, "link_loss_pct": 0}
@@ -275,124 +289,6 @@ def flat_outputs(res):
     return [pend[k] for k in sorted(pend)] + list(rest)
 
 
-# ------------------------------------------- the earlier front, for timing
-
-def _v1_library():
-    """ctypes binding of csrc/deliver_front_v1.cu, the earlier two-launch
-    kernel, kept only to time the earlier dispatch beside the new one."""
-    import ctypes
-
-    from testground_tpu_torch.kernels.build import load
-
-    lib = load("deliver_front_v1")
-    lib.deliver_front_launch.argtypes = (
-        [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 33)
-    lib.deliver_front_launch.restype = ctypes.c_int
-    lib.deliver_front_blocks.argtypes = [ctypes.c_int]
-    lib.deliver_front_blocks.restype = ctypes.c_int
-    return lib
-
-
-def front_v1_inputs(torch, net, spec, tick, key, send, running, n,
-                    host_reads=False):
-    """The earlier dispatch's glue before its kernel: viability and wait
-    glue, the two one-hot admission histograms and ``_boundary_of``,
-    contiguous send lanes. It read three scalars back to the host per
-    tick (the starvation predicate, and the two boundaries inside
-    ``_boundary_of``'s 0-dim index); those reads happen only with
-    ``host_reads``, so that the rest can be captured. Returns the
-    two-launch kernel's inputs."""
-    from testground_tpu_torch.sim import deliver_front as df
-    from testground_tpu_torch.sim import net as netmod
-    from testground_tpu_torch.sim import prng
-
-    B = 64
-    eg_latency, eg_loss = net.get("eg_latency"), net.get("eg_loss")
-    u = prng.uniform(key, (n,)) if eg_loss is not None else None
-    pend = {k: net[k] for k in df._PEND_KEYS}
-    pd0 = torch.where((pend["pend_dest"] >= 0) & ~running, -1,
-                      pend["pend_dest"])
-    eff_dest = torch.where(pd0 >= 0, pd0, send[0])
-    dest_ok = ((net["net_enabled"] > 0) & running).to(torch.int32)
-    g = dest_ok[torch.clamp(eff_dest, 0, n - 1)]
-    enab_ok = (net["net_enabled"] > 0) & (g > 0)
-    wants = (eff_dest >= 0) & running
-    age = torch.where(pd0 >= 0, net["pend_tick"], tick)
-    wait = torch.clamp(tick - age, min=0)
-    max_wait = torch.max(torch.where(wants, wait, torch.zeros_like(wait)))
-    if host_reads:
-        bool(max_wait >= B * B - 1)
-    wc = torch.clamp(wait, max=B * B - 1)
-    c, f = wc // B, wc % B
-    bins = torch.arange(B, dtype=torch.int32, device=wait.device)
-    hist_c = torch.sum(((c[:, None] == bins[None, :]) & wants[:, None])
-                       .to(torch.int32), dim=0, dtype=torch.int32)
-    cstar, slots_c = netmod._boundary_of(hist_c, spec.send_slots)
-    if host_reads:
-        int(cstar)
-    in_c = wants & (c == cstar)
-    hist_f = torch.sum(((f[:, None] == bins[None, :]) & in_c[:, None])
-                       .to(torch.int32), dim=0, dtype=torch.int32)
-    fstar, slots_f = netmod._boundary_of(hist_f, slots_c)
-    if host_reads:
-        int(fstar)
-    adm = torch.stack([tick.to(torch.int32), cstar.to(torch.int32),
-                       fstar.to(torch.int32),
-                       torch.as_tensor(slots_f).to(torch.int32)])
-    send = tuple(s.contiguous() for s in send)
-    return pend, send, running, enab_ok, eg_latency, eg_loss, u, adm
-
-
-def front_v1_kernel(torch, lib, pend, send, running, enab_ok, eg_latency,
-                    eg_loss, u, adm):
-    """The earlier kernel alone: zeroed counters, then its two launches
-    (per-block boundary counts, then ranks and lanes)."""
-    from testground_tpu_torch.sim import deliver_front as df
-
-    n, P = send[4].shape
-    i32, f32 = torch.int32, torch.float32
-
-    def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=running.device)
-
-    out = {"pend_dest": empty(n, i32), "pend_tick": empty(n, i32),
-           "pend_tag": empty(n, i32), "pend_port": empty(n, i32),
-           "pend_size": empty(n, f32), "pend_pay": empty((n, P), f32)}
-    sd2, eff_tag, eff_port = empty(n, i32), empty(n, i32), empty(n, i32)
-    eff_size, eff_pay, visible = empty(n, f32), empty((n, P), f32), \
-        empty(n, f32)
-    data_ok = empty(n, torch.bool)
-    counters = torch.zeros(3, dtype=i32, device=running.device)
-    block_counts = empty(max(lib.deliver_front_blocks(n), 1), i32)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = lib.deliver_front_launch(
-        n, P, *[ptr(pend[k]) for k in df._PEND_KEYS], *map(ptr, send),
-        ptr(running), ptr(enab_ok), ptr(eg_latency), ptr(eg_loss), ptr(u),
-        ptr(adm), *[ptr(out[k]) for k in df._PEND_KEYS], ptr(sd2),
-        ptr(eff_tag), ptr(eff_port), ptr(eff_size), ptr(eff_pay),
-        ptr(visible), ptr(data_ok), ptr(counters), ptr(block_counts),
-        torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"deliver_front_v1 launch failed: cudaError {err}")
-    return (out, sd2, eff_tag, eff_port, eff_size, eff_pay, visible, data_ok,
-            counters)
-
-
-def front_v1(torch, lib, net, spec, tick, key, send, running, n,
-             host_reads=False):
-    """The earlier dispatch of the fused front, whole: its glue, its
-    kernel and the record build (these states take its kernel branch)."""
-    from testground_tpu_torch.sim import net as netmod
-
-    ins = front_v1_inputs(torch, net, spec, tick, key, send, running, n,
-                          host_reads)
-    (out, sd2, eff_tag, eff_port, eff_size, eff_pay, visible, data_ok,
-     counters) = front_v1_kernel(torch, lib, *ins)
-    rec, dest_app, sanitized = netmod.build_records(
-        visible, eff_tag, eff_port, eff_size, eff_pay, data_ok, sd2)
-    return out, rec, dest_app, torch.cat([counters, sanitized[None]])
-
-
 # ------------------------------------------------------------ merge inputs
 
 # (label, n, case, cap, width, arrival slots) — the ring-merge checks on
@@ -539,12 +435,11 @@ def kernel_phase(torch, np, dev, report, sizes=(10_000, 1_000_003)):
     regime and starvation state at N = 10,000 and 1,000,003, the whole
     dispatch against ``front_reference``, times against the bound; then
     the whole dispatch captured in a CUDA graph (bit-equal to its eager
-    call) and timed beside the earlier dispatch (``front_v1``)."""
+    call) and timed, captured and eager."""
     from testground_tpu_torch.kernels import deliver_front as kern
     from testground_tpu_torch.sim import deliver_front as df
 
     starved_names = {name for name, _, _ in STARVATION}
-    v1 = _v1_library()
     rows, dispatch = [], []
     max_err = 0.0
     for n in sizes:
@@ -556,9 +451,9 @@ def kernel_phase(torch, np, dev, report, sizes=(10_000, 1_000_003)):
             net, spec, send, running, tick, key = front_case(
                 torch, np, n, seed, dev, **kw)
             ins = lane_inputs(torch, net, spec, send, running, tick, key, n)
-            launches = df.front_lanes.launches
+            launches = int(df.front_lanes.launches)
             got = df.front_lanes(*ins)
-            assert df.front_lanes.launches == launches + 1, "no launch"
+            assert int(df.front_lanes.launches) == launches + 1, "no launch"
             want = df.front_lanes_plain(*ins)
             ok, err = bit_equal(torch, flat_outputs(got), flat_outputs(want))
             max_err = max(max_err, err)
@@ -592,20 +487,12 @@ def kernel_phase(torch, np, dev, report, sizes=(10_000, 1_000_003)):
             del net, send, running, ins, got, want, disp, ref
 
         # the whole front dispatch: captured in a CUDA graph (so no host
-        # read), replayed bit-equal to its eager call; timed beside the
-        # earlier dispatch in turns (old, new, new, old)
+        # read), replayed bit-equal to its eager call
         net, spec, send, running, tick, key = front_case(
             torch, np, n, 0, dev)
 
         def new():
             return df.front(net, spec, tick, key, send, running, n)
-
-        def old():
-            return front_v1(torch, v1, net, spec, tick, key, send, running, n)
-
-        def old_eager():
-            return front_v1(torch, v1, net, spec, tick, key, send, running, n,
-                            host_reads=True)
 
         eager_out = new()
         g, captured = graph_of(torch, new)
@@ -616,36 +503,14 @@ def kernel_phase(torch, np, dev, report, sizes=(10_000, 1_000_003)):
         ok, _ = bit_equal(torch, flat_outputs(captured),
                           flat_outputs(eager_out))
         assert ok, f"graph replay != eager front @ {n}"
-        ok, _ = bit_equal(torch, flat_outputs(old()), flat_outputs(eager_out))
-        assert ok, f"earlier dispatch != front @ {n}"
-        old_a, _ = device_ms(torch, old, reps, calls)
         new_a, _ = device_ms(torch, new, reps, calls)
-        new_b, _ = device_ms(torch, new, reps, calls)
-        old_b, _ = device_ms(torch, old, reps, calls)
         new_e = eager_ms(torch, new, reps)
-        old_e = eager_ms(torch, old_eager, reps)
-        # the two kernels alone, on the same state, in turns
-        ins = lane_inputs(torch, net, spec, send, running, tick, key, n)
-        v1_ins = front_v1_inputs(torch, net, spec, tick, key, send, running,
-                                 n)
-        kv1_a, _ = device_ms(
-            torch, lambda: front_v1_kernel(torch, v1, *v1_ins), reps, calls)
-        k_a, _ = device_ms(torch, lambda: df.front_lanes(*ins), reps, calls)
-        k_b, _ = device_ms(torch, lambda: df.front_lanes(*ins), reps, calls)
-        kv1_b, _ = device_ms(
-            torch, lambda: front_v1_kernel(torch, v1, *v1_ins), reps, calls)
         drow = {"n": n, "graph_replay_bit_equal": True,
-                "new_graph_ms": [new_a, new_b], "old_graph_ms": [old_a, old_b],
-                "new_eager_ms": new_e, "old_eager_ms": old_e,
-                "kernel_ms": [k_a, k_b], "old_kernel_ms": [kv1_a, kv1_b]}
+                "graph_ms": new_a, "eager_ms": new_e}
         dispatch.append(drow)
         log(f"  dispatch n={n:>9,d}: captured and replayed bit-equal; "
-            f"graph new {new_a:.4f}/{new_b:.4f} ms vs earlier "
-            f"{old_a:.4f}/{old_b:.4f} ms; eager new {new_e:.4f} ms vs "
-            f"earlier {old_e:.4f} ms (with its host reads); kernel alone "
-            f"new {k_a:.4f}/{k_b:.4f} ms vs earlier {kv1_a:.4f}/"
-            f"{kv1_b:.4f} ms")
-        del net, send, running, g, captured, eager_out, ins, v1_ins
+            f"graph {new_a:.4f} ms, eager {new_e:.4f} ms")
+        del net, send, running, g, captured, eager_out
     report["front"] = rows
     report["front_dispatch"] = dispatch
     report["front_max_abs_err"] = max_err
@@ -793,14 +658,43 @@ def gossipsub_exec(n, device, chunk_ticks=32):
                            device=device)
 
 
+def storm_exec(n, device, shaped, chunk_ticks=32):
+    """bench.py's storm executable (``shaped``: TG_BENCH_SHAPED's)."""
+    from testground_tpu_torch import bench
+
+    return bench.storm_executable(n, device, shaped, chunk_ticks)
+
+
+def graft_storm_exec(n, device, shaped=False):
+    """storm with ``__graft_entry__``'s compressed params; shaped adds
+    its shaped links, churn-tolerant rendezvous and 5% churn."""
+    from testground_tpu_torch import graft
+
+    return graft.storm_executable(
+        n, device=device, shaped=shaped, tolerant=shaped,
+        churn_fraction=0.05 if shaped else 0.0, phase_gating=True)
+
+
+def launch_bounds(executed, chunk_ticks, launches) -> bool:
+    """A kernel run once a loop iteration: the executed ticks, the
+    identity iterations to the end of the last chunk, and the stepper's
+    eager warm-up iterations before its CUDA-graph capture."""
+    from testground_tpu_torch.sim.core import STEPPER_WARMUP
+
+    lo = executed + STEPPER_WARMUP
+    return lo <= launches < lo + chunk_ticks
+
+
 def reset_launch_counts() -> None:
     """Every kernel wrapper's launch count to 0, just before a main-path
     run."""
+    from testground_tpu_torch.sim import count_scatter as csc
     from testground_tpu_torch.sim import deliver_front as df
     from testground_tpu_torch.sim import ring_merge as rm
 
     df.reset_counters()
-    rm.merge.launches = 0
+    rm.merge.launches.reset()
+    csc.scatter_add.launches.reset()
 
 
 def dht_phase(torch, dev, report, key, pallas_front, chunk_ticks=32,
@@ -818,8 +712,8 @@ def dht_phase(torch, dev, report, key, pallas_front, chunk_ticks=32,
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     res = ex.run()
-    launches = df.front_lanes.launches
-    merges = rm.merge.launches
+    launches = int(df.front_lanes.launches)
+    merges = int(rm.merge.launches)
     st = res.statuses()[:n]
     out = {
         "n": n, "pallas_front": bool(pallas_front),
@@ -852,9 +746,8 @@ def dht_phase(torch, dev, report, key, pallas_front, chunk_ticks=32,
     # every loop iteration runs the front (fused front only) and the
     # bounded append, so the ring merge, once each; iterations past the
     # end of the run (the rest of the last chunk) are identities but
-    # launch all the same
-    assert (out["ticks_executed"] <= merges
-            < out["ticks_executed"] + chunk_ticks), (
+    # launch all the same, and so do the stepper's warm-up iterations
+    assert launch_bounds(out["ticks_executed"], chunk_ticks, merges), (
         merges, out["ticks_executed"])
     if pallas_front:
         assert launches == merges, (launches, merges)
@@ -891,7 +784,7 @@ def gossipsub_phase(torch, dev, report, key, n, chunk_ticks=32):
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     res = ex.run()
-    merges = rm.merge.launches
+    merges = int(rm.merge.launches)
     st = res.statuses()[:n]
     lat = sorted(r["value"] for r in res.metrics_records()
                  if r["name"] == "propagation_ms")
@@ -905,7 +798,7 @@ def gossipsub_phase(torch, dev, report, key, n, chunk_ticks=32):
         "p50_propagation_ms": lat[len(lat) // 2] if lat else None,
         "p99_propagation_ms": lat[int(len(lat) * 0.99)] if lat else None,
         "merge_launches": merges,
-        "front_launches": df.front_lanes.launches,
+        "front_launches": int(df.front_lanes.launches),
         "egress_overflow": res.net_egress_overflow(),
         "egress_deferred": res.net_egress_deferred(),
         "net_dropped": res.net_dropped(),
@@ -926,8 +819,7 @@ def gossipsub_phase(torch, dev, report, key, n, chunk_ticks=32):
     assert out["net_dropped"] == 0, "inbox drops"
     assert out["front_launches"] == 0
     if out["send_slots"] is not None:  # the bounded append
-        assert (out["ticks_executed"] <= merges
-                < out["ticks_executed"] + chunk_ticks), (
+        assert launch_bounds(out["ticks_executed"], chunk_ticks, merges), (
             merges, out["ticks_executed"])
     else:
         assert merges == 0
@@ -946,14 +838,15 @@ def profile_phase(torch, report, key, ex, wall_ms_per_tick, warm_ticks=100,
     from torch.profiler import ProfilerActivity, profile
 
     st = ex.init_state()
+    step = ex.stepper(st)  # as run() steps: CUDA-graph replays
     for _ in range(warm_ticks):
-        st = ex.guarded_tick(st)
+        st = step(st)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(window):
-            st = ex.guarded_tick(st)
+            st = step(st)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per_name: dict = {}
@@ -989,6 +882,163 @@ def profile_phase(torch, report, key, ex, wall_ms_per_tick, warm_ticks=100,
     for r in out["top"][:8]:
         log(f"    {r['device_ms_per_tick']:.4f} ms/tick "
             f"x{r['calls_per_tick']:.0f}  {r['name'][:70]}")
+    return out
+
+
+# --------------------------------------------------------- count scatter
+
+# (label, rows, lanes, case): the count-scatter checks on the card; the
+# first row is storm@10k's staging shape, the last its wheel's
+SCATTER_CASES = [
+    ("staging", 10_000, 10_000, "uniform"),
+    ("staging", 10_000, 10_000, "seven_rows"),
+    ("staging", 10_000, 10_000, "all_dropped"),
+    ("staging", 1_000_003, 1_000_003, "uniform"),
+    ("staging", 1_000_003, 1_000_003, "seven_rows"),
+    ("wheel", 64 * 10_000, 10_000, "uniform"),
+]
+
+
+def scatter_case(np, rows, lanes, case, seed):
+    """Count-scatter inputs (numpy, from ``seed``): buf f32 [rows, 2],
+    idx int32 [lanes] (about 30% dropped, idx = rows), upd f32 [lanes, 2]
+    with fractional values. ``case``: uniform over the rows, seven_rows
+    (every kept lane to one of 7 rows), all_dropped."""
+    rng = np.random.default_rng(seed)
+    buf = (rng.standard_normal((rows, 2)) * 1e3).astype(np.float32)
+    upd = (rng.standard_normal((lanes, 2)) * rng.random((lanes, 1))
+           * 1e4).astype(np.float32)
+    if case == "seven_rows":
+        idx = rng.choice(rng.integers(0, rows, 7), lanes)
+    else:
+        idx = rng.integers(0, rows, lanes)
+    idx = np.where(rng.random(lanes) < 0.3, rows, idx)
+    if case == "all_dropped":
+        idx = np.full(lanes, rows)
+    return buf, idx.astype(np.int32), upd
+
+
+def scatter_phase(torch, np, dev, report):
+    """[10] the count-scatter kernel against its plain version (run on a
+    CPU copy of the same inputs), bit-equal; the wrapper (sort + kernel),
+    the kernel alone, the sort alone, the plain version and
+    ``index_add_`` timed on the card, and the bound."""
+    from testground_tpu_torch.kernels import count_scatter as kern
+    from testground_tpu_torch.sim import count_scatter as csc
+
+    rows_out = []
+    for seed, (label, rows, lanes, case) in enumerate(SCATTER_CASES):
+        arrs = scatter_case(np, rows, lanes, case, seed)
+        buf, idx, upd = (torch.as_tensor(a, device=dev) for a in arrs)
+        launches = int(csc.scatter_add.launches)
+        got = csc.scatter_add(buf, idx, upd)
+        assert int(csc.scatter_add.launches) == launches + 1, "no launch"
+        want = csc.scatter_add_plain(*(torch.as_tensor(a) for a in arrs))
+        ok, err = bit_equal(torch, [got.cpu()], [want])
+        if not ok:
+            raise AssertionError(f"count scatter kernel != plain: {label} "
+                                 f"{case} @ {rows}")
+        row = {"shape": label, "case": case, "rows": rows, "lanes": lanes,
+               "bit_equal": True, "max_abs_err": err}
+        if case != "seven_rows" or rows <= 10_000:
+            calls = calls_for(lanes)
+            reps = 50 if lanes <= 10_000 else 10
+            keys, order = kern.sort_lanes(idx, rows)
+            out = buf.clone()
+            # the library call adds dropped lanes into one spare row
+            lib_out = torch.cat([buf, buf.new_zeros(1, 2)])
+            lib_idx = torch.clamp(idx, max=rows)
+            kept = idx[idx < rows]
+            touched = int(torch.unique(kept).numel())
+            # every index read once, each kept lane's update read once,
+            # each touched row read and written once
+            moved = lanes * 4 + kept.numel() * 8 + touched * 16
+            row.update(
+                wrapper_ms=device_ms(
+                    torch, lambda: csc.scatter_add(buf, idx, upd), reps,
+                    calls)[0],
+                kernel_ms=device_ms(
+                    torch, lambda: kern.launch_sorted(out, keys, order, upd),
+                    reps, calls)[0],
+                sort_ms=device_ms(
+                    torch, lambda: kern.sort_lanes(idx, rows), reps,
+                    calls)[0],
+                plain_ms=device_ms(
+                    torch, lambda: csc.scatter_add_plain(buf, idx, upd),
+                    reps, calls)[0],
+                # one library call on the same inputs (it adds in atomic
+                # order, which changes from run to run)
+                library_ms=device_ms(
+                    torch, lambda: lib_out.index_add_(0, lib_idx, upd), reps,
+                    calls)[0],
+                bytes=moved, touched_rows=touched,
+                bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+            )
+            log(f"  scatter {label:7s} {case:11s} rows={rows:>9,d} "
+                f"lanes={lanes:>9,d}: wrapper {row['wrapper_ms']:.4f} ms "
+                f"(kernel {row['kernel_ms']:.4f}, sort {row['sort_ms']:.4f})"
+                f", plain {row['plain_ms']:.4f}, index_add_ "
+                f"{row['library_ms']:.4f}, bound {row['bound_ms']:.5f} ms, "
+                "bit-equal")
+        else:
+            log(f"  scatter {label:7s} {case:11s} rows={rows:>9,d} "
+                f"lanes={lanes:>9,d}: bit-equal (not timed: one thread "
+                "walks each row's ~100k-lane segment)")
+        rows_out.append(row)
+        del buf, idx, upd, got, want
+    report["count_scatter"] = rows_out
+    return rows_out, max(r["max_abs_err"] for r in rows_out)
+
+
+# ------------------------------------------------------------------ storm
+
+def storm_phase(torch, dev, report, key, shaped, chunk_ticks=32,
+                n=10_000):
+    """storm @ 10k with bench.py's params (``--shaped``: with its shaped
+    scenario and churn) to termination, asserting what bench.py asserts;
+    the count-scatter launches are read right after the run."""
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.sim import count_scatter as csc
+    from testground_tpu_torch.sim import deliver_front as df
+    from testground_tpu_torch.sim import ring_merge as rm
+
+    t0 = time.monotonic()
+    ex = bench.storm_executable(n, dev, shaped, chunk_ticks)
+    ex.tick_fn()
+    build_s = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    res = ex.run()
+    launches = int(csc.scatter_add.launches)
+    other = (int(df.front_lanes.launches), int(rm.merge.launches))
+    summary = bench.check(res, n, shaped)
+    out = {
+        "n": n, "shaped": shaped, "event_skip": ex.event_skip,
+        "ticks": res.ticks, "ticks_executed": res.ticks_executed,
+        "wall_seconds": res.wall_seconds,
+        "ms_per_tick": res.wall_seconds / max(res.ticks, 1) * 1e3,
+        "ms_per_executed_tick": (res.wall_seconds
+                                 / max(res.ticks_executed, 1) * 1e3),
+        "build_seconds": build_s, "launches": launches,
+        "send_compact_fallbacks": res.net_send_compact_fallbacks(),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        **summary,
+    }
+    report[key] = out
+    log(f"  storm@{n:,d}{' shaped' if shaped else ''}: {out['ticks']} ticks "
+        f"({out['ticks_executed']} executed), {out['wall_seconds']:.3f} s "
+        f"wall ({out['ms_per_executed_tick']:.2f} ms/executed tick); "
+        f"{summary['ok']} ok" + (f", {summary['victims']} victims crashed"
+                                 if shaped else "")
+        + f"; drops {summary['net_dropped']}, clamps "
+        f"{summary['horizon_clamped']}, metric drops "
+        f"{summary['metrics_dropped']}; bytes sent "
+        f"{summary['bytes_sent']:.0f}, read {summary['bytes_read']:.0f}; "
+        f"count-scatter launches {launches}")
+    # one count-mode add on every loop iteration
+    assert launch_bounds(out["ticks_executed"], chunk_ticks, launches), (
+        launches, out["ticks_executed"])
+    assert other == (0, 0), other
     return out
 
 
@@ -1113,9 +1163,30 @@ def main() -> int:
                   gossipsub_exec(GOSSIP_BIG_N, dev),
                   gossip_big["ms_per_tick"], warm_ticks=40, window=10)
 
+    log("[10] count-scatter kernel vs plain on the card")
+    scatter_rows, scatter_err = scatter_phase(torch, np, dev, report)
+    log("[11] storm @ 10,000, unshaped (bench.py's params)")
+    storm = storm_phase(torch, dev, report, "storm10k", False)
+    log("[11b] storm@10k tick under torch.profiler")
+    profile_phase(torch, report, "storm10k_profile",
+                  storm_exec(10_000, dev, False),
+                  storm["ms_per_executed_tick"])
+    log("[12] storm @ 10,000, shaped with churn (TG_BENCH_SHAPED's)")
+    storm_shaped = storm_phase(torch, dev, report, "storm10k_shaped", True)
+    log("[12b] shaped storm@10k tick under torch.profiler")
+    profile_phase(torch, report, "storm10k_shaped_profile",
+                  storm_exec(10_000, dev, True),
+                  storm_shaped["ms_per_executed_tick"])
+    log("[13] storm @ 300, compressed params, unshaped and shaped with "
+        "churn: GPU vs CPU")
+    parity_phase(np, dev, report, "storm300_parity", graft_storm_exec)
+    parity_phase(np, dev, report, "storm300_shaped_parity",
+                 lambda n, d: graft_storm_exec(n, d, shaped=True))
+
     front_row = next(r for r in rows if r["n"] == 10_000
                      and r["regime"] == "mixed")
     merge_row = merge_rows[0]  # dht@10k's shape
+    scatter_row = scatter_rows[0]  # storm@10k's staging shape
     kernels = {"kernels": [
         {
             "name": "deliver_front",
@@ -1142,6 +1213,20 @@ def main() -> int:
             "bound_ms": merge_row["bound_ms"],
             "bound_by": "bytes",
             "library_ms": None,
+        },
+        {
+            "name": "count_scatter",
+            "route": "cuda",
+            "source": "testground_tpu_torch/csrc/count_scatter.cu",
+            # no TPU kernel: XLA's scatter-add of count mode
+            "replaces": "testground_tpu/sim/net.py:1313",
+            "launches": storm["launches"],
+            "max_abs_err": scatter_err,
+            "ms": scatter_row["wrapper_ms"],
+            "plain_ms": scatter_row["plain_ms"],
+            "bound_ms": scatter_row["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": scatter_row["library_ms"],
         },
     ]}
     report["kernels"] = kernels["kernels"]

@@ -7,9 +7,19 @@ state leaf it computes is held bit for bit against the JAX package's
 (``device="cuda"``, the default) and raise without one unless the
 caller passes ``device="cpu"``.
 
-This slice runs the dht find-providers plan end to end with the fused
-entry-mode deliver front as a hand-written CUDA kernel
-(``csrc/deliver_front.cu``). ROADMAP.md lists what is still to port.
+It runs the dht find-providers, gossipsub mesh-propagation and storm
+plans end to end; the hand-written CUDA kernels are in ``csrc/``.
+``entry`` is one storm tick at 64 instances; ``python -m
+testground_tpu_torch.bench`` runs storm at 10,000 instances.
+ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"
+
+
+def entry(device="cuda"):
+    """(tick_fn, (state,)): one storm tick at 64 instances on ``device``
+    (the counterpart of ``__graft_entry__.entry``)."""
+    from .graft import entry as _entry
+
+    return _entry(device)

@@ -4,12 +4,16 @@ tick, on the card or (when asked) on the CPU.
 Counterpart of ``testground_tpu/sim/core.py``. Per tick:
 
 1. churn kills take effect (a victim does not act on its kill tick);
+   in count mode this tick's wheel bucket (or staging row) drains into
+   the visible counts;
 2. every instance evaluates its current phase: each phase function is
    batched over the instance axis with ``torch.func.vmap``, EVERY phase
    is computed and the result selected by the program counter, as the
    JAX package's vmapped ``lax.switch`` does;
-3. signals are ranked by lane (the sync service's arrival order) and
-   counted; metrics append into the per-lane ring;
+3. signals and publishes are ranked by lane (the sync service's arrival
+   order) and counted; publishes append into their topics; the churn
+   ledger counts what churn-watched states and topics received; metrics
+   append into the per-lane ring;
 4. the network applies ConfigureNetwork writes, delivers this tick's
    sends (sim/net.py; with ``pallas_front`` through the deliver-front
    kernel, sim/deliver_front.py) and consumes what the phases read.
@@ -24,10 +28,11 @@ to its old value), so ``SimResult.ticks`` equals the JAX run's.
 Under event skip (on by default unless ``pallas_front=True``) each
 executed tick is followed by a jump of ``tick`` to the next event
 (``next_event_tick``), as the JAX package's ``event_skip_loop`` does;
-the jump is guarded like the tick. Entry mode runs on both fronts.
-Count mode, faults, trace, telemetry, replay, sweep and topic appends
-raise ``NotImplementedError`` naming the ROADMAP.md module that ports
-them.
+the jump is guarded like the tick. ``phase_gating`` runs the same
+ungated step (the JAX package's gated step is bit-identical to it, and
+its per-phase ``lax.cond`` would cost a host read per phase in eager
+torch). Faults, trace, telemetry, replay, sweep and stream topics raise
+``NotImplementedError`` naming the ROADMAP.md module that ports them.
 """
 
 from __future__ import annotations
@@ -115,18 +120,20 @@ def live_lanes(st: dict):
 # "no scheduled event" sentinel of the event-horizon min (int32 max)
 _EV_NEVER = 2**31 - 1
 
-# state leaves that exist only on a skip-enabled executor; the JAX
-# package's list, kept whole (the count-mode leaves are not ported)
+# state leaves that exist only on a skip-enabled executor (the JAX
+# package's list)
 EVENT_SKIP_STATE_LEAVES = ("ticks_executed", "staging_cnt", "wheel_occ")
 
 
 def next_event_tick(out: dict, nt):
     """The event-horizon min: the earliest tick >= ``nt`` at which the
     post-tick state ``out`` can evolve (every tick before it is provably
-    an identity), from the terms that exist without faults, replay,
-    telemetry or count mode: RUNNING lanes wake at max(blocked_until,
-    nt), pending kills land at max(kill_tick, nt), and a queued egress
-    send can leave on any tick. ``nt`` when no lane lives."""
+    an identity), from the terms that exist without faults, replay or
+    telemetry: RUNNING lanes wake at max(blocked_until, nt), pending
+    kills land at max(kill_tick, nt), a queued egress send can leave on
+    any tick, an occupied staging row drains at ``nt``, and the delay
+    wheel's earliest occupied bucket drains at its tick. ``nt`` when no
+    lane lives."""
     run_m = out["status"] == RUNNING
     never = torch.full_like(out["blocked_until"], _EV_NEVER)
     ev = torch.min(
@@ -138,12 +145,22 @@ def next_event_tick(out: dict, nt):
         torch.min(torch.where(kill_p, torch.maximum(out["kill_tick"], nt),
                               never)),
     )
-    if "net" in out and "pend_dest" in out["net"]:
+    nst = out.get("net", {})
+    if "pend_dest" in nst:
         ev = torch.minimum(
             ev,
-            torch.where(torch.any(out["net"]["pend_dest"] >= 0), nt,
-                        _EV_NEVER),
+            torch.where(torch.any(nst["pend_dest"] >= 0), nt, _EV_NEVER),
         )
+    if "staging_cnt" in nst:
+        ev = torch.minimum(
+            ev, torch.where(nst["staging_cnt"] > 0, nt, _EV_NEVER))
+    if "wheel_occ" in nst:
+        W = nst["wheel_occ"].shape[0]
+        # bucket b holds messages for tick nt + ((b - nt) mod W)
+        offs = torch.remainder(
+            torch.arange(W, dtype=torch.int32, device=nt.device) - nt, W)
+        mo = torch.min(torch.where(nst["wheel_occ"] > 0, offs, W))
+        ev = torch.minimum(ev, torch.where(mo < W, nt + mo, _EV_NEVER))
     live_any = torch.any(live_lanes(out))
     return torch.where(live_any, torch.maximum(ev, nt), nt)
 
@@ -265,13 +282,15 @@ def _check_phase_net_ctrl(ctrl, spec, phase_name: str) -> None:
 
 # PhaseCtrl fields the tick consumes, in the JAX package's FIELDS order:
 # (name, kind, static default). Kinds: "i" int32, "f" float32, "pay"
-# net payload vector. Fields of planes this slice does not run (topics,
-# dials, filter rules, trace, telemetry, replay) must stay at their
-# defaults; the build-time probe rejects a phase that sets them.
+# net payload vector, "tpay" topic payload vector. Fields of planes the
+# port does not run (filter rules, trace, telemetry, replay) must stay
+# at their defaults; the build-time probe rejects a phase that sets them.
 _FIELDS = (
     ("advance", "i", 0),
     ("jump", "i", -1),
     ("signal", "i", -1),
+    ("publish_topic", "i", -1),
+    ("publish_payload", "tpay", None),
     ("status", "i", 0),
     ("sleep", "i", 0),
     ("metric_id", "i", -1),
@@ -282,6 +301,7 @@ _FIELDS = (
     ("send_size", "f", 0.0),
     ("send_payload", "pay", None),
     ("recv_count", "i", 0),
+    ("hs_clear", "i", 0),
     ("net_set", "i", 0),
     ("net_latency_ms", "f", 0.0),
     ("net_jitter_ms", "f", 0.0),
@@ -297,12 +317,48 @@ _FIELDS = (
     ("net_enabled", "i", 1),
 )
 _UNPORTED_FIELDS = (
-    ("publish_topic", -1), ("publish_payload", None), ("hs_clear", 0),
     ("rule_row", None), ("net_class", -1), ("class_rule_row", None),
     ("trace_code", -1), ("trace_a0", 0), ("trace_a1", 0),
     ("observe_hist", -1), ("observe_value", 0.0), ("count_add", 0),
     ("gauge_set", 0), ("gauge_value", 0.0), ("replay_consume", 0),
 )
+
+
+def _topic_append(buf, mask, pos0, payloads, pay):
+    """The non-stream topic append: each ``mask`` lane adds its payload
+    row into slot ``pos0`` of ``buf`` ``[cap, pay]``. The ranked seq gives
+    every publisher a distinct slot, and every other lane gets a drop row
+    of its own past the end (sliced off), so no two updates meet in one
+    row and ``index_put_(accumulate=True)`` is exact in any order; it
+    adds, as the JAX package's ``buf.at[pos].add`` does (0.0 + -0.0 is
+    +0.0)."""
+    cap = buf.shape[0]
+    n = mask.shape[0]
+    lanes = torch.arange(n, dtype=torch.int64, device=buf.device)
+    rows = torch.where(mask, pos0.to(torch.int64), cap + lanes)
+    ext = torch.cat([buf, buf.new_zeros((n, buf.shape[1]))])
+    ext.index_put_(
+        (rows,),
+        torch.where(mask[:, None], payloads[:, :pay], 0.0),
+        accumulate=True,
+    )
+    return ext[:cap]
+
+
+# eager loop iterations a CUDA stepper runs (and discards) before its
+# capture: they make what a tick caches on first use (kernel scratch,
+# constants) outside the graph
+STEPPER_WARMUP = 2
+
+
+def _leaves(tree: dict):
+    """The tensors of a nested state dict, in a fixed order."""
+    for k in sorted(tree, key=str):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 def _tree_where(go, new, old):
@@ -337,8 +393,6 @@ class SimExecutable:
                 raise _not_ported(f"the {plane} plane", module, title)
         if config.slices > 1:
             raise _not_ported("SimConfig.slices > 1", 12, "multi-GPU")
-        if config.phase_gating:
-            raise _not_ported("SimConfig.phase_gating", 5, "tick and loop")
         self.program = program
         self.ctx = ctx
         self.config = config
@@ -388,12 +442,16 @@ class SimExecutable:
                 ),
             )
         spec = program.net_spec
-        if spec is not None and (not spec.store_entries or spec.uses_dials):
-            raise _not_ported("count mode / dial handshake registers", 4,
-                              "count-mode data plane")
-        if program.topics.specs():
-            raise _not_ported("topics (publish / wait_topic)", 5,
-                              "tick and loop")
+        if spec is not None:
+            netmod.check_supported(spec)
+        if any(stream for _, _, _, stream in program.topics.specs()):
+            raise _not_ported("stream topics", 5, "tick and loop")
+        if self.event_skip and spec is not None and not spec.store_entries:
+            # the jump's min reads the staging / wheel occupancy counts
+            self.program = program = dataclasses.replace(
+                program,
+                net_spec=dataclasses.replace(spec, track_occupancy=True),
+            )
         self._tick_fn = None
 
     # ------------------------------------------------------ initial state
@@ -425,14 +483,25 @@ class SimExecutable:
             "counters": z(S, i32),
             "topic_len": z(T, i32),
             "stream_violations": z((), i32),
-            # one dummy [1, 1] buffer for a topic-less program
-            "topic_bufs": {0: z((1, 1), f32)},
+            # one [cap, pay] buffer per topic; a dummy [1, 1] for a
+            # topic-less program
+            "topic_bufs": {
+                tid: z((cap, pay), f32)
+                for tid, cap, pay, _ in (prog.topics.specs()
+                                         or [(0, 1, 1, False)])
+            },
             "topic_head": {},
             "metrics_buf": z((n, cfg.metrics_capacity, 3), f32),
             "metrics_cnt": z(n, i32),
             "metrics_dropped": z(n, i32),
             "mem": mem,
         }
+        # per-instance contribution counts for churn-watched states and
+        # topics ([N, K]): what churn barriers add back for the dead
+        if prog.churn_sids:
+            state["churn_sig"] = z((n, len(prog.churn_sids)), i32)
+        if prog.churn_tids:
+            state["churn_pub"] = z((n, len(prog.churn_tids)), i32)
         if prog.net_spec is not None:
             state["net"] = netmod.init_net_state(n, prog.net_spec, dev)
         if self.event_skip:
@@ -457,8 +526,15 @@ class SimExecutable:
         base_key = prng.PRNGKey(cfg.seed, device=dev)
         net_spec = prog.net_spec
         use_net = net_spec is not None
+        count_mode = use_net and not net_spec.store_entries
         NET_PAY = net_spec.payload_len if use_net else 1
+        PAY = prog.topics.payload_len
+        topic_specs = prog.topics.specs()
+        churn_sids, churn_tids = prog.churn_sids, prog.churn_tids
         quantum_ms = cfg.quantum_ms
+        topic_caps = torch.zeros(T, dtype=torch.int32, device=dev)
+        for tid, cap, _, _ in topic_specs:
+            topic_caps[tid] = cap
         consts: dict = {}
 
         def const(v, dtype):
@@ -468,13 +544,14 @@ class SimExecutable:
             return consts[key]
 
         def pack(kind, v):
-            if kind == "pay":
+            if kind in ("pay", "tpay"):
+                width = NET_PAY if kind == "pay" else PAY
                 if v is None:
-                    return torch.zeros(NET_PAY, dtype=torch.float32,
+                    return torch.zeros(width, dtype=torch.float32,
                                        device=dev)
                 p = torch.as_tensor(v).to(torch.float32).reshape(-1)
-                if p.shape[0] < NET_PAY:
-                    p = torch.cat([p, p.new_zeros(NET_PAY - p.shape[0])])
+                if p.shape[0] < width:
+                    p = torch.cat([p, p.new_zeros(width - p.shape[0])])
                 return p
             dtype = torch.int32 if kind == "i" else torch.float32
             if isinstance(v, torch.Tensor):
@@ -482,7 +559,9 @@ class SimExecutable:
             return const(int(v) if kind == "i" else float(v), dtype)
 
         def is_default(kind, v, default):
-            return v is None if kind == "pay" else _static_eq(v, default)
+            if kind in ("pay", "tpay"):
+                return v is None
+            return _static_eq(v, default)
 
         # ---- build-time probe: which mem slots each phase writes and
         # which ctrl fields it sets to non-defaults (one lane, on the CPU)
@@ -498,26 +577,38 @@ class SimExecutable:
                 last_seq=scal, rng=torch.zeros(2, dtype=torch.int64),
                 counters=torch.zeros(S, dtype=torch.int32),
                 topic_len=torch.zeros(T, dtype=torch.int32),
-                topic_buf={0: torch.zeros((1, 1))}, topic_head={},
+                topic_buf={
+                    tid: torch.zeros((cap, pay))
+                    for tid, cap, pay, _ in (topic_specs
+                                             or [(0, 1, 1, False)])
+                },
+                topic_head={},
                 crashed_total=scal,
+                dead_signals={k: scal for k in churn_sids} or None,
+                dead_pubs={k: scal for k in churn_tids} or None,
                 params={k: torch.zeros((), dtype=v.dtype, device=cpu)
                         for k, v in params.items()},
                 quantum_ms=quantum_ms,
             )
             if use_net:
-                env.inbox = torch.zeros(
-                    (net_spec.inbox_capacity, net_spec.width))
-                env.inbox_r = scal
                 env.inbox_avail = scal
-                env.inbox_head = torch.zeros(
-                    (net_spec.head_k, net_spec.width))
-                env.egress_busy = torch.zeros((), dtype=torch.bool)
+                if net_spec.uses_dials:
+                    env.hs = torch.zeros(4)
+                if net_spec.store_entries:
+                    env.inbox = torch.zeros(
+                        (net_spec.inbox_capacity, net_spec.width))
+                    env.inbox_r = scal
+                    env.inbox_head = torch.zeros(
+                        (net_spec.head_k, net_spec.width))
+                    env.egress_busy = torch.zeros((), dtype=torch.bool)
+                else:
+                    env.inbox_bytes = torch.zeros(())
                 if net_spec.uses_latency:
                     env.eg_latency_ticks = torch.zeros(())
             try:
                 mem2, ctrl = phase.fn(env, dict(mem))
             except Exception:  # noqa: BLE001 — best-effort, as in JAX
-                return tuple(prog.mem_spec), tuple(range(len(_FIELDS)))
+                return tuple(prog.mem_spec), tuple(range(len(_FIELDS))), {}
             _check_phase_net_ctrl(ctrl, net_spec, phase.name)
             for name, default in _UNPORTED_FIELDS:
                 if not is_default("pay" if default is None else "i",
@@ -531,39 +622,71 @@ class SimExecutable:
                 i for i, (name, kind, default) in enumerate(_FIELDS)
                 if not is_default(kind, getattr(ctrl, name), default)
             )
-            return wset, dyn
+            # fields set to a Python number: the same number every tick
+            static = {
+                i: getattr(ctrl, _FIELDS[i][0]) for i in dyn
+                if _FIELDS[i][1] in ("i", "f")
+                and isinstance(getattr(ctrl, _FIELDS[i][0]),
+                               (bool, int, float))
+            }
+            return wset, dyn, static
 
         probes = [probe(p) for p in prog.phases]
-        dyn_union = tuple(sorted(set().union(*(set(d) for _, d in probes))))
+        dyn_union = tuple(sorted(set().union(*(set(d) for _, d, _ in probes))))
         wset_union = tuple(
-            s for s in prog.mem_spec if any(s in w for w, _ in probes)
+            s for s in prog.mem_spec if any(s in w for w, _, _ in probes)
         )
         defaults = {
             name: pack(kind, default) for name, kind, default in _FIELDS
         }
         mem_dtypes = {s: prog.mem_spec[s][1] for s in prog.mem_spec}
+        # The JAX package selects every carried field and slot among all
+        # phases by pc. A phase that does not write a slot leaves it as it
+        # was, and one that leaves a field at its static default gives the
+        # default; so the port selects only among the phases that write
+        # it, and takes the Python numbers phases set a field to from one
+        # [n_phases] table gathered at pc. Same values, far fewer ops.
+        writers = {s: [k for k, (w, _, _) in enumerate(probes) if s in w]
+                   for s in wset_union}
+        tensor_setters = {
+            i: [k for k, (_, d, st) in enumerate(probes)
+                if i in d and i not in st]
+            for i in dyn_union
+        }
+        tables = {}
+        for i in dyn_union:
+            if any(i in st for _, _, st in probes):
+                name, kind, default = _FIELDS[i]
+                tables[i] = torch.tensor(
+                    [st.get(i, default) for _, _, st in probes],
+                    dtype=torch.int32 if kind == "i" else torch.float32,
+                    device=dev,
+                )
 
-        def run_phase(phase, env, mem_row):
+        def run_phase(k, phase, env, mem_row):
+            wset, dyn, static = probes[k]
             mem2, ctrl = phase.fn(env, dict(mem_row))
-            for s in wset_union:
+            for s in wset:
                 if mem2[s].dtype != mem_dtypes[s]:
                     raise TypeError(
                         f"phase {phase.name!r} wrote mem slot {s!r} as "
                         f"{mem2[s].dtype}, declared {mem_dtypes[s]}"
                     )
-            return (
-                {s: mem2[s] for s in wset_union},
-                [pack(_FIELDS[i][1], getattr(ctrl, _FIELDS[i][0]))
-                 for i in dyn_union],
-            )
+            fields = {}
+            for i in dyn:
+                name, kind, _ = _FIELDS[i]
+                v = getattr(ctrl, name)
+                if i in static:
+                    if not _static_eq(v, static[i]):
+                        raise RuntimeError(
+                            f"phase {phase.name!r} set PhaseCtrl.{name} to "
+                            f"{static[i]!r} when probed and to {v!r} now")
+                    continue
+                fields[i] = pack(kind, v)
+            return {s: mem2[s] for s in wset}, fields
 
-        def select(safe_pc, values):
-            acc = values[0]
-            for k in range(1, len(values)):
-                acc = torch.where(safe_pc == k, values[k], acc)
-            return acc
-
-        def make_step(tick, counters, topic_len, topic_bufs, crashed_total):
+        def make_step(tick, counters, topic_len, topic_bufs, crashed_total,
+                      dead_signals, dead_pubs):
             def step_instance(pc, status, blocked_until, last_seq, mem_row,
                               instance, group, ginst, prow, net_row, key):
                 env = TickEnv(
@@ -578,26 +701,42 @@ class SimExecutable:
                     topic_buf=topic_bufs,
                     topic_head={},
                     crashed_total=crashed_total,
+                    dead_signals=dead_signals,
+                    dead_pubs=dead_pubs,
                     params=prow,
                     inbox=net_row.get("inbox"),
                     inbox_r=net_row.get("inbox_r"),
                     inbox_avail=net_row.get("inbox_avail"),
                     inbox_head=net_row.get("inbox_head"),
+                    inbox_bytes=net_row.get("bytes_in"),
+                    hs=net_row.get("hs"),
                     egress_busy=net_row.get("egress_busy"),
                     eg_latency_ticks=net_row.get("eg_latency"),
                     quantum_ms=quantum_ms,
                 )
                 safe_pc = torch.clamp(pc, 0, n_phases - 1)
-                outs = [run_phase(p, env, mem_row) for p in prog.phases]
-                mem2 = {
-                    s: select(safe_pc, [o[0][s] for o in outs])
-                    for s in wset_union
-                }
+                outs = [run_phase(k, p, env, mem_row)
+                        for k, p in enumerate(prog.phases)]
+                eqs = {}
+
+                def at(k):
+                    if k not in eqs:
+                        eqs[k] = safe_pc == k
+                    return eqs[k]
+
+                mem2 = {}
+                for s in wset_union:
+                    acc = mem_row[s]
+                    for k in writers[s]:
+                        acc = torch.where(at(k), outs[k][0][s], acc)
+                    mem2[s] = acc
                 ctrl = dict(defaults)
-                for j, i in enumerate(dyn_union):
-                    ctrl[_FIELDS[i][0]] = select(
-                        safe_pc, [o[1][j] for o in outs]
-                    )
+                for i in dyn_union:
+                    name = _FIELDS[i][0]
+                    acc = tables[i][safe_pc] if i in tables else ctrl[name]
+                    for k in tensor_setters[i]:
+                        acc = torch.where(at(k), outs[k][1][i], acc)
+                    ctrl[name] = acc
                 active = (
                     (status == RUNNING) & (tick >= blocked_until)
                     & (pc < n_phases)
@@ -630,6 +769,9 @@ class SimExecutable:
                     "blocked_until": out_blocked,
                     "mem": mem_out,
                     "signal": torch.where(active, ctrl["signal"], -1),
+                    "publish": torch.where(active, ctrl["publish_topic"],
+                                           -1),
+                    "publish_payload": ctrl["publish_payload"],
                     "metric_id": torch.where(active, ctrl["metric_id"], -1),
                     "metric_value": ctrl["metric_value"],
                 }
@@ -637,6 +779,7 @@ class SimExecutable:
                     out.update(
                         send_dest=torch.where(active, ctrl["send_dest"], -1),
                         recv_count=torch.where(active, ctrl["recv_count"], 0),
+                        hs_clear=torch.where(active, ctrl["hs_clear"], 0),
                         net_set=torch.where(active, ctrl["net_set"], 0),
                     )
                     for name in (
@@ -663,40 +806,82 @@ class SimExecutable:
                 & (tick >= st["kill_tick"])
             )
             st["status"] = torch.where(killed_now, CRASHED, st["status"])
-            crashed_total = torch.sum(st["status"] == CRASHED,
-                                      dtype=torch.int32)
+            crashed = st["status"] == CRASHED
+            crashed_total = torch.sum(crashed, dtype=torch.int32)
+            # contributions the dead already made to churn-watched states
+            # and topics: churn barriers add these back
+            dead_signals = {
+                sid: torch.sum(torch.where(crashed, st["churn_sig"][:, k], 0),
+                               dtype=torch.int32)
+                for k, sid in enumerate(churn_sids)
+            } or None
+            dead_pubs = {
+                tid: torch.sum(torch.where(crashed, st["churn_pub"][:, k], 0),
+                               dtype=torch.int32)
+                for k, tid in enumerate(churn_tids)
+            } or None
 
             net_row = {}
             if use_net:
                 netst = st["net"]
+                if count_mode:
+                    # this tick's bucket becomes visible before the phases
+                    # read avail and bytes (deliver writes ticks >= tick+1)
+                    netst = netmod.advance_wheel(netst, net_spec, tick)
+                    st["net"] = netst
                 avail0 = netmod.visible_prefix(netst, net_spec, tick)
-                net_row = {
-                    "inbox_avail": avail0,
-                    "inbox": netst["inbox"],
-                    "inbox_r": netst["inbox_r"],
-                    "inbox_head": netmod.head_cache(netst, net_spec),
-                }
-                if "pend_dest" in netst:
-                    net_row["egress_busy"] = netst["pend_dest"] >= 0
+                net_row = {"inbox_avail": avail0}
+                if net_spec.uses_dials:
+                    net_row["hs"] = netst["hs"]
+                if count_mode:
+                    net_row["bytes_in"] = netst["bytes_in"]
+                else:
+                    net_row["inbox"] = netst["inbox"]
+                    net_row["inbox_r"] = netst["inbox_r"]
+                    net_row["inbox_head"] = netmod.head_cache(netst, net_spec)
+                    if "pend_dest" in netst:
+                        net_row["egress_busy"] = netst["pend_dest"] >= 0
                 if "eg_latency" in netst:
                     net_row["eg_latency"] = netst["eg_latency"]
 
             lane_keys = prng.fold_in(key, instance_ids)
             vstep = make_step(tick, st["counters"], st["topic_len"],
-                              st["topic_bufs"], crashed_total)
+                              st["topic_bufs"], crashed_total, dead_signals,
+                              dead_pubs)
             res = vstep(
                 st["pc"], st["status"], st["blocked_until"], st["last_seq"],
                 st["mem"], instance_ids, group_ids, group_instance, params,
                 net_row, lane_keys,
             )
 
+            sig, pub = res["signal"], res["publish"]
             new_counters, sig_seq, sig_valid = _ranked_scatter(
-                res["signal"], S, st["counters"]
+                sig, S, st["counters"]
             )
-            # publishes: a runnable program has no topic, so no lane
-            # publishes and every topic length clamps at capacity 0
-            new_topic_len = torch.zeros_like(st["topic_len"])
-            last_seq = torch.where(sig_valid, sig_seq, st["last_seq"])
+            new_topic_len, pub_seq, pub_valid = _ranked_scatter(
+                pub, T, st["topic_len"]
+            )
+            pos0 = torch.where(pub_valid, pub_seq - 1, 0)  # 0-based slot
+            topic_bufs = dict(st["topic_bufs"])
+            churn_pub = st.get("churn_pub")
+            for tid, cap, pay, _ in topic_specs:
+                mask = pub_valid & (pub == tid) & (pos0 < cap)
+                if tid in churn_tids:
+                    # only appends that land count (topic_count clamps at
+                    # the capacity)
+                    churn_pub = churn_pub + (
+                        mask[:, None] & (torch.arange(
+                            len(churn_tids), device=dev)
+                            == churn_tids.index(tid))[None, :]
+                    ).to(torch.int32)
+                topic_bufs[tid] = _topic_append(
+                    topic_bufs[tid], mask, pos0, res["publish_payload"],
+                    pay)
+            new_topic_len = torch.minimum(new_topic_len, topic_caps)
+            last_seq = torch.where(
+                sig_valid, sig_seq,
+                torch.where(pub_valid, pub_seq, st["last_seq"]),
+            )
 
             mids = res["metric_id"]
             rec = torch.stack(
@@ -721,7 +906,7 @@ class SimExecutable:
                 "last_seq": last_seq,
                 "counters": new_counters,
                 "topic_len": new_topic_len,
-                "topic_bufs": st["topic_bufs"],
+                "topic_bufs": topic_bufs,
                 "topic_head": st["topic_head"],
                 "stream_violations": st["stream_violations"],
                 "metrics_buf": metrics_buf,
@@ -729,6 +914,13 @@ class SimExecutable:
                 "metrics_dropped": metrics_dropped,
                 "mem": res["mem"],
             }
+            if churn_sids:
+                # signals to churn-watched states (sig is -1 on inactive
+                # lanes, and a victim cannot signal on its kill tick)
+                out["churn_sig"] = st["churn_sig"] + torch.stack(
+                    [sig == s for s in churn_sids], dim=1).to(torch.int32)
+            if churn_tids:
+                out["churn_pub"] = churn_pub
             if use_net:
                 nst = netmod.apply_net_config(
                     st["net"], quantum_ms, res["net_set"],
@@ -747,7 +939,7 @@ class SimExecutable:
                     nst, net_spec, tick, prng.fold_in(key, 7),
                     res["send_dest"], res["send_tag"], res["send_port"],
                     res["send_size"], res["send_payload"],
-                    status == RUNNING,
+                    status == RUNNING, hs_clear=res["hs_clear"],
                 )
                 nst = netmod.consume(nst, net_spec, tick, res["recv_count"],
                                      prefix=avail0)
@@ -786,16 +978,52 @@ class SimExecutable:
         step = self.skip_step if self.event_skip else self.tick_fn()
         return _tree_where(go, step(st), st)
 
+    def stepper(self, st: dict):
+        """A function that advances the state ``st`` by one loop iteration
+        (``guarded_tick``) and returns it. On the CPU it is
+        ``guarded_tick``. On the card the iteration is captured once in a
+        CUDA graph, after ``STEPPER_WARMUP`` eager iterations (which leave
+        ``st`` as it was: the tick is pure), with a copy of its result
+        back into ``st``'s tensors; each call replays the graph, so the host
+        launches one graph an iteration instead of thousands of ops. The
+        capture fails if the tick reads anything back to the host. The
+        replayed kernels are the captured ones, so the state is the eager
+        tick's, bit for bit."""
+        if self.device.type != "cuda":
+            return self.guarded_tick
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(STEPPER_WARMUP):
+                self.guarded_tick(st)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        ins = list(_leaves(st))
+        with torch.cuda.graph(graph):
+            out = self.guarded_tick(st)
+            for dst, src in zip(ins, _leaves(out)):
+                dst.copy_(src)
+
+        def replay(state):
+            assert state is st, "a captured stepper advances its own state"
+            graph.replay()
+            return state
+
+        replay.graph = graph  # the graph lives as long as the stepper
+        return replay
+
     def run(self) -> "SimResult":
-        """Run the dense loop to completion: ``chunk_ticks`` guarded ticks
-        between two host reads of the termination condition."""
+        """Run the dense loop to completion: ``chunk_ticks`` loop
+        iterations (``stepper``) between two host reads of the
+        termination condition."""
         cfg = self.config
         self.tick_fn()  # built before the clock starts
         st = self.init_state()
         wall0 = time.monotonic()
+        step = self.stepper(st)
         while True:
             for _ in range(max(1, cfg.chunk_ticks)):
-                st = self.guarded_tick(st)
+                st = step(st)
             tick = int(st["tick"])
             running = int(torch.sum(live_lanes(st)))
             if running == 0 or tick >= cfg.max_ticks:
@@ -841,6 +1069,34 @@ class SimResult:
     def timed_out(self) -> bool:
         return bool((self.statuses() == RUNNING).any())
 
+    def outcomes(self) -> dict[str, tuple[int, int]]:
+        """Per-group (ok, total), the reference's grading unit."""
+        ctx = self.executable.ctx
+        st = self.statuses()
+        return {
+            g.id: (int(((st == DONE_OK) & (ctx.group_ids == g.index)).sum()),
+                   g.instances)
+            for g in ctx.groups
+        }
+
+    def counter(self, state_name: str, index: int = None) -> int:
+        """Final value of a state counter (``index`` for a family state).
+        Raises KeyError on unknown names."""
+        states = self.executable.program.states
+        if index is not None:
+            fam = states._families.get(state_name)
+            if fam is None:
+                raise KeyError(f"unknown state family: {state_name!r}")
+            base, size = fam
+            if not 0 <= index < size:
+                raise IndexError(
+                    f"family {state_name!r} index {index} >= {size}")
+            return int(self.state["counters"][base + index])
+        sid = states.names().get(state_name)
+        if sid is None:
+            raise KeyError(f"unknown sync state: {state_name!r}")
+        return int(self.state["counters"][sid])
+
     def metrics_dropped(self) -> int:
         return int(_np(self.state["metrics_dropped"]).sum())
 
@@ -850,8 +1106,18 @@ class SimResult:
         return int(_np(self.state["net"][key]).sum())
 
     def net_dropped(self) -> int:
-        """Messages dropped by inbox-ring overflow."""
+        """Messages dropped by inbox-ring overflow (0 in count mode, whose
+        counters do not overflow)."""
         return self._net("inbox_dropped")
+
+    def net_horizon_clamped(self) -> int:
+        """Count-mode messages whose visibility lay past the delay wheel
+        and were clamped into its last bucket."""
+        return self._net("horizon_clamped")
+
+    def net_send_compact_fallbacks(self) -> int:
+        """Count-mode ticks with more data lanes than ``send_slots``."""
+        return self._net("send_compact_fallback")
 
     def net_payload_sanitized(self) -> int:
         return self._net("payload_sanitized")

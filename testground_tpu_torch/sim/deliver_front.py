@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import LaunchCount
 from . import net as netmod
 from . import prng
 from .program import TAG_SYN
@@ -243,13 +244,13 @@ def front_lanes(pend, send, running, net_enabled, eg_latency, eg_loss,
 
         res = kern.launch(pend, send, running, net_enabled, eg_latency,
                           eg_loss, u_loss, tick, send_slots)
-        front_lanes.launches += 1
+        front_lanes.launches.bump(running.device)
         return res
     return front_lanes_plain(pend, send, running, net_enabled, eg_latency,
                              eg_loss, u_loss, tick, send_slots)
 
 
-front_lanes.launches = 0
+front_lanes.launches = LaunchCount()
 
 
 def front(net, spec, tick, rng_key, send, status_running, n):
@@ -273,4 +274,4 @@ def front(net, spec, tick, rng_key, send, status_running, n):
 
 def reset_counters() -> None:
     """Zero the launch count (before a measured run)."""
-    front_lanes.launches = 0
+    front_lanes.launches.reset()

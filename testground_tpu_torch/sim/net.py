@@ -1,16 +1,20 @@
-"""The network data plane, entry-mode half: link-state tensors + the
-per-instance inbox rings, in torch.
+"""The network data plane: link-state tensors, the per-instance inbox
+rings (entry mode) or per-dest counts (count mode), in torch.
 
-Counterpart of ``testground_tpu/sim/net.py``, entry mode: the net
-state, the ConfigureNetwork writes, the record wire contract, the FIFO
-egress queue, the loss / rate / jitter / latency / reorder / duplicate /
+Counterpart of ``testground_tpu/sim/net.py``: the net state, the
+ConfigureNetwork writes, the record wire contract, the FIFO egress
+queue, the loss / rate / jitter / latency / reorder / duplicate /
 corrupt shaping (iid or Markov-correlated toxics), both appends into the
 inbox rings (the ranked scatter without a queue; the bounded two-level
 append, whose ring merge is sim/ring_merge.py, behind one), and the
 head cache / visible prefix / consume reads. ``deliver`` runs the
 default front, or the deliver-front kernel with
-``SimConfig.pallas_front=True``. Count mode, dials and filter rules
-raise ``NotImplementedError``.
+``SimConfig.pallas_front=True``. In count mode (``store_entries``
+False) deliveries add ``[count, bytes]`` rows into the fixed-next-tick
+staging row or the delay wheel through the ordered scatter-add
+(sim/count_scatter.py), ``advance_wheel`` drains them, and dials get
+their SYN -> ACK replies in the handshake registers. Filter rules, and
+dials in entry mode, raise ``NotImplementedError``.
 
 Inbox entry layout (NET_HDR + payload floats):
 ``[visible_tick, src, tag, port, size, payload...]``
@@ -18,7 +22,8 @@ Inbox entry layout (NET_HDR + payload floats):
 Scatter discipline: every scatter here writes UNIQUE slots; rows that
 must not land are routed to an explicit drop row past the end, which is
 sliced off (torch leaves the winner of repeated indices undefined, so
-nothing may depend on it).
+nothing may depend on it). Float sums into one row go through
+sim/count_scatter.py, which adds them in lane order.
 """
 
 from __future__ import annotations
@@ -28,11 +33,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import prng, ring_merge
-from .program import TAG_SYN, _not_ported
+from . import count_scatter, prng, ring_merge
+from .program import TAG_ACK, TAG_RST, TAG_SYN, _not_ported
 
 NET_HDR = 5  # visible, src, tag, port, size
 F_VISIBLE, F_SRC, F_TAG, F_PORT, F_SIZE = range(NET_HDR)
+
+# handshake register fields [N, 4]
+HS_VIS, HS_SRC, HS_PORT, HS_TAG = range(4)
+HS_NONE = 3.0e18  # "no pending reply" visibility sentinel
 
 _INT32_MAX = 2**31 - 1
 
@@ -75,15 +84,29 @@ class NetSpec:
     def width(self) -> int:
         return NET_HDR + self.payload_len
 
+    @property
+    def fixed_next_tick(self) -> bool:
+        """True when every delivery is visible exactly next tick (no
+        latency, jitter or rate anywhere in the program): count mode then
+        keeps one [N, 2] staging row in place of the delay wheel."""
+        return not (self.uses_latency or self.uses_jitter or self.uses_rate)
 
-def init_net_state(n: int, spec: NetSpec, device) -> dict:
-    """The net leaves of the state dict (names, shapes and dtypes of the
-    JAX package's init_net_state) for the entry-mode feature set."""
-    if not spec.store_entries or spec.uses_dials:
-        raise _not_ported("count mode / dial handshake registers", 4,
-                          "count-mode data plane")
+
+def check_supported(spec: NetSpec) -> None:
+    """Raise for the data-plane features the port does not run yet."""
     if spec.use_pair_rules or spec.use_class_rules:
         raise _not_ported("filter rules", 7, "entry-mode data plane")
+    if spec.uses_dials and spec.store_entries:
+        raise _not_ported("dials in entry mode", 7, "entry-mode data plane")
+    if spec.dest_sharded:
+        raise _not_ported("dest_sharded delivery (all_to_all)", 12,
+                          "multi-GPU")
+
+
+def init_net_state(n: int, spec: NetSpec, device) -> dict:
+    """The net leaves of the state dict: names, shapes and dtypes of the
+    JAX package's init_net_state."""
+    check_supported(spec)
     i32, f32 = torch.int32, torch.float32
 
     def z(shape, dtype):
@@ -92,21 +115,42 @@ def init_net_state(n: int, spec: NetSpec, device) -> dict:
     st = {
         "inbox_dropped": z(n, i32),
         "net_enabled": torch.ones(n, dtype=i32, device=device),
-        "inbox": z((n, spec.inbox_capacity, spec.width), f32),
-        "inbox_r": z(n, i32),
-        "inbox_w": z(n, i32),
-        "payload_sanitized": z((), i32),
     }
-    if spec.send_slots is not None and spec.send_slots < n:
-        st["pend_dest"] = torch.full((n,), -1, dtype=i32, device=device)
-        st["pend_tick"] = z(n, i32)
-        st["pend_tag"] = z(n, i32)
-        st["pend_port"] = z(n, i32)
-        st["pend_size"] = z(n, f32)
-        st["pend_pay"] = z((n, spec.payload_len), f32)
-        st["egress_deferred"] = z((), i32)
-        st["egress_overflow"] = z((), i32)
-        st["egress_abandoned"] = z((), i32)
+    if spec.uses_dials:
+        # handshake registers: [visible, src (dialee), port, tag]
+        st["hs"] = torch.tensor([HS_NONE, -1.0, 0.0, 0.0], dtype=f32,
+                                device=device).repeat(n, 1)
+    if spec.store_entries:
+        st["inbox"] = z((n, spec.inbox_capacity, spec.width), f32)
+        st["inbox_r"] = z(n, i32)
+        st["inbox_w"] = z(n, i32)
+        st["payload_sanitized"] = z((), i32)
+        if spec.send_slots is not None and spec.send_slots < n:
+            st["pend_dest"] = torch.full((n,), -1, dtype=i32, device=device)
+            st["pend_tick"] = z(n, i32)
+            st["pend_tag"] = z(n, i32)
+            st["pend_port"] = z(n, i32)
+            st["pend_size"] = z(n, f32)
+            st["pend_pay"] = z((n, spec.payload_len), f32)
+            st["egress_deferred"] = z((), i32)
+            st["egress_overflow"] = z((), i32)
+            st["egress_abandoned"] = z((), i32)
+    else:
+        if spec.fixed_next_tick:
+            st["staging"] = z((n, 2), f32)
+            if spec.track_occupancy:
+                st["staging_cnt"] = z((), i32)
+        else:
+            st["wheel"] = z((spec.horizon, n, 2), f32)
+            st["horizon_clamped"] = z(n, i32)
+            if spec.track_occupancy:
+                st["wheel_occ"] = z(spec.horizon, i32)
+        st["avail"] = z(n, i32)
+        st["bytes_in"] = z(n, f32)
+    if spec.send_slots is not None and not spec.store_entries:
+        # count-mode ticks with more data lanes than send_slots (the JAX
+        # package's full-scatter fallback)
+        st["send_compact_fallback"] = z((), i32)
     for name, flag in (
         ("eg_latency", spec.uses_latency),
         ("eg_jitter", spec.uses_jitter),
@@ -512,19 +556,22 @@ def _corrupt(net, rng_key, n, transmits, data_ok, send_payload):
 
 
 def deliver(net: dict, spec: NetSpec, tick, rng_key, send_dest, send_tag,
-            send_port, send_size, send_payload, status_running) -> dict:
-    """One tick of the entry-mode data plane: the egress queue (with
+            send_port, send_size, send_payload, status_running,
+            hs_clear=None) -> dict:
+    """One tick of the data plane: the egress queue (entry mode with
     ``send_slots``), destination viability, the loss / rate / jitter /
-    latency / reorder / duplicate / corrupt shaping, the record build,
-    and the append into the inboxes (bounded behind the queue, the
-    ranked scatter without it). With ``spec.pallas_front`` the front up
-    to the records runs as the deliver-front kernel
-    (sim/deliver_front.py)."""
-    if not spec.store_entries or spec.uses_dials:
-        raise _not_ported("count mode / dial handshake registers", 4,
-                          "count-mode data plane")
-    if spec.use_pair_rules or spec.use_class_rules:
-        raise _not_ported("filter rules", 7, "entry-mode data plane")
+    latency / reorder / duplicate / corrupt shaping, then either the
+    record build and the append into the inboxes (entry mode: bounded
+    behind the queue, the ranked scatter without it) or the count-mode
+    add of ``[count, bytes]`` into the staging row or the delay wheel;
+    last, for a dialing program, the SYN replies into the dialers'
+    handshake registers. With ``spec.pallas_front`` the entry-mode front
+    up to the records runs as the deliver-front kernel
+    (sim/deliver_front.py).
+
+    ``hs_clear`` [N] i32: lanes starting a fresh dial this tick; their
+    register is cleared before this tick's reply is written."""
+    check_supported(spec)
     net = dict(net)
     if spec.pallas_front and "pend_dest" in net:
         from . import deliver_front
@@ -609,6 +656,12 @@ def deliver(net: dict, spec: NetSpec, tick, rng_key, send_dest, send_tag,
             net, prng.fold_in(rng_key, 4), "duplicate", n, transmits,
             net["eg_duplicate"],
         ) & data_ok
+    if not spec.store_entries:
+        _count_add(net, spec, tick, visible, data_ok, dest_c, send_size, dup)
+        if spec.uses_dials:
+            _handshake(net, t, visible, deliverable, send_dest, send_tag,
+                       send_port, dest_c, hs_clear)
+        return net
     if "eg_corrupt" in net:
         send_payload = _corrupt(net, rng_key, n, transmits, data_ok,
                                 send_payload)
@@ -628,6 +681,121 @@ def deliver(net: dict, spec: NetSpec, tick, rng_key, send_dest, send_tag,
             max_valid=spec.send_slots * (2 if dup is not None else 1),
         )
     return _append_messages(net, spec, dest_app, rec)
+
+
+def _count_add(net, spec, tick, visible, data_ok, dest_c, send_size, dup):
+    """Count mode: this tick's data lanes add ``[count, bytes]`` into the
+    staging row (fixed next tick) or into the delay-wheel bucket of their
+    first consumable tick, in lane order (sim/count_scatter.py), with the
+    occupancy and clamp counters. Mutates ``net``.
+
+    The JAX package picks among an identity (no data lane), a compacted
+    and a full scatter with ``lax.cond``; all three give the full
+    scatter's values, so the port runs that one lowering with no host
+    read, and counts ``send_compact_fallback`` as JAX does: +1 on a tick
+    with more data lanes than ``send_slots``."""
+    n = data_ok.shape[0]
+    ones = torch.ones_like(send_size)
+    # netem duplicate: the copy carries the same byte count
+    mult = ones + dup.to(torch.float32) if dup is not None else ones
+    upd = torch.stack([mult, send_size.to(torch.float32) * mult], dim=-1)
+    M = spec.send_slots
+    if M is not None and M < n:
+        n_data = _isum(data_ok)
+        net["send_compact_fallback"] = net["send_compact_fallback"] + (
+            n_data > M).to(torch.int32)
+    if spec.fixed_next_tick:
+        rows = net["staging"].shape[0]
+        idx = torch.where(data_ok, dest_c, rows)
+        net["staging"] = count_scatter.scatter_add(net["staging"], idx, upd)
+        if "staging_cnt" in net:
+            net["staging_cnt"] = net["staging_cnt"] + _isum(data_ok)
+        return
+    W = spec.horizon
+    wheel = net["wheel"]
+    rows = wheel.shape[1]
+    tt = torch.ceil(visible).to(torch.int32)  # first consumable tick
+    over = data_ok & (tt > tick + (W - 1))
+    tt = torch.minimum(tt, tick + (W - 1))
+    b = torch.remainder(tt, W)
+    idx = torch.where(data_ok, b * rows + dest_c, W * rows)
+    net["wheel"] = count_scatter.scatter_add(
+        wheel.reshape(W * rows, 2), idx, upd).reshape(W, rows, 2)
+    if "wheel_occ" in net:
+        # per-bucket message counts (integer adds: exact in any order)
+        occ = torch.cat([net["wheel_occ"], net["wheel_occ"].new_zeros(1)])
+        occ.index_add_(0, torch.where(data_ok, b, W),
+                       torch.ones_like(b))
+        net["wheel_occ"] = occ[:W]
+    # indexed by sender lane; only the total is read
+    net["horizon_clamped"] = net["horizon_clamped"] + over.to(torch.int32)
+
+
+_HS_EMPTY: dict = {}
+
+
+def _hs_empty(device):
+    """The cleared register row ``[HS_NONE, -1, 0, 0]`` on ``device``,
+    made once (a tick then copies nothing from the host)."""
+    if device not in _HS_EMPTY:
+        _HS_EMPTY[device] = torch.tensor([[HS_NONE, -1.0, 0.0, 0.0]],
+                                         dtype=torch.float32, device=device)
+    return _HS_EMPTY[device]
+
+
+def _handshake(net, t, visible, deliverable, send_dest, send_tag, send_port,
+               dest_c, hs_clear):
+    """A delivered SYN writes an ACK into the dialer's register, visible
+    one return leg after the SYN arrives. Mutates ``net``.
+
+    The JAX package computes the reply only on a tick that carries a SYN
+    (``lax.cond``); on any other tick no lane writes the register, so
+    computing it every tick gives the same state. Without filter rules
+    no SYN is refused, so no RST is written."""
+    syn_ok = deliverable & (send_tag == TAG_SYN)
+    if "eg_latency" in net:
+        lat = net["eg_latency"]
+        back_a = torch.clamp(lat[dest_c], min=1.0)
+        back_r = t + 1.0 + torch.clamp(lat, min=0.0)
+        back_visible = torch.where(syn_ok, visible + back_a, back_r)
+    else:
+        back_visible = torch.where(syn_ok, visible + 1.0, t + 1.0)
+    hs = net["hs"]
+    if hs_clear is not None:
+        hs = torch.where((hs_clear > 0)[:, None], _hs_empty(hs.device), hs)
+    hs_new = torch.stack(
+        [
+            back_visible,
+            send_dest.to(torch.float32),
+            send_port.to(torch.float32).expand(send_dest.shape),
+            torch.where(syn_ok, float(TAG_ACK), float(TAG_RST)),
+        ],
+        dim=-1,
+    )
+    net["hs"] = torch.where(syn_ok[:, None], hs_new, hs)
+
+
+def advance_wheel(net: dict, spec: NetSpec, tick) -> dict:
+    """Count mode, start of tick: drain the staging row or this tick's
+    wheel bucket into the per-dest visible count and byte total. The
+    bucket is picked with a one-element index tensor, never a 0-dim one,
+    which torch would read back to the host."""
+    net = dict(net)
+    if spec.fixed_next_tick:
+        row = net["staging"]
+        net["staging"] = torch.zeros_like(row)
+        if "staging_cnt" in net:
+            net["staging_cnt"] = torch.zeros_like(net["staging_cnt"])
+    else:
+        W = spec.horizon
+        b = torch.remainder(tick, W).reshape(1).to(torch.int64)
+        row = net["wheel"].index_select(0, b)[0]
+        net["wheel"] = net["wheel"].index_fill(0, b, 0.0)
+        if "wheel_occ" in net:
+            net["wheel_occ"] = net["wheel_occ"].index_fill(0, b, 0)
+    net["avail"] = net["avail"] + row[:, 0].to(torch.int32)
+    net["bytes_in"] = net["bytes_in"] + row[:, 1]
+    return net
 
 
 def head_cache(net: dict, spec: NetSpec) -> torch.Tensor:
@@ -653,7 +821,10 @@ def head_cache(net: dict, spec: NetSpec) -> torch.Tensor:
 
 def visible_prefix(net: dict, spec: NetSpec, tick) -> torch.Tensor:
     """[N] count of inbox entries consumable this tick: the FIFO prefix of
-    in-window slots whose visibility time has arrived."""
+    in-window slots whose visibility time has arrived (count mode: the
+    drained count)."""
+    if not spec.store_entries:
+        return net["avail"]
     cap = spec.inbox_capacity
     t = tick.to(torch.float32)
     r, w = net["inbox_r"], net["inbox_w"]
@@ -674,5 +845,8 @@ def consume(net: dict, spec: NetSpec, tick, recv_count, prefix=None) -> dict:
         prefix = visible_prefix(net, spec, tick)
     take = torch.minimum(torch.clamp(recv_count, min=0), prefix)
     net = dict(net)
-    net["inbox_r"] = net["inbox_r"] + take
+    if spec.store_entries:
+        net["inbox_r"] = net["inbox_r"] + take
+    else:
+        net["avail"] = net["avail"] - take
     return net

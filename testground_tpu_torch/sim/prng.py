@@ -66,11 +66,17 @@ def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
     return torch.tensor([0, seed & _M32], dtype=torch.int64, device=device)
 
 
+def _scalar(v: int, like: torch.Tensor) -> torch.Tensor:
+    """An int64 scalar on ``like``'s device, made by a fill on the device
+    (no host-to-device copy, so a tick that draws can be captured in a
+    CUDA graph)."""
+    return torch.full((), v, dtype=torch.int64, device=like.device)
+
+
 def _as_u32(data, like: torch.Tensor) -> torch.Tensor:
     if isinstance(data, torch.Tensor):
         return data.to(torch.int64) & _M32
-    return torch.as_tensor(int(data) & _M32, dtype=torch.int64,
-                           device=like.device)
+    return _scalar(int(data) & _M32, like)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
@@ -121,7 +127,7 @@ def _int_operand(v, like: torch.Tensor) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         t = v.to(torch.int64)
     else:
-        t = torch.as_tensor(int(v), dtype=torch.int64, device=like.device)
+        t = _scalar(int(v), like)
     return torch.clamp(t, _INT32_MIN, _INT32_MAX)
 
 

@@ -12,9 +12,9 @@ lane's value) and the core batches them over the instance axis with
 Inside a phase, make tensors from the env's own tensors (``*_like``,
 ``new_*``) so they land on the run's device.
 
-This slice ports the builder methods the dht find-providers plan uses;
-the others raise ``NotImplementedError`` naming the ROADMAP.md module
-that will port them.
+This package ports the builder methods the dht, gossipsub and storm
+plans use; the others raise ``NotImplementedError`` naming the
+ROADMAP.md module that will port them.
 """
 
 from __future__ import annotations
@@ -136,11 +136,18 @@ class TickEnv:
     params: dict  # name -> per-instance scalar
     topic_head: Any = None
     crashed_total: Any = None  # i32 (shared): instances CRASHED so far
+    # {sid: i32} (shared): signals to churn-watched states already made
+    # by now-CRASHED instances; churn barriers add them back
+    dead_signals: Any = None
+    # {tid: i32} (shared): the same, for publishes to churn-watched topics
+    dead_pubs: Any = None
     # ---- data plane views (None when the program doesn't use the net)
     inbox: Any = None  # [Q, width] this instance's inbox ring
     inbox_r: Any = None  # i32 read cursor
     inbox_avail: Any = None  # i32 visible FIFO prefix length
     inbox_head: Any = None  # [K, width] FIFO head rows 0..K-1
+    inbox_bytes: Any = None  # f32 data bytes delivered to me (count mode)
+    hs: Any = None  # [4] my handshake register (dialing programs)
     egress_busy: Any = None  # bool: my egress queue holds a deferred send
     eg_latency_ticks: Any = None  # f32 my current egress latency
     quantum_ms: float = 1.0  # ms per tick
@@ -159,6 +166,14 @@ class TickEnv:
         if self.egress_busy is None:
             return torch.ones_like(self.tick, dtype=torch.bool)
         return ~self.egress_busy
+
+    def topic_count(self, topic_id):
+        return self.topic_len[topic_id]
+
+    def read_topic(self, topic_id, pos):
+        """Payload vector at position ``pos`` of a topic (``topic_id`` is
+        the static int from topics.topic())."""
+        return self.topic_buf[topic_id][pos]
 
     def ms(self, ticks):
         return ticks * self.quantum_ms
@@ -224,6 +239,9 @@ class StateRegistry:
     def count(self) -> int:
         return max(1, self._next)
 
+    def names(self) -> dict[str, int]:
+        return dict(self._ids)
+
 
 class TopicRegistry:
     """Topics get ragged buffers ([cap, pay] each)."""
@@ -246,6 +264,11 @@ class TopicRegistry:
     @property
     def count(self) -> int:
         return max(1, self._next)
+
+    @property
+    def payload_len(self) -> int:
+        """The publish payload width: the widest topic's."""
+        return max([1] + [p for _, _, p, _ in self._topics.values()])
 
 
 class MetricRegistry:
@@ -273,16 +296,42 @@ class Program:
     metrics: MetricRegistry
     mem_spec: dict[str, tuple[tuple, Any, Any]]  # name -> (shape, dtype, init)
     net_spec: Any = None  # net.NetSpec when the program uses the data plane
+    # state / topic ids watched by churn-tolerant barriers: the core keeps
+    # per-instance signal / publish counts for exactly these
+    churn_sids: tuple = ()
+    churn_tids: tuple = ()
 
 
-def _no_churn(churn_weight: int) -> None:
-    if churn_weight:
-        raise _not_ported("churn-tolerant barriers (churn_weight)", 5,
-                          "tick and loop")
+@dataclass
+class LoopHandle:
+    slot: str  # mem slot holding the loop counter
+    start_pc: int
+    count: Any = 0  # iteration bound (set by loop_begin, used by loop_end)
+
+    def index(self, mem) -> Any:
+        """Current loop iteration (for state-family indexing)."""
+        return mem[self.slot]
+
+
+def _dead(table, key):
+    """Dead-contribution compensation for a churn-watched state/topic (0
+    when the env carries no tracking)."""
+    if table is None:
+        return 0
+    return table.get(key, 0)
+
+
+def _no_churn_family(churn_weight, family_size, index_fn) -> None:
+    if churn_weight and (family_size or index_fn is not None):
+        raise ValueError(
+            "churn_weight is unsupported on family/indexed barriers: "
+            "env.crashed_total is GLOBAL, so one family's crashes "
+            "would over-release every other family's barrier"
+        )
 
 
 class ProgramBuilder:
-    """Combinator DSL that lowers to phases (the subset this slice runs)."""
+    """Combinator DSL that lowers to phases (the subset the port runs)."""
 
     def __init__(self, ctx) -> None:
         self.ctx = ctx
@@ -293,6 +342,10 @@ class ProgramBuilder:
         self._mem: dict[str, tuple[tuple, Any, Any]] = {}
         self._auto = 0
         self._net_spec = None  # net.NetSpec once the data plane is enabled
+        self._churn_sids: list[int] = []  # states watched by churn barriers
+        self._churn_tids: list[int] = []  # topics watched by churn waits
+        self._churn_weights_s: dict[int, int] = {}  # sid -> last weight
+        self._churn_weights_t: dict[int, int] = {}  # tid -> last weight
 
     # ------------------------------------------------------------- memory
 
@@ -300,6 +353,32 @@ class ProgramBuilder:
         """Declare a per-instance memory slot (shape is per instance)."""
         self._mem[name] = (tuple(shape), dtype, init)
         return name
+
+    def _watch_churn_state(self, sid: int, weight: int) -> None:
+        self._check_cumulative_weight(self._churn_weights_s, sid, weight,
+                                      "state")
+        if sid not in self._churn_sids:
+            self._churn_sids.append(sid)
+
+    def _watch_churn_topic(self, tid: int, weight: int) -> None:
+        self._check_cumulative_weight(self._churn_weights_t, tid, weight,
+                                      "topic")
+        if tid not in self._churn_tids:
+            self._churn_tids.append(tid)
+
+    def _check_cumulative_weight(self, seen: dict, key, weight, kind) -> None:
+        """Repeated churn barriers on one state/topic must use CUMULATIVE
+        weights (counters never reset and the dead compensation is for the
+        whole run); a per-round weight would deadlock survivors."""
+        prev = seen.get(key)
+        if prev is not None and weight <= prev:
+            raise ValueError(
+                f"repeated churn-tolerant barrier on the same {kind} needs "
+                f"a strictly larger CUMULATIVE churn_weight (got {weight} "
+                f"after {prev}): targets and weights must both accumulate "
+                "across rounds — see ProgramBuilder.barrier"
+            )
+        seen[key] = weight
 
     def _auto_slot(self, kind: str, dtype=torch.int32, init=0, shape=()) -> str:
         self._auto += 1
@@ -314,6 +393,15 @@ class ProgramBuilder:
         pc = len(self._phases)
         self._phases.append(Phase(name or f"phase{pc}", fn))
         return pc
+
+    def log(self, message: str) -> None:
+        """A static plan message: a phase that only advances (the JAX
+        package keeps the strings; nothing in the port reads them)."""
+
+        def fn(env, mem):
+            return mem, PhaseCtrl(advance=1)
+
+        self.phase(fn, name=f"log:{message[:24]}")
 
     def sleep_ms(self, ms) -> None:
         def fn(env, mem):
@@ -343,8 +431,12 @@ class ProgramBuilder:
 
     def barrier(self, state: str, target, family_size: int = 0,
                 index_fn=None, churn_weight: int = 0) -> None:
-        """Wait until the state counter reaches target."""
-        _no_churn(churn_weight)
+        """Wait until the state counter reaches target. ``churn_weight`` >
+        0 makes the barrier churn-tolerant: the target shrinks by weight x
+        instances crashed so far, and the signals the dead already made
+        are added back (env.dead_signals). Repeated churn barriers on one
+        state take cumulative targets and weights."""
+        _no_churn_family(churn_weight, family_size, index_fn)
         if index_fn is not None and not family_size:
             raise ValueError(
                 "index_fn requires family_size: without a family block the "
@@ -356,13 +448,20 @@ class ProgramBuilder:
             if family_size
             else self.states.state(state)
         )
+        if churn_weight:
+            self._watch_churn_state(sid, churn_weight)
 
         def fn(env, mem):
+            tgt = target
+            if churn_weight:
+                tgt = tgt - churn_weight * env.crashed_total + _dead(
+                    env.dead_signals, sid
+                )
             if family_size:
                 idx = index_fn(env, mem) if index_fn is not None else 0
-                done = env.family_counter(sid, family_size, idx) >= target
+                done = env.family_counter(sid, family_size, idx) >= tgt
             else:
-                done = env.barrier_done(sid, target)
+                done = env.barrier_done(sid, tgt)
             return mem, PhaseCtrl(advance=done.to(torch.int32))
 
         self.phase(fn, name=f"barrier:{state}")
@@ -371,8 +470,9 @@ class ProgramBuilder:
                         index_fn=None, save_seq: Optional[str] = None,
                         churn_weight: int = 0) -> None:
         """MustSignalAndWait: one phase that signals once, then polls the
-        barrier. ``target=None`` → all (non-padding) instances."""
-        _no_churn(churn_weight)
+        barrier. ``target=None`` → all (non-padding) instances.
+        ``churn_weight`` as in :meth:`barrier`."""
+        _no_churn_family(churn_weight, family_size, index_fn)
         if index_fn is not None and not family_size:
             raise ValueError(
                 "index_fn requires family_size: without a family block the "
@@ -386,6 +486,8 @@ class ProgramBuilder:
         )
         tgt = self.ctx.n_instances if target is None else target
         flag = self._auto_slot("saw_flag")
+        if churn_weight:
+            self._watch_churn_state(sid, churn_weight)
 
         def fn(env, mem):
             idx = index_fn(env, mem) if index_fn is not None else 0
@@ -393,10 +495,15 @@ class ProgramBuilder:
             do_signal = torch.where(
                 signaled, -1, torch.full_like(mem[flag], sid) + idx
             )
+            t = tgt
+            if churn_weight:
+                t = t - churn_weight * env.crashed_total + _dead(
+                    env.dead_signals, sid
+                )
             if family_size:
-                reached = env.family_counter(sid, family_size, idx) >= tgt
+                reached = env.family_counter(sid, family_size, idx) >= t
             else:
-                reached = env.barrier_done(sid, tgt)
+                reached = env.barrier_done(sid, t)
             done = signaled & reached
             mem = dict(mem)
             if save_seq is not None:
@@ -412,6 +519,82 @@ class ProgramBuilder:
         if save_seq is not None and save_seq not in self._mem:
             self.declare(save_seq, (), torch.int32, 0)
         self.phase(fn, name=f"signal_and_wait:{state}")
+
+    def publish(self, topic: str, capacity: int, payload_fn,
+                payload_len: int = 1, save_seq: Optional[str] = None,
+                stream: bool = False) -> None:
+        """Publish once and advance. payload_fn(env, mem) -> [payload_len]
+        f32 (or a scalar)."""
+        tid = self.topics.topic(topic, capacity, payload_len, stream=stream)
+        flag = self._auto_slot("pub_flag")
+        if save_seq is not None and save_seq not in self._mem:
+            self.declare(save_seq, (), torch.int32, 0)
+
+        def fn(env, mem):
+            published = mem[flag] > 0
+            mem = dict(mem)
+            if save_seq is not None:
+                # seq is available the tick after publishing
+                mem[save_seq] = torch.where(
+                    published & (mem[flag] == 1), env.last_seq,
+                    mem[save_seq],
+                )
+            width = self.topics.payload_len
+            p = torch.as_tensor(payload_fn(env, mem)).to(
+                torch.float32).reshape(-1)
+            payload = torch.cat([p, p.new_zeros(width - p.shape[0])])
+            mem[flag] = torch.where(published, 0, mem[flag] + 1)
+            return mem, PhaseCtrl(
+                advance=published.to(torch.int32),
+                publish_topic=torch.where(
+                    published, -1, torch.full_like(mem[flag], tid)),
+                publish_payload=payload,
+            )
+
+        self.phase(fn, name=f"publish:{topic}")
+
+    def wait_topic(self, topic: str, capacity: int, count,
+                   payload_len: int = 1, churn_weight: int = 0) -> None:
+        """Block until a topic holds ``count`` entries. ``churn_weight``
+        as in :meth:`barrier`."""
+        tid = self.topics.topic(topic, capacity, payload_len)
+        if churn_weight:
+            self._watch_churn_topic(tid, churn_weight)
+
+        def fn(env, mem):
+            c = count
+            if churn_weight:
+                c = c - churn_weight * env.crashed_total + _dead(
+                    env.dead_pubs, tid
+                )
+            return mem, PhaseCtrl(
+                advance=(env.topic_count(tid) >= c).to(torch.int32))
+
+        self.phase(fn, name=f"wait_topic:{topic}")
+
+    # -------------------------------------------------------------- loops
+
+    def loop_begin(self, count) -> LoopHandle:
+        slot = self._auto_slot("loop")
+
+        def fn(env, mem):
+            return mem, PhaseCtrl(advance=1)
+
+        start_pc = self.phase(fn, name="loop_begin")
+        return LoopHandle(slot=slot, start_pc=start_pc, count=count)
+
+    def loop_end(self, handle: LoopHandle) -> None:
+        def fn(env, mem):
+            mem = dict(mem)
+            nxt = mem[handle.slot] + 1
+            again = nxt < handle.count
+            mem[handle.slot] = torch.where(again, nxt, 0)
+            return mem, PhaseCtrl(
+                advance=(~again).to(torch.int32),
+                jump=torch.where(again, handle.start_pc + 1, -1),
+            )
+
+        self.phase(fn, name="loop_end")
 
     # ------------------------------------------------------------ metrics
 
@@ -443,6 +626,18 @@ class ProgramBuilder:
             return mem, PhaseCtrl(status=DONE_OK)
 
         self.phase(fn, name="end_ok")
+
+    def fail_if(self, cond_fn, message: str = "") -> None:
+        """Fail instances where cond_fn(env, mem) is True; others advance."""
+
+        def fn(env, mem):
+            bad = cond_fn(env, mem)
+            return mem, PhaseCtrl(
+                advance=(~bad).to(torch.int32),
+                status=torch.where(bad, DONE_FAIL, 0),
+            )
+
+        self.phase(fn, name=f"fail_if:{message[:24]}")
 
     # ---------------------------------------------------------- data plane
 
@@ -601,24 +796,106 @@ class ProgramBuilder:
             churn_weight=churn_weight,
         )
 
+    def dial(self, dest_fn, port: int, result_slot: str,
+             timeout_ms: float = 30_000.0,
+             elapsed_slot: Optional[str] = None, retries: int = 0) -> None:
+        """TCP-dial analog: send a SYN, wait for the ACK (success, about
+        one RTT), an RST (refused) or the timeout. Writes ``result_slot``:
+        1 ok, -1 refused, -2 gave up after every attempt.
+
+        ``retries`` re-sends the SYN after each per-attempt ``timeout_ms``
+        up to that many extra times (an RST is not retried);
+        ``elapsed_slot`` spans all attempts. The first SYN and every
+        retransmit wait for ``env.egress_ready()``; the attempt clock
+        starts at phase entry. The reply lands in the handshake register
+        (``env.hs``), which is cleared at phase entry (``hs_clear``), so a
+        stale reply from an earlier dial is unreadable."""
+        from .net import HS_PORT, HS_SRC, HS_TAG, HS_VIS
+
+        self.enable_net()
+        if result_slot not in self._mem:
+            self.declare(result_slot, (), torch.int32, 0)
+        if elapsed_slot is not None and elapsed_slot not in self._mem:
+            self.declare(elapsed_slot, (), torch.int32, 0)
+        self._net_spec.uses_dials = True
+        t0 = self._auto_slot("dial_t0")
+        tfirst = self._auto_slot("dial_tf") if elapsed_slot else None
+        tries = self._auto_slot("dial_try") if retries else None
+        dialed = self._auto_slot("dial_dest")
+        sent = self._auto_slot("dial_syn")  # SYN for the current attempt out?
+
+        def fn(env, mem):
+            entered = mem[t0] > 0
+            dest = torch.as_tensor(dest_fn(env, mem)).to(torch.int32)
+            noop = (~entered) & (dest < 0)  # no-dial role: skip at once
+            eg_ok = env.egress_ready()
+            enter = (~entered) & ~noop
+            mem = dict(mem)
+            mem[dialed] = torch.where(enter, dest, mem[dialed])
+            mem[t0] = torch.where(enter, env.tick + 1, mem[t0])
+            if tfirst is not None:
+                mem[tfirst] = torch.where(enter, env.tick + 1, mem[tfirst])
+            syn_out = mem[sent] > 0
+            # reply ready? (src and port must match the dial)
+            ready = (
+                entered
+                & (env.hs[HS_VIS] <= env.tick)
+                & (env.hs[HS_SRC] == mem[dialed].to(torch.float32))
+                & (env.hs[HS_PORT] == port)
+            )
+            is_ack = ready & (env.hs[HS_TAG] == TAG_ACK)
+            is_rst = ready & (env.hs[HS_TAG] == TAG_RST)
+            timed_out = entered & ~is_ack & ~is_rst & (
+                env.ms(env.tick - mem[t0]) >= timeout_ms
+            )
+            if tries is not None:
+                # an attempt window expires by clock even when the egress
+                # is pinned (the retransmit then emits later)
+                roll = timed_out & (mem[tries] < retries)
+            else:
+                roll = torch.zeros_like(timed_out)
+            gave_up = timed_out & ~roll
+            done = noop | (entered & (is_ack | is_rst | gave_up))
+            result = torch.where(
+                is_ack, 1,
+                torch.where(is_rst, -1, torch.where(gave_up, -2, 0)),
+            ).to(torch.int32)
+            mem[result_slot] = torch.where(done & ~noop, result,
+                                           mem[result_slot])
+            if elapsed_slot is not None:
+                mem[elapsed_slot] = torch.where(
+                    done & ~noop, env.tick - mem[tfirst], mem[elapsed_slot]
+                )
+                mem[tfirst] = torch.where(done, 0, mem[tfirst])
+            if tries is not None:
+                mem[tries] = torch.where(
+                    done, 0, mem[tries] + roll.to(torch.int32)
+                )
+            # a window rollover restarts the attempt clock now
+            mem[t0] = torch.where(
+                done, 0, torch.where(roll, env.tick + 1, mem[t0])
+            )
+            retry_syn = roll & eg_ok
+            # the current attempt's SYN fires on the first admitted tick
+            first_syn = (enter | entered) & ~syn_out & eg_ok & ~done
+            sending = first_syn | retry_syn
+            mem[sent] = torch.where(
+                done | (roll & ~eg_ok), 0,
+                torch.where(sending, 1, mem[sent]),
+            )
+            return mem, PhaseCtrl(
+                advance=done.to(torch.int32),
+                send_dest=torch.where(sending, mem[dialed], -1),
+                send_tag=TAG_SYN,
+                send_port=port,
+                # cleared at phase entry only: a retransmit keeps the
+                # previous attempt's in-flight ACK valid
+                hs_clear=enter.to(torch.int32),
+            )
+
+        self.phase(fn, name=f"dial:{port}")
+
     # ------------------------------------------------- not ported (yet)
-
-    def log(self, message: str) -> None:
-        raise _not_ported("ProgramBuilder.log", 3, "phase-program DSL")
-
-    def publish(self, *a, **k) -> None:
-        raise _not_ported("ProgramBuilder.publish (topic append)", 5,
-                          "tick and loop")
-
-    def wait_topic(self, *a, **k) -> None:
-        raise _not_ported("ProgramBuilder.wait_topic (topic append)", 5,
-                          "tick and loop")
-
-    def loop_begin(self, *a, **k):
-        raise _not_ported("ProgramBuilder.loop_begin", 3, "phase-program DSL")
-
-    def loop_end(self, *a, **k) -> None:
-        raise _not_ported("ProgramBuilder.loop_end", 3, "phase-program DSL")
 
     def trace(self, *a, **k) -> None:
         raise _not_ported("ProgramBuilder.trace", 9, "observer planes")
@@ -645,16 +922,9 @@ class ProgramBuilder:
     def end_crash(self) -> None:
         raise _not_ported("ProgramBuilder.end_crash", 3, "phase-program DSL")
 
-    def fail_if(self, *a, **k) -> None:
-        raise _not_ported("ProgramBuilder.fail_if", 3, "phase-program DSL")
-
     def set_net_class(self, *a, **k) -> None:
         raise _not_ported("ProgramBuilder.set_net_class", 7,
                           "entry-mode data plane")
-
-    def dial(self, *a, **k) -> None:
-        raise _not_ported("ProgramBuilder.dial (handshake registers)", 4,
-                          "count-mode data plane")
 
     def send_message(self, *a, **k) -> None:
         raise _not_ported("ProgramBuilder.send_message", 3,
@@ -684,4 +954,6 @@ class ProgramBuilder:
             metrics=self.metrics,
             mem_spec=dict(self._mem),
             net_spec=self._net_spec,
+            churn_sids=tuple(self._churn_sids),
+            churn_tids=tuple(self._churn_tids),
         )

@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from ..kernels import LaunchCount
+
 
 def merge_plain(ring, w, k_eff, arr):
     """For each row of ``ring`` ``[N, CAP, W]``: the staged record
@@ -45,9 +47,9 @@ def merge(ring, w, k_eff, arr):
         from ..kernels import ring_merge as kern
 
         out = kern.launch(ring, w, k_eff, arr)
-        merge.launches += 1
+        merge.launches.bump(ring.device)
         return out
     return merge_plain(ring, w, k_eff, arr)
 
 
-merge.launches = 0
+merge.launches = LaunchCount()

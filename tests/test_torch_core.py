@@ -97,3 +97,21 @@ def test_churn_kill_tick(kw):
     other = np.where(np.arange(1000) % 7 == 0, 50, -1).astype(np.int32)
     np.testing.assert_array_equal(tc.merge_kill_ticks(got, other),
                                   jc.merge_kill_ticks(want, other))
+
+
+def test_launch_count_host_path_and_cpu_stepper():
+    """An eager launch counts on the host; the count resets. On the CPU
+    the run loop steps with ``guarded_tick`` itself (the CUDA-graph
+    stepper is the card's: tests/test_torch_cuda.py and chip_smoke.py
+    hold its runs to the CPU's)."""
+    from testground_tpu_torch import graft
+    from testground_tpu_torch.kernels import LaunchCount
+
+    c = LaunchCount()
+    for _ in range(3):
+        c.bump(torch.device("cpu"))
+    assert int(c) == 3
+    c.reset()
+    assert int(c) == 0
+    ex = graft.storm_executable(8, device="cpu")
+    assert ex.stepper(ex.init_state()) == ex.guarded_tick

@@ -1,9 +1,11 @@
 """Card-only checks of the port (marked ``cuda``; they skip without a
-GPU): the deliver-front and ring-merge CUDA kernels against their plain
-torch versions on the same tensors, the whole front dispatch captured
-in a CUDA graph against its eager call, and the dht slice (fused front
-and default lowering) and gossipsub on the card against the port's CPU
-path. This file imports no jax, so it runs on the GPU machine:
+GPU): the deliver-front, ring-merge and count-scatter CUDA kernels
+against their plain torch versions on the same tensors, the whole front
+dispatch captured in a CUDA graph against its eager call, and the dht
+slice (fused front and default lowering), gossipsub and storm (unshaped
+and shaped with churn) on the card against the port's CPU path (on
+the card ``run`` replays a CUDA graph of the tick). This file imports no
+jax, so it runs on the GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py
@@ -20,6 +22,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
+from testground_tpu_torch.sim import count_scatter as csc  # noqa: E402
 from testground_tpu_torch.sim import deliver_front as df  # noqa: E402
 from testground_tpu_torch.sim import ring_merge as rm  # noqa: E402
 from testground_tpu_torch.sim.state_io import (  # noqa: E402
@@ -43,9 +46,9 @@ def test_kernel_matches_plain(name, seed, kwargs, n):
     net, spec, send, running, tick, key = cs.front_case(
         torch, np, n, seed, dev, **kwargs)
     ins = cs.lane_inputs(torch, net, spec, send, running, tick, key, n)
-    launches = df.front_lanes.launches
+    launches = int(df.front_lanes.launches)
     got = df.front_lanes(*ins)
-    assert df.front_lanes.launches == launches + 1
+    assert int(df.front_lanes.launches) == launches + 1
     want = df.front_lanes_plain(*ins)
     torch.cuda.synchronize()
     same, err = cs.bit_equal(torch, cs.flat_outputs(got),
@@ -171,9 +174,9 @@ def test_ring_merge_kernel_matches_plain(label, n, case, cap, width, A):
     ring, w, k, arr = (torch.as_tensor(a, device=dev) for a in cs.merge_case(
         np, case, n, 11, cap, width, A))
     before = ring.clone()
-    launches = rm.merge.launches
+    launches = int(rm.merge.launches)
     got = rm.merge(ring, w, k, arr)
-    assert rm.merge.launches == launches + 1
+    assert int(rm.merge.launches) == launches + 1
     want = rm.merge_plain(ring, w, k, arr)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
@@ -204,3 +207,59 @@ def test_default_lowering_gpu_matches_cpu(make):
     a = flatten(state_to_numpy(mk(n, dev).run().state))
     b = flatten(state_to_numpy(mk(n, "cpu").run().state))
     cs.compare_leaves(np, a, b, make)
+
+
+@pytest.mark.parametrize("label,rows,lanes,case", [
+    (label, min(rows, 64 * 2_003 if label == "wheel" else 20_011),
+     min(lanes, 20_011), case)
+    for label, rows, lanes, case in cs.SCATTER_CASES
+])
+def test_count_scatter_kernel_matches_plain(label, rows, lanes, case):
+    dev = _cuda()
+    arrs = cs.scatter_case(np, rows, lanes, case, 7)
+    buf, idx, upd = (torch.as_tensor(a, device=dev) for a in arrs)
+    before = buf.clone()
+    launches = int(csc.scatter_add.launches)
+    got = csc.scatter_add(buf, idx, upd)
+    assert int(csc.scatter_add.launches) == launches + 1
+    want = csc.scatter_add_plain(*(torch.as_tensor(a) for a in arrs))
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(buf.view(torch.int32), before.view(torch.int32))
+
+
+def test_count_scatter_graph_replay_matches_eager():
+    """The wrapper reads nothing back to the host: it captures."""
+    dev = _cuda()
+    buf, idx, upd = (torch.as_tensor(a, device=dev) for a in cs.scatter_case(
+        np, 10_000, 10_000, "uniform", 3))
+    eager = csc.scatter_add(buf, idx, upd)
+    g, captured = cs.graph_of(torch, lambda: csc.scatter_add(buf, idx, upd))
+    captured.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured.view(torch.int32), eager.view(torch.int32))
+
+
+def test_count_scatter_wrapper_refuses_bad_input():
+    dev = _cuda()
+    buf, idx, upd = (torch.as_tensor(a, device=dev) for a in cs.scatter_case(
+        np, 64, 64, "uniform", 0))
+    with pytest.raises(TypeError):
+        csc.scatter_add(buf, idx.to(torch.int64), upd)
+    with pytest.raises(ValueError):
+        csc.scatter_add(buf, idx, upd[1:])
+    with pytest.raises(ValueError):
+        csc.scatter_add(buf, idx, upd.t().contiguous().t())  # not contiguous
+    with pytest.raises(TypeError):
+        csc.scatter_add(buf.double(), idx, upd)
+
+
+@pytest.mark.parametrize("shaped", [False, True])
+def test_storm_gpu_matches_cpu(shaped):
+    dev = _cuda()
+    n = 100
+    a = flatten(state_to_numpy(
+        cs.graft_storm_exec(n, dev, shaped).run().state))
+    b = flatten(state_to_numpy(
+        cs.graft_storm_exec(n, "cpu", shaped).run().state))
+    cs.compare_leaves(np, a, b, f"storm shaped={shaped}")
