@@ -7,9 +7,10 @@ Phases, in order (any failure raises and the exit code is not 0):
 
 1. device report: the card's name, and its name and power limit as
    ``nvidia-smi`` gives them;
-2. build: the three kernels from ``testground_tpu_torch/csrc`` and the
-   deliver-front kernel's -DFRONT_TRACE build, one nvcc per source,
-   started together, with their build seconds;
+2. build: the three kernels from ``testground_tpu_torch/csrc``, the
+   deliver-front kernel's -DFRONT_TRACE build and the count scatter's
+   -DSCATTER_TRACE build, one nvcc per source, started together, with
+   their build seconds;
 3. deliver-front kernel vs plain on the card, bit-equal, and the whole
    dispatch bit-equal to ``front_reference``: the seven randomized
    front regimes of the deliver-front tests and the nine ``STARVATION``
@@ -53,9 +54,12 @@ Phases, in order (any failure raises and the exit code is not 0):
    window over its tick;
 10. count-scatter kernel vs plain (on a CPU copy), bit-equal: storm's
    staging shape N = 10,000 (uniform, every lane to one of 7 rows, all
-   dropped; ~30% of lanes dropped), N = 1,000,003 (uniform, 7 rows) and
-   the wheel shape 64 x 10,000; the wrapper (sort + kernel), the kernel
-   alone, the sort, the plain version, ``index_add_`` and the bound;
+   dropped; ~30% of lanes dropped; a storm tick, ~4.7% kept),
+   N = 1,000,003 (uniform, 7 rows) and the wheel shape 64 x 10,000
+   (uniform, a storm tick, one bucket); the whole function under the
+   plan it picks, the plain version, ``index_add_`` and the bound; where
+   the time goes (small plan: the trace build's per-block phases; large
+   plan at 1M uniform: time by kernel under ``torch.profiler``);
 11. storm at n = 10,000 with bench.py's params and SimConfig, to
    termination (``testground_tpu_torch.bench``'s assertions: all ok,
    zero drops, clamps and metric drops, bytes read = bytes sent), the
@@ -96,7 +100,11 @@ KERNELS = ("deliver_front", "ring_merge", "count_scatter")
 # (source, -D defines): built beside the kernels, for phase 3a only — the
 # deliver-front kernel with its phase timestamps
 TRACE_BUILD = ("deliver_front", ("FRONT_TRACE",))
-BUILDS = [(k, ()) for k in KERNELS] + [TRACE_BUILD]
+# the count scatter with block 0's phase timestamps (small plan), for
+# phase 10's breakdown
+SCATTER_TRACE_BUILD = ("count_scatter", ("SCATTER_TRACE",))
+SCATTER_PHASES = ("copy_compact", "sort", "gather", "fold")
+BUILDS = [(k, ()) for k in KERNELS] + [TRACE_BUILD, SCATTER_TRACE_BUILD]
 # gossipsub's large leg: BASELINE.md's 1M row (send_slots = n // 4)
 GOSSIP_BIG_N = 1_048_576
 GOSSIPSUB_PARAMS = {"degree": 8, "link_latency_ms": 50, "link_loss_pct": 0}
@@ -888,41 +896,122 @@ def profile_phase(torch, report, key, ex, wall_ms_per_tick, warm_ticks=100,
 # --------------------------------------------------------- count scatter
 
 # (label, rows, lanes, case): the count-scatter checks on the card; the
-# first row is storm@10k's staging shape, the last its wheel's
+# first row is storm@10k's staging shape. "storm" is a tick of
+# storm@10k's own traffic: 6,553,600,000 B in 4 KiB chunks over 3,401
+# ticks is ~470 data lanes of 10,000 (the rest dropped)
 SCATTER_CASES = [
     ("staging", 10_000, 10_000, "uniform"),
     ("staging", 10_000, 10_000, "seven_rows"),
     ("staging", 10_000, 10_000, "all_dropped"),
+    ("staging", 10_000, 10_000, "storm"),
     ("staging", 1_000_003, 1_000_003, "uniform"),
     ("staging", 1_000_003, 1_000_003, "seven_rows"),
     ("wheel", 64 * 10_000, 10_000, "uniform"),
+    ("wheel", 64 * 10_000, 10_000, "storm"),
+    ("wheel", 64 * 10_000, 10_000, "bucket"),
 ]
+STORM_KEPT = 470 / 10_000  # storm@10k's data lanes a tick
 
 
 def scatter_case(np, rows, lanes, case, seed):
     """Count-scatter inputs (numpy, from ``seed``): buf f32 [rows, 2],
     idx int32 [lanes] (about 30% dropped, idx = rows), upd f32 [lanes, 2]
     with fractional values. ``case``: uniform over the rows, seven_rows
-    (every kept lane to one of 7 rows), all_dropped."""
+    (every kept lane to one of 7 rows), bucket (every kept lane into the
+    rows of one wheel bucket: a tick of a fixed link delay), all_dropped,
+    ladder (row r takes
+    r % 48 + 1 lanes, none dropped), or storm: ~4.7% of
+    lanes kept, updates [1, 4096] and one in twenty [2, 8192] (a
+    duplicate), onto the nodes (the wheel's rows of a few buckets when
+    ``rows`` is a wheel's W x lanes)."""
     rng = np.random.default_rng(seed)
     buf = (rng.standard_normal((rows, 2)) * 1e3).astype(np.float32)
+    if case == "storm":
+        buf = rng.integers(0, 64, (rows, 2)).astype(np.float32) * [1, 4096]
+        buf = buf.astype(np.float32)
+        upd = np.tile(np.float32([1, 4096]), (lanes, 1))
+        upd[rng.random(lanes) < 0.05] = [2, 8192]
+        nodes = min(rows, lanes)
+        idx = rng.integers(0, nodes, lanes)
+        if rows > nodes:  # bucket b of the wheel's rows b * nodes + dest
+            idx = idx + rng.integers(5, 8, lanes) * nodes
+        idx = np.where(rng.random(lanes) < STORM_KEPT, idx, rows)
+        return buf, idx.astype(np.int32), upd
     upd = (rng.standard_normal((lanes, 2)) * rng.random((lanes, 1))
            * 1e4).astype(np.float32)
     if case == "seven_rows":
         idx = rng.choice(rng.integers(0, rows, 7), lanes)
+    elif case == "bucket":  # every kept lane into one wheel bucket (5)
+        idx = rng.integers(0, lanes, lanes) + 5 * lanes
     else:
         idx = rng.integers(0, rows, lanes)
     idx = np.where(rng.random(lanes) < 0.3, rows, idx)
     if case == "all_dropped":
         idx = np.full(lanes, rows)
+    if case == "ladder":  # row r takes r % 48 + 1 lanes, in shuffled order
+        rep = np.repeat(np.arange(rows), np.arange(rows) % 48 + 1)[:lanes]
+        idx = rng.permutation(np.pad(rep, (0, lanes - rep.size),
+                                     constant_values=rows))
     return buf, idx.astype(np.int32), upd
+
+
+def kernel_breakdown(torch, fn, calls=20):
+    """Device ms of each kernel of one eager ``fn()`` call, by name, from
+    ``torch.profiler`` over ``calls`` calls (after a warm-up call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name[:60]
+            per_name[name] = (per_name.get(name, 0.0)
+                              + e.time_range.elapsed_us() / calls / 1e3)
+    return per_name
+
+
+def scatter_trace(torch, np, kern, buf, idx, upd, reps=5):
+    """Where a small-plan call's time goes: the -DSCATTER_TRACE build
+    stamps %globaltimer at each block's phase boundaries (after a block
+    barrier). Returns, for the block with the most lanes, its lanes and
+    per phase (SCATTER_PHASES) the median over ``reps`` calls in us, and
+    the median span from the first block's start to the last one's end."""
+    import ctypes
+
+    from testground_tpu_torch.kernels import build as kbuild
+
+    lib = kern.bind(ctypes.CDLL(str(kbuild.build(*SCATTER_TRACE_BUILD)[0])))
+    grid = lib.count_scatter_small_grid(buf.shape[0])
+    st = kern.TRACE_STAMPS
+    trace = torch.zeros(grid * st, dtype=torch.int64, device=buf.device)
+    runs = []
+    for _ in range(reps + 1):
+        kern.launch(buf, idx, upd, lib=lib, trace=trace)
+        torch.cuda.synchronize()
+        runs.append(trace.cpu().numpy().reshape(grid, st).copy())
+    runs = np.stack(runs[1:])  # [reps, grid, stamps]
+    top = int(np.argmax(runs[0, :, st - 1]))
+    d = np.diff(runs[:, top, :len(SCATTER_PHASES) + 1], axis=1) / 1e3
+    span = (runs[:, :, len(SCATTER_PHASES)].max(1)
+            - runs[:, :, 0].min(1)) / 1e3
+    return {"blocks": grid, "top_block_lanes": int(runs[0, top, st - 1]),
+            "span_us": float(np.median(span)),
+            **{p: float(np.median(d[:, i]))
+               for i, p in enumerate(SCATTER_PHASES)}}
 
 
 def scatter_phase(torch, np, dev, report):
     """[10] the count-scatter kernel against its plain version (run on a
-    CPU copy of the same inputs), bit-equal; the wrapper (sort + kernel),
-    the kernel alone, the sort alone, the plain version and
-    ``index_add_`` timed on the card, and the bound."""
+    CPU copy of the same inputs), bit-equal; the whole function (the
+    plan that ``kernels.count_scatter.plan`` picks), the plain version
+    and ``index_add_`` timed on the card, and the bound."""
     from testground_tpu_torch.kernels import count_scatter as kern
     from testground_tpu_torch.sim import count_scatter as csc
 
@@ -938,54 +1027,52 @@ def scatter_phase(torch, np, dev, report):
         if not ok:
             raise AssertionError(f"count scatter kernel != plain: {label} "
                                  f"{case} @ {rows}")
+        calls = calls_for(lanes)
+        reps = 50 if lanes <= 10_000 else 10
+        # the library call adds dropped lanes into one spare row
+        lib_out = torch.cat([buf, buf.new_zeros(1, 2)])
+        lib_idx = torch.clamp(idx, max=rows)
+        kept = idx[idx < rows]
+        touched = int(torch.unique(kept).numel())
+        # every index read once, each kept lane's update read once, each
+        # touched row read and written once
+        moved = lanes * 4 + kept.numel() * 8 + touched * 16
         row = {"shape": label, "case": case, "rows": rows, "lanes": lanes,
-               "bit_equal": True, "max_abs_err": err}
-        if case != "seven_rows" or rows <= 10_000:
-            calls = calls_for(lanes)
-            reps = 50 if lanes <= 10_000 else 10
-            keys, order = kern.sort_lanes(idx, rows)
-            out = buf.clone()
-            # the library call adds dropped lanes into one spare row
-            lib_out = torch.cat([buf, buf.new_zeros(1, 2)])
-            lib_idx = torch.clamp(idx, max=rows)
-            kept = idx[idx < rows]
-            touched = int(torch.unique(kept).numel())
-            # every index read once, each kept lane's update read once,
-            # each touched row read and written once
-            moved = lanes * 4 + kept.numel() * 8 + touched * 16
-            row.update(
-                wrapper_ms=device_ms(
-                    torch, lambda: csc.scatter_add(buf, idx, upd), reps,
-                    calls)[0],
-                kernel_ms=device_ms(
-                    torch, lambda: kern.launch_sorted(out, keys, order, upd),
-                    reps, calls)[0],
-                sort_ms=device_ms(
-                    torch, lambda: kern.sort_lanes(idx, rows), reps,
-                    calls)[0],
-                plain_ms=device_ms(
-                    torch, lambda: csc.scatter_add_plain(buf, idx, upd),
-                    reps, calls)[0],
-                # one library call on the same inputs (it adds in atomic
-                # order, which changes from run to run)
-                library_ms=device_ms(
-                    torch, lambda: lib_out.index_add_(0, lib_idx, upd), reps,
-                    calls)[0],
-                bytes=moved, touched_rows=touched,
-                bound_ms=moved / HBM_BYTES_PER_S * 1e3,
-            )
-            log(f"  scatter {label:7s} {case:11s} rows={rows:>9,d} "
-                f"lanes={lanes:>9,d}: wrapper {row['wrapper_ms']:.4f} ms "
-                f"(kernel {row['kernel_ms']:.4f}, sort {row['sort_ms']:.4f})"
-                f", plain {row['plain_ms']:.4f}, index_add_ "
-                f"{row['library_ms']:.4f}, bound {row['bound_ms']:.5f} ms, "
-                "bit-equal")
-        else:
-            log(f"  scatter {label:7s} {case:11s} rows={rows:>9,d} "
-                f"lanes={lanes:>9,d}: bit-equal (not timed: one thread "
-                "walks each row's ~100k-lane segment)")
+               "plan": kern.plan(lanes, rows), "kept": int(kept.numel()),
+               "bit_equal": True, "max_abs_err": err,
+               "wrapper_ms": device_ms(
+                   torch, lambda: csc.scatter_add(buf, idx, upd), reps,
+                   calls)[0],
+               "plain_ms": device_ms(
+                   torch, lambda: csc.scatter_add_plain(buf, idx, upd),
+                   reps, calls)[0],
+               # one library call on the same inputs (it adds in atomic
+               # order, which changes from run to run)
+               "library_ms": device_ms(
+                   torch, lambda: lib_out.index_add_(0, lib_idx, upd), reps,
+                   calls)[0],
+               "bytes": moved, "touched_rows": touched,
+               "bound_ms": moved / HBM_BYTES_PER_S * 1e3}
+        row["vs_library"] = row["wrapper_ms"] / row["library_ms"]
+        if row["plan"] == "small":
+            row["phases_us"] = scatter_trace(torch, np, kern, buf, idx, upd)
+        elif case == "uniform":
+            row["by_kernel"] = kernel_breakdown(
+                torch, lambda: csc.scatter_add(buf, idx, upd))
+        log(f"  scatter {label:7s} {case:11s} rows={rows:>9,d} "
+            f"lanes={lanes:>9,d} kept={row['kept']:>7,d} ({row['plan']}): "
+            f"{row['wrapper_ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
+            f"index_add_ {row['library_ms']:.4f} "
+            f"({row['vs_library']:.2f}x), bound {row['bound_ms']:.6f} ms, "
+            "bit-equal")
+        for name, ms in row.get("by_kernel", {}).items():
+            log(f"    {ms:.4f} ms  {name}")
+        if "phases_us" in row:
+            log("    busiest block, us: " + "; ".join(
+                f"{p} {v:.2f}" if isinstance(v, float) else f"{p} {v}"
+                for p, v in row["phases_us"].items()))
         rows_out.append(row)
-        del buf, idx, upd, got, want
+        del buf, idx, upd, got, want, lib_out, lib_idx, kept
     report["count_scatter"] = rows_out
     return rows_out, max(r["max_abs_err"] for r in rows_out)
 

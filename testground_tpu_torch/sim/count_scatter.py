@@ -10,11 +10,12 @@ therefore adds in lane order on every device:
 
 - ``scatter_add_plain``: ``index_add_`` on the CPU, which adds in lane
   order (held to a sequential loop in tests/test_torch_count.py);
-- ``scatter_add``: the dispatch. A CUDA tensor sorts the lanes by
-  destination (stable, so lane order within a destination) and launches
-  the kernel ``testground_tpu_torch/csrc/count_scatter.cu`` (or raises),
-  bumping ``scatter_add.launches``; a CPU tensor takes the plain
-  version. There is no fallback from the card to the plain version.
+- ``scatter_add``: the dispatch. A CUDA tensor launches the kernel
+  ``testground_tpu_torch/csrc/count_scatter.cu`` (or raises), which
+  orders the kept lanes by destination itself, lane order within a
+  destination, and bumps ``scatter_add.launches`` once a call; a CPU
+  tensor takes the plain version. There is no fallback from the card to
+  the plain version.
 
 Both return a new buffer and leave the input as it was (the tick loop's
 guard selects the old state back past the end of a run).

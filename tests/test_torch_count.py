@@ -231,7 +231,7 @@ def _sequential(buf, idx, upd):
 
 
 @pytest.mark.parametrize("case", ["seven_rows", "uniform", "all_dropped",
-                                  "wheel"])
+                                  "wheel", "storm", "long_segment"])
 def test_scatter_add_plain_matches_sequential_loop(case):
     rng = np.random.default_rng(3)
     rows, L = (64 * 50, 500) if case == "wheel" else (50, 5000)
@@ -240,11 +240,18 @@ def test_scatter_add_plain_matches_sequential_loop(case):
         np.float32)
     if case == "seven_rows":
         idx = rng.choice(rng.integers(0, rows, 7), L)
+    elif case == "long_segment":  # one row takes every kept lane
+        idx = np.full(L, rng.integers(0, rows))
     else:
         idx = rng.integers(0, rows, L)
     idx = np.where(rng.random(L) < 0.3, rows, idx)  # ~30% dropped
     if case == "all_dropped":
         idx = np.full(L, rows)
+    if case == "storm":  # a storm tick: ~5% of lanes kept, integer updates
+        buf = rng.integers(0, 64, (rows, 2)).astype(np.float32)
+        upd = np.tile(np.float32([1, 4096]), (L, 1))
+        upd[rng.random(L) < 0.05] = [2, 8192]
+        idx = np.where(rng.random(L) < 0.05, rng.integers(0, rows, L), rows)
     idx = idx.astype(np.int32)
     want = _sequential(buf, idx, upd)
     got = cs.scatter_add_plain(_t(buf), _t(idx), _t(upd))
@@ -254,7 +261,7 @@ def test_scatter_add_plain_matches_sequential_loop(case):
         case)
     # a summation order that differs gives other bits: the order is
     # what the test holds
-    if case == "seven_rows":
+    if case in ("seven_rows", "long_segment"):
         assert not np.array_equal(
             _sequential(buf, idx[::-1], upd[::-1]).view(np.int32),
             want.view(np.int32))
@@ -279,3 +286,33 @@ def test_topic_append_matches_jax():
         mode="drop")
     got = tcore._topic_append(_t(buf), _t(mask), _t(pos0), _t(payloads), pay)
     _eq(got, want)
+
+
+def test_count_scatter_plan_is_a_function_of_shapes():
+    """The wrapper picks its plan from (L, R) alone, with the kernel's own
+    constants, and the card-only tests take both plans on both sides of
+    the threshold."""
+    import re
+    import sys
+    from pathlib import Path
+
+    from testground_tpu_torch.kernels import build
+    from testground_tpu_torch.kernels import count_scatter as kcs
+
+    src = (build.CSRC / "count_scatter.cu").read_text()
+    assert int(re.search(r"kSmallMax = (\d+);", src)[1]) == kcs.SMALL_MAX
+    assert int(re.search(r"kShort = (\d+);", src)[1]) == kcs.SHORT
+    for rows in (1, 10_000, 640_000, 1_000_003):
+        assert kcs.plan(kcs.SMALL_MAX, rows) == "small"
+        assert kcs.plan(kcs.SMALL_MAX + 1, rows) == "large"
+        assert kcs.scratch_ints(kcs.SMALL_MAX, rows) == 0
+        assert kcs.scratch_ints(kcs.SMALL_MAX + 1, rows) > 2 * rows
+    assert kcs.plan(10_000, 10_000) == kcs.plan(10_000, 640_000) == "small"
+    assert kcs.plan(1_000_003, 1_000_003) == "large"
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import test_torch_cuda as tc
+
+    lanes = {c[2] for c in tc.SCATTER_TEST_CASES}
+    assert {kcs.SMALL_MAX, kcs.SMALL_MAX + 1} <= lanes
+    assert {kcs.plan(c[2], c[1]) for c in tc.SCATTER_TEST_CASES} == {
+        "small", "large"}

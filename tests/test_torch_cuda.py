@@ -22,6 +22,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
+from testground_tpu_torch.kernels import count_scatter as kcs  # noqa: E402
 from testground_tpu_torch.sim import count_scatter as csc  # noqa: E402
 from testground_tpu_torch.sim import deliver_front as df  # noqa: E402
 from testground_tpu_torch.sim import ring_merge as rm  # noqa: E402
@@ -209,11 +210,30 @@ def test_default_lowering_gpu_matches_cpu(make):
     cs.compare_leaves(np, a, b, make)
 
 
-@pytest.mark.parametrize("label,rows,lanes,case", [
+# chip_smoke's cases cut to 20,011 lanes (so the 1,000,003 cases take the
+# large plan), both plans at the threshold and one lane above it, a row
+# longer than one ordering block (the large plan's ordered scan), rows of
+# every length around the one-thread limit, and small-plan grids whose
+# last block owns fewer rows
+SCATTER_TEST_CASES = [
     (label, min(rows, 64 * 2_003 if label == "wheel" else 20_011),
      min(lanes, 20_011), case)
     for label, rows, lanes, case in cs.SCATTER_CASES
-])
+] + [
+    ("staging", 20_011, lanes, case)
+    for lanes in (kcs.SMALL_MAX, kcs.SMALL_MAX + 1)
+    for case in ("uniform", "seven_rows", "storm")
+] + [
+    ("wheel", 64 * 2_003, kcs.SMALL_MAX + 1, "storm"),
+    ("staging", 20_011, 150_000, "seven_rows"),
+    ("staging", 20_011, 20_011, "ladder"),
+    # row counts where the small plan's last block is short, and tiny
+    ("staging", 8_500, 8_500, "uniform"),
+    ("staging", 100, 5_000, "seven_rows"),
+]
+
+
+@pytest.mark.parametrize("label,rows,lanes,case", SCATTER_TEST_CASES)
 def test_count_scatter_kernel_matches_plain(label, rows, lanes, case):
     dev = _cuda()
     arrs = cs.scatter_case(np, rows, lanes, case, 7)
@@ -227,11 +247,13 @@ def test_count_scatter_kernel_matches_plain(label, rows, lanes, case):
     assert torch.equal(buf.view(torch.int32), before.view(torch.int32))
 
 
-def test_count_scatter_graph_replay_matches_eager():
-    """The wrapper reads nothing back to the host: it captures."""
+@pytest.mark.parametrize("rows,lanes", [(10_000, 10_000), (20_011, 20_011)])
+def test_count_scatter_graph_replay_matches_eager(rows, lanes):
+    """The wrapper reads nothing back to the host: it captures, under
+    both plans."""
     dev = _cuda()
     buf, idx, upd = (torch.as_tensor(a, device=dev) for a in cs.scatter_case(
-        np, 10_000, 10_000, "uniform", 3))
+        np, rows, lanes, "uniform", 3))
     eager = csc.scatter_add(buf, idx, upd)
     g, captured = cs.graph_of(torch, lambda: csc.scatter_add(buf, idx, upd))
     captured.zero_()
