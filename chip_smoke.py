@@ -71,7 +71,28 @@ Phases, in order (any failure raises and the exit code is not 0):
    and clamps; 12b. a profiler window over its tick;
 13. storm at n = 300 with ``__graft_entry__``'s compressed params,
    unshaped and shaped with churn: GPU path vs CPU path, every state
-   leaf bit-equal.
+   leaf bit-equal;
+14. barrier at n = 10,000 x 50 iterations (tools/bench_barrier.py's
+   SimConfig): every instance ok, zero metric drops; wall, ticks, ticks
+   executed, ms/tick and barriers/s; 14b. a profiler window over its
+   tick;
+15. subtree at n = 10,000 x 2,000 iterations (tools/bench_subtree.py's
+   full configuration: 7 stream topics of [2,000, size/4]): every
+   instance ok, zero stream violations, zero in-loop verification
+   faults, every topic row r equal to [r] * pay on the host; the same
+   figures as 14; 15b. a profiler window over a pump tick, the device
+   time of the loop's two whole-state passes (the guard's select and the
+   stepper's copy) on subtree's state, and that of the publish_payload
+   select chain, rebuilt from the ops the tick runs for it;
+16. sparsetimer at n = 10,000 with TG_BENCH_SKIP's configuration, dense
+   and then event-skipped: both all ok, the skipped state equal to the
+   dense one but for the skip's own leaves; both walls, ticks executed
+   against simulated, and the count-scatter launches of each run;
+17. startup, netinit, netlinkshape and cliff at n = 10,000: all ok, and
+   cliff with x above x_fail all failed;
+18. barrier (3 iterations) and subtree (20 iterations) at n = 300, and
+   sparsetimer at n = 300 dense and skipped (10 rounds): GPU path vs
+   CPU path, every state leaf bit-equal.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernel measurements, and ``{"ok": true, "device": {...}}``. Everything
@@ -705,42 +726,66 @@ def reset_launch_counts() -> None:
     csc.scatter_add.launches.reset()
 
 
-def dht_phase(torch, dev, report, key, pallas_front, chunk_ticks=32,
-              n=10_000):
-    """dht find-providers @ 10k to termination, through the fused front
-    (``pallas_front=True``, phase 4) or the default lowering (None,
-    phase 7); the launch counts are read right after the run."""
+def other_launches():
+    """Launches of the three kernels since the last reset."""
+    from testground_tpu_torch.sim import count_scatter as csc
     from testground_tpu_torch.sim import deliver_front as df
     from testground_tpu_torch.sim import ring_merge as rm
 
+    return {"deliver_front": int(df.front_lanes.launches),
+            "ring_merge": int(rm.merge.launches),
+            "count_scatter": int(csc.scatter_add.launches)}
+
+
+def case_run(torch, dev, report, key, ex, check):
+    """Run the executor ``ex`` to the end with the launch counts reset
+    just before; ``check(res)`` gives the case's own summary (and
+    asserts). Returns (the report row, the result)."""
     t0 = time.monotonic()
-    ex = dht_exec(n, dev, chunk_ticks, pallas_front=pallas_front)
     ex.tick_fn()
     build_s = time.monotonic() - t0
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     res = ex.run()
-    launches = int(df.front_lanes.launches)
-    merges = int(rm.merge.launches)
-    st = res.statuses()[:n]
+    launches = other_launches()
     out = {
-        "n": n, "pallas_front": bool(pallas_front),
-        "event_skip": ex.event_skip, "ticks": res.ticks,
-        "ticks_executed": res.ticks_executed,
-        "wall_seconds": res.wall_seconds,
+        "ticks": res.ticks, "ticks_executed": res.ticks_executed,
+        "event_skip": ex.event_skip, "wall_seconds": res.wall_seconds,
         "ms_per_tick": res.wall_seconds / max(res.ticks, 1) * 1e3,
-        "build_seconds": build_s,
-        "ok": int((st == 1).sum()), "failed": int((st == 2).sum()),
-        "crashed": int((st == 3).sum()),
-        "launches": launches, "merge_launches": merges,
-        "egress_overflow": res.net_egress_overflow(),
-        "net_dropped": res.net_dropped(),
-        "metrics_dropped": res.metrics_dropped(),
-        "egress_deferred": res.net_egress_deferred(),
-        "payload_sanitized": res.net_payload_sanitized(),
+        "ms_per_executed_tick": (res.wall_seconds
+                                 / max(res.ticks_executed, 1) * 1e3),
+        "build_seconds": build_s, "launches": launches,
         "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        **check(res),
     }
     report[key] = out
+    return out, res
+
+
+def dht_phase(torch, dev, report, key, pallas_front, chunk_ticks=32,
+              n=10_000):
+    """dht find-providers @ 10k to termination, through the fused front
+    (``pallas_front=True``, phase 4) or the default lowering (None,
+    phase 7); the launch counts are read right after the run."""
+
+    def check(res):
+        st = res.statuses()[:n]
+        return {
+            "n": n, "pallas_front": bool(pallas_front),
+            "ok": int((st == 1).sum()), "failed": int((st == 2).sum()),
+            "crashed": int((st == 3).sum()),
+            "egress_overflow": res.net_egress_overflow(),
+            "net_dropped": res.net_dropped(),
+            "metrics_dropped": res.metrics_dropped(),
+            "egress_deferred": res.net_egress_deferred(),
+            "payload_sanitized": res.net_payload_sanitized(),
+        }
+
+    out, res = case_run(torch, dev, report, key,
+                        dht_exec(n, dev, chunk_ticks,
+                                 pallas_front=pallas_front), check)
+    launches = out["launches"]["deliver_front"]
+    merges = out["launches"]["ring_merge"]
     log(f"  dht@{n}: {out['ticks']} ticks ({out['ticks_executed']} "
         f"executed), {out['wall_seconds']:.3f} s wall "
         f"({out['ms_per_tick']:.2f} ms/tick); {out['ok']} ok / "
@@ -761,59 +806,31 @@ def dht_phase(torch, dev, report, key, pallas_front, chunk_ticks=32,
         assert launches == merges, (launches, merges)
     else:
         assert launches == 0, launches
+    assert out["launches"]["count_scatter"] == 0, out["launches"]
     return out, res.state
-
-
-def compare_leaves(np, a, b, what, skip=()):
-    """Every leaf of two flattened states bit-equal (floats by their
-    bits), but the leaves named in ``skip``."""
-    a = {k: v for k, v in a.items() if k not in skip}
-    b = {k: v for k, v in b.items() if k not in skip}
-    assert set(a) == set(b), (what, set(a) ^ set(b))
-    for k in sorted(a):
-        x, y = a[k], b[k]
-        assert x.dtype == y.dtype and x.shape == y.shape, (what, k)
-        if x.dtype.kind == "f":
-            x, y = x.view(np.int32), y.view(np.int32)
-        assert np.array_equal(x, y), f"{what}: differ at leaf {k}"
-    return len(a)
 
 
 def gossipsub_phase(torch, dev, report, key, n, chunk_ticks=32):
     """gossipsub mesh-propagation @ n on the default lowering, to full
     coverage; the ring-merge launches are read right after the run."""
-    from testground_tpu_torch.sim import deliver_front as df
-    from testground_tpu_torch.sim import ring_merge as rm
-
-    t0 = time.monotonic()
     ex = gossipsub_exec(n, dev, chunk_ticks)
-    ex.tick_fn()
-    build_s = time.monotonic() - t0
-    torch.cuda.reset_peak_memory_stats(dev)
-    reset_launch_counts()
-    res = ex.run()
-    merges = int(rm.merge.launches)
-    st = res.statuses()[:n]
-    lat = sorted(r["value"] for r in res.metrics_records()
-                 if r["name"] == "propagation_ms")
-    out = {
-        "n": n, "send_slots": ex.program.net_spec.send_slots,
-        "event_skip": ex.event_skip, "ticks": res.ticks,
-        "ticks_executed": res.ticks_executed,
-        "wall_seconds": res.wall_seconds,
-        "ms_per_tick": res.wall_seconds / max(res.ticks, 1) * 1e3,
-        "build_seconds": build_s, "covered": int((st == 1).sum()),
-        "p50_propagation_ms": lat[len(lat) // 2] if lat else None,
-        "p99_propagation_ms": lat[int(len(lat) * 0.99)] if lat else None,
-        "merge_launches": merges,
-        "front_launches": int(df.front_lanes.launches),
-        "egress_overflow": res.net_egress_overflow(),
-        "egress_deferred": res.net_egress_deferred(),
-        "net_dropped": res.net_dropped(),
-        "metrics_dropped": res.metrics_dropped(),
-        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-    }
-    report[key] = out
+
+    def check(res):
+        lat = sorted(r["value"] for r in res.metrics_records()
+                     if r["name"] == "propagation_ms")
+        return {
+            "n": n, "send_slots": ex.program.net_spec.send_slots,
+            "covered": int((res.statuses()[:n] == 1).sum()),
+            "p50_propagation_ms": lat[len(lat) // 2] if lat else None,
+            "p99_propagation_ms": lat[int(len(lat) * 0.99)] if lat else None,
+            "egress_overflow": res.net_egress_overflow(),
+            "egress_deferred": res.net_egress_deferred(),
+            "net_dropped": res.net_dropped(),
+            "metrics_dropped": res.metrics_dropped(),
+        }
+
+    out, res = case_run(torch, dev, report, key, ex, check)
+    merges = out["launches"]["ring_merge"]
     log(f"  gossipsub@{n:,d}: {out['covered']:,d}/{n:,d} covered in "
         f"{out['ticks']} ticks ({out['ticks_executed']} executed), "
         f"{out['wall_seconds']:.3f} s wall ({out['ms_per_tick']:.2f} "
@@ -825,7 +842,8 @@ def gossipsub_phase(torch, dev, report, key, n, chunk_ticks=32):
     assert out["metrics_dropped"] == 0, "metric ring too small"
     assert out["egress_overflow"] == 0, "egress overflow"
     assert out["net_dropped"] == 0, "inbox drops"
-    assert out["front_launches"] == 0
+    assert (out["launches"]["deliver_front"],
+            out["launches"]["count_scatter"]) == (0, 0), out["launches"]
     if out["send_slots"] is not None:  # the bounded append
         assert launch_bounds(out["ticks_executed"], chunk_ticks, merges), (
             merges, out["ticks_executed"])
@@ -909,6 +927,8 @@ SCATTER_CASES = [
     ("wheel", 64 * 10_000, 10_000, "uniform"),
     ("wheel", 64 * 10_000, 10_000, "storm"),
     ("wheel", 64 * 10_000, 10_000, "bucket"),
+    # sparsetimer's beat tick: every lane pings the next one, all kept
+    ("staging", 10_000, 10_000, "ring"),
 ]
 STORM_KEPT = 470 / 10_000  # storm@10k's data lanes a tick
 
@@ -920,7 +940,8 @@ def scatter_case(np, rows, lanes, case, seed):
     (every kept lane to one of 7 rows), bucket (every kept lane into the
     rows of one wheel bucket: a tick of a fixed link delay), all_dropped,
     ladder (row r takes
-    r % 48 + 1 lanes, none dropped), or storm: ~4.7% of
+    r % 48 + 1 lanes, none dropped), ring (lane i to row i + 1 mod rows,
+    none dropped: sparsetimer's beat), or storm: ~4.7% of
     lanes kept, updates [1, 4096] and one in twenty [2, 8192] (a
     duplicate), onto the nodes (the wheel's rows of a few buckets when
     ``rows`` is a wheel's W x lanes)."""
@@ -948,6 +969,8 @@ def scatter_case(np, rows, lanes, case, seed):
     idx = np.where(rng.random(lanes) < 0.3, rows, idx)
     if case == "all_dropped":
         idx = np.full(lanes, rows)
+    if case == "ring":
+        idx = (np.arange(lanes) + 1) % rows
     if case == "ladder":  # row r takes r % 48 + 1 lanes, in shuffled order
         rep = np.repeat(np.arange(rows), np.arange(rows) % 48 + 1)[:lanes]
         idx = rng.permutation(np.pad(rep, (0, lanes - rep.size),
@@ -1085,61 +1108,47 @@ def storm_phase(torch, dev, report, key, shaped, chunk_ticks=32,
     scenario and churn) to termination, asserting what bench.py asserts;
     the count-scatter launches are read right after the run."""
     from testground_tpu_torch import bench
-    from testground_tpu_torch.sim import count_scatter as csc
-    from testground_tpu_torch.sim import deliver_front as df
-    from testground_tpu_torch.sim import ring_merge as rm
 
-    t0 = time.monotonic()
-    ex = bench.storm_executable(n, dev, shaped, chunk_ticks)
-    ex.tick_fn()
-    build_s = time.monotonic() - t0
-    torch.cuda.reset_peak_memory_stats(dev)
-    reset_launch_counts()
-    res = ex.run()
-    launches = int(csc.scatter_add.launches)
-    other = (int(df.front_lanes.launches), int(rm.merge.launches))
-    summary = bench.check(res, n, shaped)
-    out = {
-        "n": n, "shaped": shaped, "event_skip": ex.event_skip,
-        "ticks": res.ticks, "ticks_executed": res.ticks_executed,
-        "wall_seconds": res.wall_seconds,
-        "ms_per_tick": res.wall_seconds / max(res.ticks, 1) * 1e3,
-        "ms_per_executed_tick": (res.wall_seconds
-                                 / max(res.ticks_executed, 1) * 1e3),
-        "build_seconds": build_s, "launches": launches,
-        "send_compact_fallbacks": res.net_send_compact_fallbacks(),
-        "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-        **summary,
-    }
-    report[key] = out
+    def check(res):
+        return {"n": n, "shaped": shaped,
+                "send_compact_fallbacks": res.net_send_compact_fallbacks(),
+                **bench.check(res, n, shaped)}
+
+    out, _ = case_run(torch, dev, report, key,
+                      bench.storm_executable(n, dev, shaped, chunk_ticks),
+                      check)
+    launches = out["launches"]["count_scatter"]
     log(f"  storm@{n:,d}{' shaped' if shaped else ''}: {out['ticks']} ticks "
         f"({out['ticks_executed']} executed), {out['wall_seconds']:.3f} s "
         f"wall ({out['ms_per_executed_tick']:.2f} ms/executed tick); "
-        f"{summary['ok']} ok" + (f", {summary['victims']} victims crashed"
-                                 if shaped else "")
-        + f"; drops {summary['net_dropped']}, clamps "
-        f"{summary['horizon_clamped']}, metric drops "
-        f"{summary['metrics_dropped']}; bytes sent "
-        f"{summary['bytes_sent']:.0f}, read {summary['bytes_read']:.0f}; "
+        f"{out['ok']} ok" + (f", {out['victims']} victims crashed"
+                             if shaped else "")
+        + f"; drops {out['net_dropped']}, clamps "
+        f"{out['horizon_clamped']}, metric drops "
+        f"{out['metrics_dropped']}; bytes sent "
+        f"{out['bytes_sent']:.0f}, read {out['bytes_read']:.0f}; "
         f"count-scatter launches {launches}")
     # one count-mode add on every loop iteration
     assert launch_bounds(out["ticks_executed"], chunk_ticks, launches), (
         launches, out["ticks_executed"])
-    assert other == (0, 0), other
+    assert (out["launches"]["deliver_front"], out["launches"]["ring_merge"]
+            ) == (0, 0), out["launches"]
     return out
 
 
 def parity_phase(np, dev, report, key, make, n=300):
     """One composition at ``n`` on the card and on the CPU: every state
     leaf bit-equal."""
-    from testground_tpu_torch.sim.state_io import flatten, state_to_numpy
+    from testground_tpu_torch.sim.state_io import (
+        compare_leaves, flatten, state_to_numpy,
+    )
 
     states, walls = {}, {}
     for d in (dev, "cpu"):
         res = make(n, d).run()
         states[str(d)] = flatten(state_to_numpy(res.state))
         walls[str(d)] = (res.ticks, res.wall_seconds)
-    leaves = compare_leaves(np, states[str(dev)], states["cpu"],
+    leaves = compare_leaves(states[str(dev)], states["cpu"],
                             f"{key}: GPU vs CPU")
     report[key] = {
         "leaves": leaves, "bit_equal": True,
@@ -1148,6 +1157,184 @@ def parity_phase(np, dev, report, key, make, n=300):
     log(f"  {key}: GPU vs CPU bit-equal over {leaves} leaves "
         f"(ticks {walls[str(dev)][0]}, GPU {walls[str(dev)][1]:.2f} s, "
         f"CPU {walls['cpu'][1]:.2f} s)")
+
+
+# ------------------------------------------------ the rest of the plan
+
+BARRIER_ITERS = 50  # tools/bench_barrier.py 10000 50
+SUBTREE_ITERS = 2_000  # tools/bench_subtree.py's default, the full run
+
+
+def barrier_phase(torch, dev, report, n=10_000, iters=BARRIER_ITERS):
+    """[14] barrier @ n x iters with tools/bench_barrier.py's config."""
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.tools import bench_barrier
+
+    out, _ = case_run(torch, dev, report, "barrier10k",
+                      bench.barrier_executable(n, iters, dev),
+                      lambda r: bench_barrier.check(r, n, iters))
+    log(f"  barrier@{n:,d} x {iters}: {out['ok']:,d} ok, "
+        f"{out['barriers']} barriers in {out['ticks']} ticks "
+        f"({out['ticks_executed']} executed), {out['wall_seconds']:.3f} s "
+        f"wall ({out['ms_per_executed_tick']:.2f} ms/executed tick), "
+        f"{out['barriers_per_s']:.1f} barriers/s; metric drops 0")
+    assert all(v == 0 for v in out["launches"].values()), out["launches"]
+    return out
+
+
+def subtree_phase(torch, dev, report, n=10_000, iters=SUBTREE_ITERS):
+    """[15] subtree @ n x iters with tools/bench_subtree.py's config."""
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.tools import bench_subtree
+
+    out, _ = case_run(torch, dev, report, "subtree10k",
+                      bench.subtree_executable(n, iters, dev),
+                      lambda r: bench_subtree.check(r, n, iters))
+    log(f"  subtree@{n:,d} x {iters}: {out['ok']:,d} ok in {out['ticks']} "
+        f"ticks ({out['ticks_executed']} executed), "
+        f"{out['wall_seconds']:.3f} s wall ({out['ms_per_executed_tick']:.2f}"
+        f" ms/executed tick); stream violations 0, sub_bad 0, "
+        f"sub_unverified 0, {out['topics_checked']} topics verified on the "
+        f"host; peak {out['max_memory_allocated'] / 1e9:.2f} GB")
+    log("  virtual seconds a size class: " + ", ".join(
+        f"{k.split('_')[2]} B {v:.3f}"
+        for k, v in sorted(out["virtual_secs"].items(),
+                           key=lambda kv: int(kv[0].split("_")[2]))))
+    assert all(v == 0 for v in out["launches"].values()), out["launches"]
+    return out
+
+
+def state_pass_phase(torch, report, key, ex, reps=50):
+    """The device time of the loop's two whole-state passes on ``ex``'s
+    initial state: ``guarded_tick``'s select of every leaf and the
+    captured stepper's copy of every leaf back, captured in a CUDA graph
+    (``core._tree_where`` and ``copy_``, as the stepper runs them)."""
+    from testground_tpu_torch.sim import core
+
+    st = ex.init_state()
+    leaves = list(core._leaves(st))
+    go = torch.ones((), dtype=torch.bool, device=leaves[0].device)
+
+    def passes():
+        out = core._tree_where(go, st, st)
+        for dst, src in zip(leaves, core._leaves(out)):
+            dst.copy_(src)
+
+    ms, _ = device_ms(torch, passes, reps)
+    state_bytes = nbytes(leaves)
+    report[key] = {"state_bytes": state_bytes, "leaves": len(leaves),
+                   "select_and_copy_ms": ms}
+    log(f"  whole-state passes: {len(leaves)} leaves, "
+        f"{state_bytes / 1e6:.1f} MB; select + copy {ms:.4f} ms a loop "
+        "iteration")
+    return ms
+
+
+def payload_select_phase(torch, report, key, dev, n=10_000, reps=20):
+    """subtree's ``publish_payload`` select, rebuilt from the ops the tick
+    runs for it: each pump phase's item (one value a lane) expanded to
+    its topic's width and padded to the widest topic's 1,024 lanes, the
+    instances publish's padded row, and the chain of 8 ``torch.where``
+    by pc. Its device time, captured in a CUDA graph."""
+    from testground_tpu_torch.plans.benchmarks import SIZES
+
+    width = max(SIZES) // 4
+    pc = torch.randint(0, 40, (n,), dtype=torch.int32, device=dev)
+    item = torch.rand(n, device=dev)
+    inst = torch.arange(n, dtype=torch.float32, device=dev)
+
+    def chain():
+        acc = torch.cat([inst[:, None], inst.new_zeros(n, width - 1)], 1)
+        for k, size in enumerate(SIZES):
+            pay = size // 4
+            row = torch.cat([item[:, None].expand(n, pay),
+                             item.new_zeros(n, width - pay)], 1)
+            acc = torch.where((pc == 3 + 2 * k)[:, None], row, acc)
+        return acc
+
+    ms, _ = device_ms(torch, chain, reps)
+    report[key] = {"n": n, "width": width, "phases": len(SIZES) + 1,
+                   "select_ms": ms}
+    log(f"  publish_payload select (rebuilt): {len(SIZES) + 1} phases x "
+        f"[{n:,d}, {width}] f32, {ms:.4f} ms a tick")
+    return ms
+
+
+def sparsetimer_phase(torch, dev, report, n=10_000):
+    """[16] sparsetimer @ n, TG_BENCH_SKIP's config, dense then skipped:
+    the skipped state equal to the dense one but for the skip's leaves;
+    the count scatter runs once every loop iteration of both."""
+    from testground_tpu_torch import bench
+
+    outs, results = {}, {}
+    for skip in (False, True):
+        key = "sparsetimer10k_" + ("skip" if skip else "dense")
+        outs[skip], results[skip] = case_run(
+            torch, dev, report, key,
+            bench.sparsetimer_executable(n, skip, dev),
+            lambda r: {"ok": int((r.statuses()[:n] == 1).sum())})
+        o = outs[skip]
+        log(f"  sparsetimer@{n:,d} {'skipped' if skip else 'dense'}: "
+            f"{o['ok']:,d} ok, {o['ticks']} ticks ({o['ticks_executed']} "
+            f"executed), {o['wall_seconds']:.3f} s wall "
+            f"({o['ms_per_executed_tick']:.2f} ms/executed tick); "
+            f"count-scatter launches {o['launches']['count_scatter']}")
+        assert launch_bounds(o["ticks_executed"], bench.CHUNK_TICKS,
+                             o["launches"]["count_scatter"]), o["launches"]
+        assert (o["launches"]["deliver_front"], o["launches"]["ring_merge"]
+                ) == (0, 0), o["launches"]
+    leaves = bench.check_skip(results[False], results[True], n)
+    dense, skipped = outs[False], outs[True]
+    report["sparsetimer10k_skip"].update(
+        equal_to_dense_leaves=leaves,
+        skip_ratio=results[True].skip_ratio,
+        speedup=dense["wall_seconds"] / skipped["wall_seconds"])
+    log(f"  skipped state equal to the dense one on {leaves} leaves; "
+        f"executed/simulated {results[True].skip_ratio:.4f}; wall "
+        f"{dense['wall_seconds']:.3f} s dense, "
+        f"{skipped['wall_seconds']:.3f} s skipped")
+    return outs
+
+
+def small_cases_phase(torch, dev, report, n=10_000):
+    """[17] startup, netinit, netlinkshape and cliff (x on both sides of
+    x_fail) @ n, to the end."""
+    from testground_tpu_torch.plans import benchmarks
+    from testground_tpu_torch.sim import (
+        BuildContext, GroupSpec, SimConfig, compile_program,
+    )
+
+    runs = [("startup", {}, 1), ("netinit", {}, 1), ("netlinkshape", {}, 1),
+            ("cliff", {"x": "0.25", "x_fail": "0.5"}, 1),
+            ("cliff", {"x": "0.75", "x_fail": "0.5"}, 2)]
+    rows = []
+    for case, params, status in runs:
+        ctx = BuildContext([GroupSpec("single", 0, n, params)],
+                           test_case=case, test_run="chip-smoke")
+        ex = compile_program(benchmarks.testcases[case], ctx,
+                             SimConfig(quantum_ms=10.0, max_ticks=10_000),
+                             device=dev)
+        key = f"{case}10k" + (f"_x{params['x']}" if params else "")
+
+        def check(r, status=status):
+            st = r.statuses()[:n]
+            assert (st == status).all(), (case, params, st)
+            assert r.metrics_dropped() == 0
+            return {"status": status, "count": n}
+
+        out, res = case_run(torch, dev, report, key, ex, check)
+        recs = res.metrics_records()
+        if recs:
+            vals = sorted({r["value"] for r in recs})
+            out["metric"] = {"name": recs[0]["name"], "values": vals[:4]}
+        rows.append(out)
+        log(f"  {case}@{n:,d} {params or ''}: all "
+            f"{'ok' if status == 1 else 'failed'} in {out['ticks']} ticks, "
+            f"{out['wall_seconds']:.3f} s wall"
+            + (f"; {out['metric']['name']} {out['metric']['values']}"
+               if "metric" in out else ""))
+        assert all(v == 0 for v in out["launches"].values()), out["launches"]
+    return rows
 
 
 def main() -> int:
@@ -1223,10 +1410,12 @@ def main() -> int:
     log("[7] dht find-providers @ 10,000, default lowering")
     dht_default, state = dht_phase(torch, dev, report, "dht10k_default",
                                    None)
-    from testground_tpu_torch.sim.state_io import flatten, state_to_numpy
+    from testground_tpu_torch.sim.state_io import (
+        compare_leaves, flatten, state_to_numpy,
+    )
 
     leaves = compare_leaves(
-        np, flatten(state_to_numpy(state)),
+        flatten(state_to_numpy(state)),
         flatten(state_to_numpy(fused_state)),
         "dht@10k default vs fused front", skip=("ticks_executed",))
     report["dht10k_default"]["equal_to_fused_leaves"] = leaves
@@ -1270,6 +1459,43 @@ def main() -> int:
     parity_phase(np, dev, report, "storm300_shaped_parity",
                  lambda n, d: graft_storm_exec(n, d, shaped=True))
 
+    from testground_tpu_torch import bench as tbench
+
+    log(f"[14] barrier @ 10,000 x {BARRIER_ITERS} iterations")
+    barrier = barrier_phase(torch, dev, report)
+    log("[14b] barrier@10k tick under torch.profiler")
+    profile_phase(torch, report, "barrier10k_profile",
+                  tbench.barrier_executable(10_000, BARRIER_ITERS, dev),
+                  barrier["ms_per_executed_tick"])
+    log(f"[15] subtree @ 10,000 x {SUBTREE_ITERS:,d} iterations")
+    subtree = subtree_phase(torch, dev, report)
+    log("[15b] subtree@10k pump tick under torch.profiler")
+    sub_ex = tbench.subtree_executable(10_000, SUBTREE_ITERS, dev)
+    profile_phase(torch, report, "subtree10k_profile", sub_ex,
+                  subtree["ms_per_executed_tick"])
+    state_pass_phase(torch, report, "subtree10k_state_passes", sub_ex)
+    payload_select_phase(torch, report, "subtree10k_payload_select", dev)
+    del sub_ex
+    log("[16] sparsetimer @ 10,000 (TG_BENCH_SKIP's config), dense and "
+        "skipped")
+    sparse = sparsetimer_phase(torch, dev, report)
+    log("[17] startup, netinit, netlinkshape and cliff @ 10,000")
+    small_cases_phase(torch, dev, report)
+    log("[18] barrier, subtree and sparsetimer (dense and skipped) @ 300: "
+        "GPU vs CPU")
+    parity_phase(np, dev, report, "barrier300_parity",
+                 lambda n, d: tbench.barrier_executable(n, 3, d))
+    parity_phase(np, dev, report, "subtree300_parity",
+                 lambda n, d: tbench.subtree_executable(n, 20, d))
+    for skip in (False, True):
+        parity_phase(np, dev, report,
+                     f"sparsetimer300_{'skip' if skip else 'dense'}_parity",
+                     lambda n, d, skip=skip: tbench.sparsetimer_executable(
+                         n, skip, d, rounds=10))
+    report["sparsetimer_count_scatter_launches"] = {
+        k: v["launches"]["count_scatter"] for k, v in
+        (("dense", sparse[False]), ("skip", sparse[True]))}
+
     front_row = next(r for r in rows if r["n"] == 10_000
                      and r["regime"] == "mixed")
     merge_row = merge_rows[0]  # dht@10k's shape
@@ -1280,7 +1506,7 @@ def main() -> int:
             "route": "cuda",
             "source": "testground_tpu_torch/csrc/deliver_front.cu",
             "replaces": "testground_tpu/sim/pallas_front.py:214",
-            "launches": dht["launches"],
+            "launches": dht["launches"]["deliver_front"],
             "max_abs_err": max_err,
             "ms": front_row["kernel_ms"],
             "plain_ms": front_row["plain_ms"],
@@ -1293,7 +1519,7 @@ def main() -> int:
             "route": "cuda",
             "source": "testground_tpu_torch/csrc/ring_merge.cu",
             "replaces": "tools/microbench_pallas_append.py:76",
-            "launches": dht_default["merge_launches"],
+            "launches": dht_default["launches"]["ring_merge"],
             "max_abs_err": merge_err,
             "ms": merge_row["kernel_ms"],
             "plain_ms": merge_row["plain_ms"],
@@ -1307,7 +1533,7 @@ def main() -> int:
             "source": "testground_tpu_torch/csrc/count_scatter.cu",
             # no TPU kernel: XLA's scatter-add of count mode
             "replaces": "testground_tpu/sim/net.py:1313",
-            "launches": storm["launches"],
+            "launches": storm["launches"]["count_scatter"],
             "max_abs_err": scatter_err,
             "ms": scatter_row["wrapper_ms"],
             "plain_ms": scatter_row["plain_ms"],

@@ -1,26 +1,176 @@
-"""The benchmarks plan's ``storm`` case: the port's torch transcription
-of ``plans/benchmarks/sim.py`` ``storm`` (the reference's
-plans/benchmarks/storm.go), line for line and in the same op order.
+"""The benchmarks plan: the port's torch transcription of
+``plans/benchmarks/sim.py`` (the reference's plans/benchmarks), case for
+case, line for line and in the same op order.
 
-Wait for network init → (shaped: ConfigureNetwork) → SignalAndWait
-"listening" → share addresses over the "peers" topic → SignalAndWait
-"got-other-addrs" → ``conn_outgoing`` dials to random peers after random
-delays in [0, conn_delay_ms), recording dial.ok / dial.fail → rendezvous
-on "outgoing-dials-done" → write ``data_size_kb`` KiB per connection in
-4 KiB chunks while draining the count-only inbox → SignalAndWait "done
-writing" → drain until quiet. ``link_latency_ms`` / ``link_loss_pct``
-route deliveries through the count-mode delay wheel and give dials SYN
-retries; ``churn_tolerant`` makes the rendezvous churn-tolerant.
-
-The other cases of the JAX plan (barrier, subtree, sparsetimer, cliff)
-are still to port (ROADMAP.md).
+- ``startup``: time to start (0 virtual seconds in the sim).
+- ``netinit``: time to network initialization.
+- ``netlinkshape``: time to apply a link-shape change.
+- ``barrier``: iterations x {20, 40, 60, 80, 100}% barrier latency; the
+  per-iteration states are runtime-indexed state families.
+- ``subtree``: the publisher (publish seq 1) pumps ``iterations`` items a
+  size class (64 B to 4 KiB, ``size/4`` f32 lanes) through a stream
+  topic while every other instance consumes each item and verifies it
+  against the topic's head register.
+- ``storm``: wait for network init → (shaped: ConfigureNetwork) →
+  SignalAndWait "listening" → share addresses over the "peers" topic →
+  SignalAndWait "got-other-addrs" → ``conn_outgoing`` dials to random
+  peers after random delays in [0, conn_delay_ms), recording dial.ok /
+  dial.fail → rendezvous on "outgoing-dials-done" → write
+  ``data_size_kb`` KiB per connection in 4 KiB chunks while draining the
+  count-only inbox → SignalAndWait "done writing" → drain until quiet.
+  ``link_latency_ms`` / ``link_loss_pct`` route deliveries through the
+  count-mode delay wheel and give dials SYN retries; ``churn_tolerant``
+  makes the rendezvous churn-tolerant.
+- ``sparsetimer``: a ~1% duty-cycle timer plan (one beat tick, then a
+  ``timer_period_ms`` sleep, in lockstep), the event-skip showcase.
+- ``cliff``: every instance fails iff its ``x`` param exceeds its
+  ``x_fail`` param.
 """
 
 import torch
 
 from ..sim import prng
 from ..sim.net import recip
-from ..sim.program import TAG_DATA, PhaseCtrl, onehot_get, onehot_set
+from ..sim.program import (
+    TAG_DATA,
+    PhaseCtrl,
+    onehot_get,
+    onehot_set,
+    ticks_to_secs,
+)
+
+SIZES = (64, 128, 256, 512, 1024, 2048, 4096)
+
+
+def startup(b):
+    b.record_point("time_to_start_secs",
+                   lambda env, mem: ticks_to_secs(env.tick, env.quantum_ms))
+    b.end_ok()
+
+
+def netinit(b):
+    """Time to network initialization."""
+    b.mark_tick("t0")
+    b.wait_network_initialized()
+    b.elapsed_point("time_to_network_init_secs", "t0")
+    b.end_ok()
+
+
+def netlinkshape(b):
+    """Time to apply a link-shape change."""
+    b.wait_network_initialized()
+    b.mark_tick("t0")
+    b.configure_network(
+        latency_ms=250.0,
+        callback_state="netlinkshape-callback",
+        callback_target=1,
+    )
+    b.elapsed_point("time_to_shape_network_secs", "t0")
+    b.end_ok()
+
+
+def barrier(b):
+    ctx = b.ctx
+    iters = ctx.static_param_int("barrier_iterations", 10)
+    n = ctx.n_instances
+
+    lp = b.loop_begin(iters)
+    for pct in (20, 40, 60, 80, 100):
+        name = f"barrier_time_{pct}_percent"
+        target = max(1, int(n * pct / 100))
+        idx = lambda env, mem, s=lp.slot: mem[s]  # noqa: E731
+        # everyone lines up, then the timed barrier waits on a SUBSET
+        b.signal_and_wait(
+            f"ready_{name}", family_size=iters, index_fn=idx
+        )
+        b.mark_tick(f"t0_{pct}")
+        b.signal_and_wait(
+            f"test_{name}", target=target, family_size=iters, index_fn=idx
+        )
+        b.elapsed_point(name, f"t0_{pct}")
+    b.loop_end(lp)
+    b.end_ok()
+
+
+def subtree(b):
+    ctx = b.ctx
+    iters = ctx.static_param_int("subtree_iterations", 2000)
+    n = ctx.n_instances
+
+    # race to publish on the instances topic; seq 1 becomes THE publisher
+    b.publish(
+        "instances",
+        capacity=max(n, 1),
+        payload_fn=lambda env, mem: env.instance.to(torch.float32),
+        save_seq="inst_seq",
+    )
+    b.declare("is_pub", (), torch.int32, 0)
+
+    def set_role(env, mem):
+        return ({**mem, "is_pub": (mem["inst_seq"] == 1).to(torch.int32)},
+                PhaseCtrl(advance=1))
+
+    b.phase(set_role, name="set_role")
+
+    ctr = b.declare("item", (), torch.int32, 0)
+    # receivers verify every consumed item against the stream topic's
+    # head register; sub_bad counts content mismatches, sub_unverified
+    # consumes of a row that is not the newest (0 in lockstep)
+    b.declare("sub_bad", (), torch.int32, 0)
+    b.declare("sub_unverified", (), torch.int32, 0)
+    for size in SIZES:
+        name = f"subtree_time_{size}_bytes"
+        # the real payload rides the topic: size/4 f32 lanes
+        pay = max(1, size // 4)
+        tid = b.topics.topic(name, capacity=iters, payload_len=pay,
+                             stream=True)
+        b.mark_tick(f"t0_{size}")
+
+        def pump(env, mem, tid=tid, pay=pay):
+            """The publisher emits one item a tick; receivers consume as
+            items arrive and verify each against the head register (row
+            i must be [i]*pay: first and last lanes and the exact f32
+            row sum, whose terms are equal and < 2^24)."""
+            i = mem[ctr]
+            is_pub = mem["is_pub"] == 1
+            have = env.topic_count(tid)
+            can_consume = (~is_pub) & (have > i) & (i < iters)
+            newest = can_consume & (i == have - 1)
+            head = env.topic_head[tid]
+            fi = i.to(torch.float32)
+            # the head is unmapped (shared): its sum runs once a tick
+            head_sum = torch.sum(head)
+            content_ok = (
+                (head[0] == fi) & (head[pay - 1] == fi)
+                & (head_sum == fi * pay)
+            )
+            mem = dict(mem)
+            mem["sub_bad"] = mem["sub_bad"] + (newest & ~content_ok).to(
+                torch.int32)
+            mem["sub_unverified"] = mem["sub_unverified"] + (
+                can_consume & ~newest
+            ).to(torch.int32)
+            do_pub = is_pub & (i < iters)
+            nxt = torch.where(do_pub | can_consume, i + 1, i)
+            done = nxt >= iters
+            mem[ctr] = torch.where(done, 0, nxt)
+            return mem, PhaseCtrl(
+                advance=done.to(torch.int32),
+                publish_topic=torch.where(do_pub, tid, -1),
+                # a batched fill: expand, not torch.full (vmap)
+                publish_payload=fi.expand(pay),
+            )
+
+        b.phase(pump, name=f"pump:{size}")
+        b.elapsed_point(name + "_secs", f"t0_{size}")
+
+    # everyone done (the reference's handoff/end states collapse to this)
+    b.signal_and_wait("end")
+    b.fail_if(
+        lambda env, mem: (mem["sub_bad"] > 0) | (mem["sub_unverified"] > 0),
+        "subtree payload verification",
+    )
+    b.end_ok()
 
 
 def storm(b):
@@ -196,4 +346,65 @@ def storm(b):
     b.end_ok()
 
 
-testcases = {"storm": storm}
+def sparsetimer(b):
+    """A ~1% duty-cycle timer plan: every instance runs ``timer_rounds``
+    beats, each one active tick (a counter bump and one ping to the next
+    lane) followed by a ``timer_period_ms`` sleep, in lockstep, so all
+    but ~1/period of the simulated ticks are dead."""
+    ctx = b.ctx
+    n = ctx.n_instances
+    rounds = ctx.static_param_int("timer_rounds", 20)
+    period_ms = ctx.static_param_int("timer_period_ms", 100)
+
+    b.enable_net(count_only=True)
+    b.wait_network_initialized()
+    b.declare("beats", (), torch.int32, 0)
+    b.declare("pings", (), torch.int32, 0)
+
+    lp = b.loop_begin(rounds)
+    b.sleep_ms(float(period_ms))
+
+    def beat(env, mem):
+        mem = dict(mem)
+        mem["beats"] = mem["beats"] + 1
+        mem["pings"] = mem["pings"] + env.inbox_avail
+        return mem, PhaseCtrl(
+            advance=1,
+            send_dest=torch.remainder(env.instance + 1, n),
+            send_size=1.0,
+            recv_count=env.inbox_avail,
+        )
+
+    b.phase(beat, "beat")
+    b.loop_end(lp)
+    b.record_point("beats", lambda env, mem: mem["beats"])
+    b.record_point("pings", lambda env, mem: mem["pings"])
+    b.signal_and_wait("timers-done")
+    b.fail_if(lambda env, mem: mem["beats"] != rounds, "missed beats")
+    b.end_ok()
+
+
+def cliff(b):
+    """A deterministic severity cliff: every instance fails iff its ``x``
+    exceeds its ``x_fail``."""
+    b.fail_if(
+        lambda env, mem: env.params["x"] > env.params["x_fail"],
+        "x above the cliff",
+    )
+    b.end_ok()
+    return {
+        "x": b.ctx.param_array_float("x", 0.0),
+        "x_fail": b.ctx.param_array_float("x_fail", 0.5),
+    }
+
+
+testcases = {
+    "startup": startup,
+    "netinit": netinit,
+    "netlinkshape": netlinkshape,
+    "barrier": barrier,
+    "subtree": subtree,
+    "storm": storm,
+    "sparsetimer": sparsetimer,
+    "cliff": cliff,
+}

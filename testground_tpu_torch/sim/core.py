@@ -31,7 +31,7 @@ executed tick is followed by a jump of ``tick`` to the next event
 the jump is guarded like the tick. ``phase_gating`` runs the same
 ungated step (the JAX package's gated step is bit-identical to it, and
 its per-phase ``lax.cond`` would cost a host read per phase in eager
-torch). Faults, trace, telemetry, replay, sweep and stream topics raise
+torch). Faults, trace, telemetry, replay and sweep raise
 ``NotImplementedError`` naming the ROADMAP.md module that ports them.
 """
 
@@ -284,7 +284,8 @@ def _check_phase_net_ctrl(ctrl, spec, phase_name: str) -> None:
 # (name, kind, static default). Kinds: "i" int32, "f" float32, "pay"
 # net payload vector, "tpay" topic payload vector. Fields of planes the
 # port does not run (filter rules, trace, telemetry, replay) must stay
-# at their defaults; the build-time probe rejects a phase that sets them.
+# at their defaults; the build-time probe rejects a phase that sets them,
+# naming the ROADMAP.md item that ports them.
 _FIELDS = (
     ("advance", "i", 0),
     ("jump", "i", -1),
@@ -317,11 +318,12 @@ _FIELDS = (
     ("net_enabled", "i", 1),
 )
 _UNPORTED_FIELDS = (
-    ("rule_row", None), ("net_class", -1), ("class_rule_row", None),
-    ("trace_code", -1), ("trace_a0", 0), ("trace_a1", 0),
-    ("observe_hist", -1), ("observe_value", 0.0), ("count_add", 0),
-    ("gauge_set", 0), ("gauge_value", 0.0), ("replay_consume", 0),
+    ("rule_row", None, 7), ("net_class", -1, 7), ("class_rule_row", None, 7),
+    ("trace_code", -1, 9), ("trace_a0", 0, 9), ("trace_a1", 0, 9),
+    ("observe_hist", -1, 9), ("observe_value", 0.0, 9), ("count_add", 0, 9),
+    ("gauge_set", 0, 9), ("gauge_value", 0.0, 9), ("replay_consume", 0, 9),
 )
+_ITEM_TITLES = {7: "entry-mode data plane", 9: "observer planes"}
 
 
 def _topic_append(buf, mask, pos0, payloads, pay):
@@ -343,6 +345,26 @@ def _topic_append(buf, mask, pos0, payloads, pay):
         accumulate=True,
     )
     return ext[:cap]
+
+
+def _stream_push(buf, head, mask, pos0, payloads, pay):
+    """The stream-topic append (single publisher a tick): the first
+    ``mask`` lane's row goes into slot ``pos0`` of ``buf`` ``[cap, pay]``
+    and into the head register ``head`` ``[pay]``; a second publisher in
+    the same tick is dropped (the caller counts it). The JAX package
+    takes the row as a masked sum over all lanes, which turns a -0.0
+    payload into +0.0; one gathered row plus 0.0 gives the same bits.
+    Branch-free and with no host read: with no publisher the slot and
+    the head are selected back to what they were."""
+    cap = buf.shape[0]
+    any_pub = torch.any(mask)
+    at = torch.min(torch.where(mask, pos0, cap - 1)).reshape(1).to(
+        torch.int64)
+    lane = torch.argmax((mask & (pos0 == at)).to(torch.int32)).reshape(1)
+    row = payloads.index_select(0, lane)[:, :pay] + 0.0
+    row = torch.where(any_pub, row, buf.index_select(0, at))
+    new_head = torch.where(any_pub, row[0], head)
+    return buf.index_copy(0, at, row), new_head
 
 
 # eager loop iterations a CUDA stepper runs (and discards) before its
@@ -444,8 +466,6 @@ class SimExecutable:
         spec = program.net_spec
         if spec is not None:
             netmod.check_supported(spec)
-        if any(stream for _, _, _, stream in program.topics.specs()):
-            raise _not_ported("stream topics", 5, "tick and loop")
         if self.event_skip and spec is not None and not spec.store_entries:
             # the jump's min reads the staging / wheel occupancy counts
             self.program = program = dataclasses.replace(
@@ -490,7 +510,11 @@ class SimExecutable:
                 for tid, cap, pay, _ in (prog.topics.specs()
                                          or [(0, 1, 1, False)])
             },
-            "topic_head": {},
+            # stream topics keep a head register: the newest row pushed
+            "topic_head": {
+                tid: z((pay,), f32)
+                for tid, _, pay, stream in prog.topics.specs() if stream
+            },
             "metrics_buf": z((n, cfg.metrics_capacity, 3), f32),
             "metrics_cnt": z(n, i32),
             "metrics_dropped": z(n, i32),
@@ -582,7 +606,8 @@ class SimExecutable:
                     for tid, cap, pay, _ in (topic_specs
                                              or [(0, 1, 1, False)])
                 },
-                topic_head={},
+                topic_head={tid: torch.zeros(pay)
+                            for tid, _, pay, stream in topic_specs if stream},
                 crashed_total=scal,
                 dead_signals={k: scal for k in churn_sids} or None,
                 dead_pubs={k: scal for k in churn_tids} or None,
@@ -610,12 +635,12 @@ class SimExecutable:
             except Exception:  # noqa: BLE001 — best-effort, as in JAX
                 return tuple(prog.mem_spec), tuple(range(len(_FIELDS))), {}
             _check_phase_net_ctrl(ctrl, net_spec, phase.name)
-            for name, default in _UNPORTED_FIELDS:
+            for name, default, item in _UNPORTED_FIELDS:
                 if not is_default("pay" if default is None else "i",
                                   getattr(ctrl, name), default):
                     raise _not_ported(
-                        f"phase {phase.name!r} sets PhaseCtrl.{name}", 3,
-                        "phase-program DSL",
+                        f"phase {phase.name!r} sets PhaseCtrl.{name}", item,
+                        _ITEM_TITLES[item],
                     )
             wset = tuple(k for k in mem if mem2.get(k) is not mem[k])
             dyn = tuple(
@@ -685,8 +710,8 @@ class SimExecutable:
                 fields[i] = pack(kind, v)
             return {s: mem2[s] for s in wset}, fields
 
-        def make_step(tick, counters, topic_len, topic_bufs, crashed_total,
-                      dead_signals, dead_pubs):
+        def make_step(tick, counters, topic_len, topic_bufs, topic_head,
+                      crashed_total, dead_signals, dead_pubs):
             def step_instance(pc, status, blocked_until, last_seq, mem_row,
                               instance, group, ginst, prow, net_row, key):
                 env = TickEnv(
@@ -699,7 +724,7 @@ class SimExecutable:
                     counters=counters,
                     topic_len=topic_len,
                     topic_buf=topic_bufs,
-                    topic_head={},
+                    topic_head=topic_head,
                     crashed_total=crashed_total,
                     dead_signals=dead_signals,
                     dead_pubs=dead_pubs,
@@ -845,9 +870,11 @@ class SimExecutable:
                     net_row["eg_latency"] = netst["eg_latency"]
 
             lane_keys = prng.fold_in(key, instance_ids)
+            # the shared registers (counters, topics, head registers) are
+            # closed over, not mapped: a phase's reduce of one runs once
             vstep = make_step(tick, st["counters"], st["topic_len"],
-                              st["topic_bufs"], crashed_total, dead_signals,
-                              dead_pubs)
+                              st["topic_bufs"], st["topic_head"],
+                              crashed_total, dead_signals, dead_pubs)
             res = vstep(
                 st["pc"], st["status"], st["blocked_until"], st["last_seq"],
                 st["mem"], instance_ids, group_ids, group_instance, params,
@@ -863,8 +890,10 @@ class SimExecutable:
             )
             pos0 = torch.where(pub_valid, pub_seq - 1, 0)  # 0-based slot
             topic_bufs = dict(st["topic_bufs"])
+            topic_head = dict(st["topic_head"])
+            stream_viol = st["stream_violations"]
             churn_pub = st.get("churn_pub")
-            for tid, cap, pay, _ in topic_specs:
+            for tid, cap, pay, stream in topic_specs:
                 mask = pub_valid & (pub == tid) & (pos0 < cap)
                 if tid in churn_tids:
                     # only appends that land count (topic_count clamps at
@@ -874,9 +903,16 @@ class SimExecutable:
                             len(churn_tids), device=dev)
                             == churn_tids.index(tid))[None, :]
                     ).to(torch.int32)
-                topic_bufs[tid] = _topic_append(
-                    topic_bufs[tid], mask, pos0, res["publish_payload"],
-                    pay)
+                if stream:
+                    n_pub = torch.sum(mask, dtype=torch.int32)
+                    stream_viol = stream_viol + torch.clamp(n_pub - 1, min=0)
+                    topic_bufs[tid], topic_head[tid] = _stream_push(
+                        topic_bufs[tid], topic_head[tid], mask, pos0,
+                        res["publish_payload"], pay)
+                else:
+                    topic_bufs[tid] = _topic_append(
+                        topic_bufs[tid], mask, pos0, res["publish_payload"],
+                        pay)
             new_topic_len = torch.minimum(new_topic_len, topic_caps)
             last_seq = torch.where(
                 sig_valid, sig_seq,
@@ -907,8 +943,8 @@ class SimExecutable:
                 "counters": new_counters,
                 "topic_len": new_topic_len,
                 "topic_bufs": topic_bufs,
-                "topic_head": st["topic_head"],
-                "stream_violations": st["stream_violations"],
+                "topic_head": topic_head,
+                "stream_violations": stream_viol,
                 "metrics_buf": metrics_buf,
                 "metrics_cnt": metrics_cnt,
                 "metrics_dropped": metrics_dropped,
@@ -1099,6 +1135,11 @@ class SimResult:
 
     def metrics_dropped(self) -> int:
         return int(_np(self.state["metrics_dropped"]).sum())
+
+    def stream_violations(self) -> int:
+        """Stream-topic publishes past the first in their topic and tick
+        (the single-publisher contract; only the first row is stored)."""
+        return int(self.state["stream_violations"])
 
     def _net(self, key: str) -> int:
         if "net" not in self.state or key not in self.state["net"]:

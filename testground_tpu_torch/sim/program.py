@@ -12,8 +12,9 @@ lane's value) and the core batches them over the instance axis with
 Inside a phase, make tensors from the env's own tensors (``*_like``,
 ``new_*``) so they land on the run's device.
 
-This package ports the builder methods the dht, gossipsub and storm
-plans use; the others raise ``NotImplementedError`` naming the
+This package ports the builder methods the dht, gossipsub and
+benchmarks plans use, and ``end_fail``, ``end_crash`` and
+``send_message``; the others raise ``NotImplementedError`` naming the
 ROADMAP.md module that will port them.
 """
 
@@ -22,6 +23,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 # instance statuses
@@ -43,6 +45,18 @@ def _not_ported(what: str, module: int, title: str):
         f"{what} is not ported to testground_tpu_torch yet "
         f"(ROADMAP.md, modules still to port, item {module}: {title})"
     )
+
+
+def ticks_to_secs(ticks, quantum_ms: float):
+    """``ticks * quantum_ms / 1e3`` (``ticks`` int32) as XLA lowers it:
+    the division by the constant becomes a multiplication by its float32
+    reciprocal (sim/net.py ``recip``), and the two constant factors fold
+    into one float32 product, so it is ``f32(ticks) * f32(quantum_ms *
+    (1/1e3))``, not ``(f32(ticks) * quantum_ms) * (1/1e3)``."""
+    from .net import recip
+
+    c = np.float32(quantum_ms) * np.float32(recip(1e3))
+    return ticks.to(torch.float32) * float(c)
 
 
 def onehot_get(vec, idx):
@@ -197,8 +211,8 @@ class TickEnv:
                 "tracks only arrival counts and byte totals"
             )
         if not isinstance(k, int):
-            raise _not_ported("inbox_entry() with a traced index", 3,
-                              "phase-program DSL")
+            raise _not_ported("inbox_entry() with a traced index", 9,
+                              "observer planes (the election plan)")
         cap = self.inbox.shape[0]
         if self.inbox_head is not None and k < self.inbox_head.shape[0]:
             return self.inbox_head[k]
@@ -244,7 +258,9 @@ class StateRegistry:
 
 
 class TopicRegistry:
-    """Topics get ragged buffers ([cap, pay] each)."""
+    """Topics get ragged buffers ([cap, pay] each). ``stream=True``
+    declares a single-publisher topic (at most one publisher a tick): its
+    append is a one-row push that also fills the topic's head register."""
 
     def __init__(self) -> None:
         self._topics: dict[str, tuple[int, int, int, bool]] = {}
@@ -260,6 +276,10 @@ class TopicRegistry:
     def specs(self) -> list[tuple[int, int, int, bool]]:
         """[(id, cap, pay, stream)] sorted by id."""
         return sorted(self._topics.values())
+
+    def by_name(self) -> dict[str, tuple[int, int, int, bool]]:
+        """name -> (id, cap, pay, stream)."""
+        return dict(self._topics)
 
     @property
     def count(self) -> int:
@@ -608,6 +628,14 @@ class ProgramBuilder:
 
         self.phase(fn, name=f"mark:{slot}")
 
+    def elapsed_point(self, metric: str, slot: str) -> None:
+        """Record seconds of virtual time since ``mark_tick(slot)``."""
+        self.record_point(
+            metric,
+            lambda env, mem: ticks_to_secs(env.tick - mem[slot],
+                                           env.quantum_ms),
+        )
+
     def record_point(self, metric: str, value_fn) -> None:
         mid = self.metrics.metric(metric)
 
@@ -626,6 +654,18 @@ class ProgramBuilder:
             return mem, PhaseCtrl(status=DONE_OK)
 
         self.phase(fn, name="end_ok")
+
+    def end_fail(self) -> None:
+        def fn(env, mem):
+            return mem, PhaseCtrl(status=DONE_FAIL)
+
+        self.phase(fn, name="end_fail")
+
+    def end_crash(self) -> None:
+        def fn(env, mem):
+            return mem, PhaseCtrl(status=CRASHED)
+
+        self.phase(fn, name="end_crash")
 
     def fail_if(self, cond_fn, message: str = "") -> None:
         """Fail instances where cond_fn(env, mem) is True; others advance."""
@@ -895,6 +935,36 @@ class ProgramBuilder:
 
         self.phase(fn, name=f"dial:{port}")
 
+    def send_message(self, dest_fn, port: int, size_fn,
+                     payload_fn=None) -> None:
+        """Fire-and-forget data send on an established flow; the payload
+        (``payload_fn(env, mem)``, a vector or a scalar) is padded with
+        zeros to the net's ``payload_len``."""
+        self.enable_net()
+
+        def fn(env, mem):
+            pay = None
+            if payload_fn is not None:
+                p = torch.as_tensor(payload_fn(env, mem)).to(
+                    torch.float32).reshape(-1)
+                width = self._net_spec.payload_len
+                pay = torch.cat([p, p.new_zeros(width - p.shape[0])])
+            dest = dest_fn(env, mem)
+            size = size_fn(env, mem) if callable(size_fn) else size_fn
+            return mem, PhaseCtrl(
+                advance=1,
+                send_dest=(dest.to(torch.int32)
+                           if isinstance(dest, torch.Tensor) else int(dest)),
+                send_tag=TAG_DATA,
+                send_port=port,
+                send_size=(size.to(torch.float32)
+                           if isinstance(size, torch.Tensor)
+                           else float(size)),
+                send_payload=pay,
+            )
+
+        self.phase(fn, name=f"send:{port}")
+
     # ------------------------------------------------- not ported (yet)
 
     def trace(self, *a, **k) -> None:
@@ -912,23 +982,9 @@ class ProgramBuilder:
     def on_arrival(self, *a, **k) -> None:
         raise _not_ported("ProgramBuilder.on_arrival", 9, "observer planes")
 
-    def elapsed_point(self, *a, **k) -> None:
-        raise _not_ported("ProgramBuilder.elapsed_point", 3,
-                          "phase-program DSL")
-
-    def end_fail(self) -> None:
-        raise _not_ported("ProgramBuilder.end_fail", 3, "phase-program DSL")
-
-    def end_crash(self) -> None:
-        raise _not_ported("ProgramBuilder.end_crash", 3, "phase-program DSL")
-
     def set_net_class(self, *a, **k) -> None:
         raise _not_ported("ProgramBuilder.set_net_class", 7,
                           "entry-mode data plane")
-
-    def send_message(self, *a, **k) -> None:
-        raise _not_ported("ProgramBuilder.send_message", 3,
-                          "phase-program DSL")
 
     # -------------------------------------------------------------- build
 

@@ -47,3 +47,19 @@ def flatten(tree: dict, prefix: str = "") -> dict:
         else:
             out[path] = v
     return out
+
+
+def compare_leaves(a: dict, b: dict, what: str = "", skip=()) -> int:
+    """Assert every leaf of two flattened numpy states bit-equal (floats
+    by their bits), but the leaves whose last path component is in
+    ``skip``; returns the number of leaves compared."""
+    a = {k: v for k, v in a.items() if k.split("/")[-1] not in skip}
+    b = {k: v for k, v in b.items() if k.split("/")[-1] not in skip}
+    assert set(a) == set(b), (what, set(a) ^ set(b))
+    for k in sorted(a):
+        x, y = np.asarray(a[k]), np.asarray(b[k])
+        assert x.dtype == y.dtype and x.shape == y.shape, (what, k)
+        if x.dtype.kind == "f":
+            x, y = x.view(np.int32), y.view(np.int32)
+        assert np.array_equal(x, y), f"{what}: differ at leaf {k}"
+    return len(a)

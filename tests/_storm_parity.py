@@ -1,6 +1,8 @@
-"""Shared helpers of the storm parity tests (tests/test_torch_storm*.py):
-the JAX and port storm executables with ``__graft_entry__``'s compressed
-params, and the leaf-by-leaf comparison."""
+"""Shared helpers of the benchmarks-plan parity tests
+(tests/test_torch_storm*.py, tests/test_torch_benchmarks*.py): the JAX
+plan's cases, the JAX and port executables of a case, storm with
+``__graft_entry__``'s compressed params, and the leaf-by-leaf
+comparison."""
 
 import importlib.util
 from pathlib import Path
@@ -25,12 +27,13 @@ from testground_tpu_torch.sim.state_io import flatten, state_to_numpy
 REPO = Path(__file__).resolve().parent.parent
 
 
-def jax_plan():
+def jax_plan(case="storm"):
+    """The JAX benchmarks plan's ``case`` (plans/benchmarks/sim.py)."""
     spec = importlib.util.spec_from_file_location(
         "plan_benchmarks_reference", REPO / "plans" / "benchmarks" / "sim.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.testcases["storm"]
+    return mod.testcases[case]
 
 
 def leg_params(shaped):
@@ -52,17 +55,15 @@ def leg_config(shaped, **kw):
     return cfg
 
 
-def jax_run(plan, groups, cfg):
-    ctx = JCtx([JGroup(*g) for g in groups], test_case="storm",
-               test_run="t")
+def jax_run(plan, groups, cfg, case="storm"):
+    ctx = JCtx([JGroup(*g) for g in groups], test_case=case, test_run="t")
     ex = j_compile(plan, ctx, JConfig(chunk_ticks=100_000, **cfg),
                    mesh=instance_mesh(jax.devices()[:1]))
     return ex.run()
 
 
-def torch_run(plan, groups, cfg, chunk_ticks=64):
-    ctx = TCtx([TGroup(*g) for g in groups], test_case="storm",
-               test_run="t")
+def torch_run(plan, groups, cfg, chunk_ticks=64, case="storm"):
+    ctx = TCtx([TGroup(*g) for g in groups], test_case=case, test_run="t")
     ex = t_compile(plan, ctx, TConfig(chunk_ticks=chunk_ticks, **cfg),
                    device="cpu")
     return ex.run()
@@ -73,6 +74,17 @@ def storm_pair(n, shaped, **cfg_kw):
     cfg = leg_config(shaped, **cfg_kw)
     return (jax_run(jax_plan(), groups, cfg),
             torch_run(tbench.storm, groups, cfg))
+
+
+def case_pair(case, n, params=None, chunk_ticks=64, **cfg):
+    """The benchmarks plan's ``case`` at ``n`` instances (one group with
+    ``params``) run to the end in both packages: (JAX result, port
+    result)."""
+    groups = [("single", 0, n,
+               {k: str(v) for k, v in (params or {}).items()})]
+    return (jax_run(jax_plan(case), groups, cfg, case=case),
+            torch_run(tbench.testcases[case], groups, cfg, chunk_ticks,
+                      case=case))
 
 
 def _is_torch(state):

@@ -27,6 +27,7 @@ from testground_tpu_torch.sim import count_scatter as csc  # noqa: E402
 from testground_tpu_torch.sim import deliver_front as df  # noqa: E402
 from testground_tpu_torch.sim import ring_merge as rm  # noqa: E402
 from testground_tpu_torch.sim.state_io import (  # noqa: E402
+    compare_leaves,
     flatten,
     state_to_numpy,
 )
@@ -157,13 +158,7 @@ def test_dht_gpu_matches_cpu():
     n = 200
     a = flatten(state_to_numpy(cs.dht_exec(n, dev).run().state))
     b = flatten(state_to_numpy(cs.dht_exec(n, "cpu").run().state))
-    assert set(a) == set(b)
-    for k in sorted(a):
-        x, y = a[k], b[k]
-        assert x.dtype == y.dtype and x.shape == y.shape, k
-        if x.dtype.kind == "f":
-            x, y = x.view(np.int32), y.view(np.int32)
-        np.testing.assert_array_equal(x, y, err_msg=k)
+    compare_leaves(a, b, "dht")
 
 
 @pytest.mark.parametrize("label,n,case,cap,width,A", [
@@ -207,7 +202,7 @@ def test_default_lowering_gpu_matches_cpu(make):
             return cs.dht_exec(n, d, pallas_front=None)
     a = flatten(state_to_numpy(mk(n, dev).run().state))
     b = flatten(state_to_numpy(mk(n, "cpu").run().state))
-    cs.compare_leaves(np, a, b, make)
+    compare_leaves(a, b, make)
 
 
 # chip_smoke's cases cut to 20,011 lanes (so the 1,000,003 cases take the
@@ -284,4 +279,4 @@ def test_storm_gpu_matches_cpu(shaped):
         cs.graft_storm_exec(n, dev, shaped).run().state))
     b = flatten(state_to_numpy(
         cs.graft_storm_exec(n, "cpu", shaped).run().state))
-    cs.compare_leaves(np, a, b, f"storm shaped={shaped}")
+    compare_leaves(a, b, f"storm shaped={shaped}")
