@@ -21,7 +21,8 @@ Phases, in order (any failure raises and the exit code is not 0):
    call, and timed; 3a. the kernel's phases, from its -DFRONT_TRACE
    build;
 3b. ring-merge kernel vs plain on the card, bit-equal: dht shapes at
-   N = 10,000, gossipsub@1M's shape (N = 1,048,576, CAP 64, W 6), the
+   N = 10,000, gossipsub@1M's shape (N = 1,048,576, CAP 64, W 6),
+   splitbrain-sampled@100k's (N = 100,000, CAP 64, W 7), the
    microbenchmark's shapes at N = 100,000, 1,000,000 and 1,000,003,
    k_eff of 0 / random / A, k_eff = CAP on a full ring, w near 2**30 and
    A > CAP; kernel, plain, ``ring.clone()`` and bound times;
@@ -92,7 +93,27 @@ Phases, in order (any failure raises and the exit code is not 0):
    cliff with x above x_fail all failed;
 18. barrier (3 iterations) and subtree (20 iterations) at n = 300, and
    sparsetimer at n = 300 dense and skipped (10 rounds): GPU path vs
-   CPU path, every state leaf bit-equal.
+   CPU path, every state leaf bit-equal;
+19. the network plan's ping-pong, traffic-allowed and traffic-blocked at
+   n = 2: all ok (the plan asserts ping-pong's RTT windows, 200-215 ms
+   and 20-35 ms, and the dial's outcome with and without a DROP pair
+   rule), with the RTTs measured;
+20. splitbrain's all-pairs drop, reject and accept at n =
+   ``SPLITBRAIN_ALL_N``: every instance ok (each asserts its probes'
+   outcomes against the policy), errors on {A, B} pairs only;
+21. splitbrain's drop-sampled, reject-sampled and accept-sampled at
+   n = 100,000 x 8 probes (class rules, dials behind the egress queue of
+   12,500 slots, the bounded append): every instance ok, errors > 0 but
+   for accept, zero inbox drops, overflow and abandoned sends; ticks,
+   wall, ms/tick, peak memory, deferred sends, and the ring-merge kernel
+   once every loop iteration; 21b. a profiler window over drop-sampled's
+   tick;
+22. every case of the example, placebo and verify plans at its
+   manifest's largest instance count, with the outcome the case gives;
+23. splitbrain drop-sampled, and a class-rule dialing program behind an
+   egress queue of 32 slots (so the ring-merge kernel runs on the card
+   and the plain merge on the CPU), at n = 300: GPU path vs CPU path,
+   every state leaf bit-equal.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernel measurements, and ``{"ok": true, "device": {...}}``. Everything
@@ -321,11 +342,12 @@ def flat_outputs(res):
 # ------------------------------------------------------------ merge inputs
 
 # (label, n, case, cap, width, arrival slots) — the ring-merge checks on
-# the card; the first rows are the main paths' shapes (dht@10k, then
-# gossipsub@1M)
+# the card; the first rows are the main paths' shapes (dht@10k,
+# gossipsub@1M, splitbrain-sampled@100k)
 MERGE_CASES = [
     ("dht", 10_000, "k_random", 32, 7, 8),
     ("gossipsub", GOSSIP_BIG_N, "k_random", 64, 6, 8),
+    ("splitbrain", 100_000, "k_random", 64, 7, 8),
     ("dht", 10_000, "k_zero", 32, 7, 8),
     ("dht", 10_000, "k_all", 32, 7, 8),
     ("dht", 10_000, "w_near_2_30", 32, 7, 8),
@@ -1337,6 +1359,162 @@ def small_cases_phase(torch, dev, report, n=10_000):
     return rows
 
 
+# ----------------------------------------------- the entry-mode plans
+
+SPLITBRAIN_ALL_N = 256  # the reference's CI scale for the all-pairs cases
+SPLITBRAIN_N = 100_000  # the sampled cases' full width, 8 probes a node
+# each case at its manifest's largest instance count (plans/*/manifest.toml)
+SMALL_PLAN_RUNS = (
+    [("example", c, 200) for c in ("output", "failure", "panic", "params",
+                                    "sync", "metrics", "artifact")]
+    + [("placebo", "ok", 200)]
+    + [("placebo", c, 250) for c in ("panic", "stall", "abort", "metrics")]
+    + [("verify", "uses-data-network", 200)]
+)
+
+
+def plan_exec(plan, case, n, device):
+    """A plan's case at ``n`` instances in one group, default SimConfig
+    but the bench's chunk."""
+    import importlib
+
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.sim import (
+        BuildContext, GroupSpec, SimConfig, compile_program,
+    )
+
+    mod = importlib.import_module(f"testground_tpu_torch.plans.{plan}")
+    ctx = BuildContext([GroupSpec("single", 0, n, {})], test_case=case,
+                       test_run="chip-smoke")
+    return compile_program(mod.testcases[case], ctx,
+                           SimConfig(chunk_ticks=bench.CHUNK_TICKS),
+                           device=device)
+
+
+def network_phase(torch, dev, report):
+    """[19] the network plan's three cases at n = 2."""
+    rows = []
+    for case in ("ping-pong", "traffic-allowed", "traffic-blocked"):
+        def check(res):
+            st = res.statuses()[:2]
+            assert (st == 1).all(), (case, st)
+            return {"ok": 2, "rtt_ms": {
+                f"{r['name']}/{r['instance']}": r["value"] * 1e3
+                for r in res.metrics_records()
+                if r["name"].startswith("ping_rtt")}}
+
+        out, _ = case_run(torch, dev, report, f"network_{case}",
+                          plan_exec("network", case, 2, dev), check)
+        log(f"  network {case}@2: ok in {out['ticks']} ticks, "
+            f"{out['wall_seconds']:.3f} s wall"
+            + (f"; RTT ms {out['rtt_ms']}" if out["rtt_ms"] else ""))
+        rows.append(out)
+    return rows
+
+
+def splitbrain_phase(torch, dev, report, cases, n):
+    """[20]/[21] splitbrain ``cases`` at ``n`` to the end, with the plan's
+    oracle (``bench.check_splitbrain``); the ring-merge launches are read
+    right after each run."""
+    from testground_tpu_torch import bench
+
+    outs = {}
+    for case in cases:
+        ex = bench.splitbrain_executable(n, dev, case)
+        slots = ex.program.net_spec.send_slots
+        out, res = case_run(torch, dev, report, f"splitbrain_{case}_{n}", ex,
+                            lambda r: bench.check_splitbrain(r, n))
+        out["send_slots"] = slots
+        merges = out["launches"]["ring_merge"]
+        log(f"  splitbrain {case}@{n:,d}: {out['ok']:,d} ok, errors "
+            f"{out['errors']:,d}, {out['ticks']} ticks "
+            f"({out['ticks_executed']} executed), {out['wall_seconds']:.3f} "
+            f"s wall ({out['ms_per_executed_tick']:.2f} ms/executed tick); "
+            f"deferred {out['egress_deferred']:,d}, overflow "
+            f"{out['egress_overflow']}, abandoned {out['egress_abandoned']},"
+            f" inbox drops {out['net_dropped']}; merge launches {merges}; "
+            f"peak {out['max_memory_allocated'] / 1e9:.2f} GB")
+        assert (out["errors"] == 0) == case.startswith("accept"), out
+        assert (out["launches"]["deliver_front"],
+                out["launches"]["count_scatter"]) == (0, 0), out["launches"]
+        if slots is not None:  # the bounded append: one merge an iteration
+            assert merges > 0
+            assert launch_bounds(out["ticks_executed"], bench.CHUNK_TICKS,
+                                 merges), (merges, out["ticks_executed"])
+        else:
+            assert merges == 0, merges
+        outs[case] = out
+    return outs
+
+
+def small_plans_phase(torch, dev, report):
+    """[22] every case of example, placebo and verify at its manifest's
+    largest instance count: the outcome each case gives (placebo's stall
+    runs to max_ticks)."""
+    status = {"failure": 2, "panic": 3, "abort": 2, "stall": 0}
+    rows = []
+    for plan, case, n in SMALL_PLAN_RUNS:
+        want = status.get(case, 1)
+
+        def check(res, n=n, want=want):
+            st = res.statuses()[:n]
+            assert (st == want).all(), (plan, case, st)
+            return {"n": n, "status": want,
+                    "metrics": len(res.metrics_records())}
+
+        ex = plan_exec(plan, case, n, dev)
+        out, _ = case_run(torch, dev, report, f"{plan}_{case}_{n}", ex, check)
+        if case == "stall":
+            assert out["ticks"] == ex.config.max_ticks, out["ticks"]
+        assert all(v == 0 for v in out["launches"].values()), out["launches"]
+        log(f"  {plan} {case}@{n}: status {want} for all in {out['ticks']} "
+            f"ticks ({out['ticks_executed']} executed), "
+            f"{out['wall_seconds']:.3f} s wall")
+        rows.append(out)
+    return rows
+
+
+def queued_class_exec(n, device):
+    """A class-rule dialing program behind an egress queue of 32 slots:
+    class 0 rejects class 1, class 1 drops class 2; 3 ms lossy links;
+    every instance dials its right neighbour and the one 5 to its right
+    (60 ms timeouts), records both results, and waits for all."""
+    from testground_tpu_torch.sim import (
+        BuildContext, GroupSpec, SimConfig, compile_program,
+    )
+    from testground_tpu_torch.sim.net import ACTION_DROP, ACTION_REJECT
+
+    def build(b):
+        import torch
+
+        b.enable_net(class_rules=True, n_classes=3, payload_len=2, head_k=1,
+                     send_slots=32)
+        b.set_net_class(lambda env, mem: env.instance % 3)
+
+        def class_rules(env, mem):
+            me = env.instance % 3
+            ar = torch.arange(3, device=me.device)
+            return torch.where(
+                (me == 0) & (ar == 1), ACTION_REJECT,
+                torch.where((me == 1) & (ar == 2), ACTION_DROP, -1),
+            ).to(torch.int32)
+
+        b.configure_network(latency_ms=3.0, loss=5.0,
+                            class_rules_fn=class_rules, callback_state="cfg")
+        for k, step in enumerate((1, 5)):
+            b.dial(lambda env, mem, step=step: (env.instance + step) % n,
+                   90 + k, result_slot=f"r{k}", timeout_ms=60.0)
+            b.record_point(f"dial_r{k}", lambda env, mem, k=k: mem[f"r{k}"])
+        b.signal_and_wait("done")
+        b.end_ok()
+
+    ctx = BuildContext([GroupSpec("single", 0, n, {})], test_case="classdials",
+                       test_run="chip-smoke")
+    return compile_program(build, ctx, SimConfig(chunk_ticks=32,
+                                                 max_ticks=100_000),
+                           device=device)
+
+
 def main() -> int:
     import torch
 
@@ -1495,6 +1673,40 @@ def main() -> int:
     report["sparsetimer_count_scatter_launches"] = {
         k: v["launches"]["count_scatter"] for k, v in
         (("dense", sparse[False]), ("skip", sparse[True]))}
+
+    log("[19] network: ping-pong, traffic-allowed, traffic-blocked @ 2")
+    network_phase(torch, dev, report)
+    log(f"[20] splitbrain all-pairs drop, reject, accept @ "
+        f"{SPLITBRAIN_ALL_N}")
+    t0 = time.monotonic()
+    splitbrain_phase(torch, dev, report, ("drop", "reject", "accept"),
+                     SPLITBRAIN_ALL_N)
+    report["splitbrain_all_pairs_seconds"] = time.monotonic() - t0
+    log(f"[21] splitbrain sampled drop, reject, accept @ {SPLITBRAIN_N:,d} "
+        "x 8 probes")
+    sampled = splitbrain_phase(
+        torch, dev, report,
+        ("drop-sampled", "reject-sampled", "accept-sampled"), SPLITBRAIN_N)
+    log(f"[21b] splitbrain drop-sampled@{SPLITBRAIN_N:,d} tick under "
+        "torch.profiler")
+    profile_phase(torch, report, "splitbrain_sampled_profile",
+                  tbench.splitbrain_executable(SPLITBRAIN_N, dev,
+                                               "drop-sampled"),
+                  sampled["drop-sampled"]["ms_per_executed_tick"])
+    log("[22] example, placebo and verify, every case at its manifest's "
+        "largest instance count")
+    small_plans_phase(torch, dev, report)
+    log("[23] splitbrain drop-sampled and a queued class-rule dialing "
+        "program @ 300: GPU vs CPU")
+    parity_phase(np, dev, report, "splitbrain300_parity",
+                 lambda n, d: tbench.splitbrain_executable(n, d,
+                                                           "drop-sampled"))
+    reset_launch_counts()
+    parity_phase(np, dev, report, "classdials300_parity", queued_class_exec)
+    merges = other_launches()["ring_merge"]
+    report["classdials300_parity"]["gpu_ring_merge_launches"] = merges
+    log(f"  ring-merge kernel launches on the card's run: {merges}")
+    assert merges > 0, "the queued program ran no ring merge on the card"
 
     front_row = next(r for r in rows if r["n"] == 10_000
                      and r["regime"] == "mixed")

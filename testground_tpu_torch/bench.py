@@ -26,7 +26,8 @@ the executed/simulated tick ratio.
 
 The other builders here (``barrier_executable``, ``subtree_executable``)
 are those of ``testground_tpu_torch.tools.bench_barrier`` and
-``bench_subtree``."""
+``bench_subtree``; ``splitbrain_executable`` builds the splitbrain
+plan's partition-policy cases."""
 
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ import json
 import subprocess
 import sys
 
-from .plans import benchmarks
+from .plans import benchmarks, splitbrain
 from .sim import BuildContext, GroupSpec, SimConfig, compile_program
 from .sim.core import EVENT_SKIP_STATE_LEAVES
 from .sim.state_io import compare_leaves, flatten, state_to_numpy
@@ -60,16 +61,15 @@ SHAPED_PARAMS = {
 }
 
 
-def _case_executable(case, n, params, cfg, device):
-    """The benchmarks plan's ``case`` at ``n`` instances in one group with
+def _case_executable(case, n, params, cfg, device, plan=benchmarks):
+    """The ``plan`` module's ``case`` at ``n`` instances in one group with
     ``params``, built with ``cfg`` on ``device``."""
     ctx = BuildContext(
         [GroupSpec("single", 0, n, {k: str(v) for k, v in params.items()})],
         test_case=case,
         test_run="bench",
     )
-    return compile_program(benchmarks.testcases[case], ctx, cfg,
-                           device=device)
+    return compile_program(plan.testcases[case], ctx, cfg, device=device)
 
 
 def storm_executable(n, device="cuda", shaped=False, chunk_ticks=CHUNK_TICKS):
@@ -110,6 +110,35 @@ def subtree_executable(n, iters, device="cuda"):
                     max_ticks=600_000)
     return _case_executable("subtree", n, {"subtree_iterations": iters}, cfg,
                             device)
+
+
+def splitbrain_executable(n, device="cuda", case="drop-sampled"):
+    """The splitbrain plan's ``case`` at ``n`` instances (the ``*-sampled``
+    cases with their default 8 probes a node) with the plan tests'
+    SimConfig: 1 ms quantum, max 100,000 ticks."""
+    cfg = SimConfig(chunk_ticks=CHUNK_TICKS, max_ticks=100_000)
+    return _case_executable(case, n, {}, cfg, device, plan=splitbrain)
+
+
+def check_splitbrain(res, n):
+    """The splitbrain plan's own oracle, read back: every instance ok
+    (each asserted its probes' outcomes against the policy), and the
+    per-instance ``errors`` records; returns a summary."""
+    ok = int((res.statuses()[:n] == 1).sum())
+    assert ok == n, f"only {ok}/{n} instances ok"
+    errors = [r["value"] for r in res.metrics_records()
+              if r["name"] == "errors"]
+    assert len(errors) == n, (len(errors), n)
+    out = {"ok": ok, "errors": int(sum(errors)),
+           "metrics_dropped": res.metrics_dropped(),
+           "net_dropped": res.net_dropped(),
+           "egress_overflow": res.net_egress_overflow(),
+           "egress_abandoned": res.net_egress_abandoned(),
+           "egress_deferred": res.net_egress_deferred()}
+    for k in ("metrics_dropped", "net_dropped", "egress_overflow",
+              "egress_abandoned"):
+        assert out[k] == 0, (k, out[k])
+    return out
 
 
 SKIP_ROUNDS = 50  # TG_BENCH_TIMER_ROUNDS' default

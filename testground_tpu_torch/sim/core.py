@@ -282,10 +282,12 @@ def _check_phase_net_ctrl(ctrl, spec, phase_name: str) -> None:
 
 # PhaseCtrl fields the tick consumes, in the JAX package's FIELDS order:
 # (name, kind, static default). Kinds: "i" int32, "f" float32, "pay"
-# net payload vector, "tpay" topic payload vector. Fields of planes the
-# port does not run (filter rules, trace, telemetry, replay) must stay
-# at their defaults; the build-time probe rejects a phase that sets them,
-# naming the ROADMAP.md item that ports them.
+# net payload vector, "tpay" topic payload vector, "rule" pair-rule row
+# ([N], all -1 by default; [1] zeros without pair rules), "crule"
+# class-rule row (likewise [C]). Fields of planes the port does not run
+# (trace, telemetry, replay) must stay at their defaults; the build-time
+# probe rejects a phase that sets them, naming the ROADMAP.md item that
+# ports them.
 _FIELDS = (
     ("advance", "i", 0),
     ("jump", "i", -1),
@@ -316,14 +318,17 @@ _FIELDS = (
     ("net_reorder_corr", "f", 0.0),
     ("net_duplicate_corr", "f", 0.0),
     ("net_enabled", "i", 1),
+    ("rule_row", "rule", None),
+    ("net_class", "i", -1),
+    ("class_rule_row", "crule", None),
 )
+_VECTOR_KINDS = ("pay", "tpay", "rule", "crule")
+# the observer planes' fields (ROADMAP.md item 9), with their defaults
 _UNPORTED_FIELDS = (
-    ("rule_row", None, 7), ("net_class", -1, 7), ("class_rule_row", None, 7),
-    ("trace_code", -1, 9), ("trace_a0", 0, 9), ("trace_a1", 0, 9),
-    ("observe_hist", -1, 9), ("observe_value", 0.0, 9), ("count_add", 0, 9),
-    ("gauge_set", 0, 9), ("gauge_value", 0.0, 9), ("replay_consume", 0, 9),
+    ("trace_code", -1), ("trace_a0", 0), ("trace_a1", 0),
+    ("observe_hist", -1), ("observe_value", 0.0), ("count_add", 0),
+    ("gauge_set", 0), ("gauge_value", 0.0), ("replay_consume", 0),
 )
-_ITEM_TITLES = {7: "entry-mode data plane", 9: "observer planes"}
 
 
 def _topic_append(buf, mask, pos0, payloads, pay):
@@ -552,6 +557,8 @@ class SimExecutable:
         use_net = net_spec is not None
         count_mode = use_net and not net_spec.store_entries
         NET_PAY = net_spec.payload_len if use_net else 1
+        pair_rules = use_net and net_spec.use_pair_rules
+        class_rules = use_net and net_spec.use_class_rules
         PAY = prog.topics.payload_len
         topic_specs = prog.topics.specs()
         churn_sids, churn_tids = prog.churn_sids, prog.churn_tids
@@ -568,6 +575,14 @@ class SimExecutable:
             return consts[key]
 
         def pack(kind, v):
+            if kind in ("rule", "crule"):
+                if not (pair_rules if kind == "rule" else class_rules):
+                    return torch.zeros(1, dtype=torch.int32, device=dev)
+                if v is None:
+                    width = n if kind == "rule" else net_spec.n_classes
+                    return torch.full((width,), -1, dtype=torch.int32,
+                                      device=dev)
+                return torch.as_tensor(v).to(torch.int32)
             if kind in ("pay", "tpay"):
                 width = NET_PAY if kind == "pay" else PAY
                 if v is None:
@@ -583,7 +598,7 @@ class SimExecutable:
             return const(int(v) if kind == "i" else float(v), dtype)
 
         def is_default(kind, v, default):
-            if kind in ("pay", "tpay"):
+            if kind in _VECTOR_KINDS:
                 return v is None
             return _static_eq(v, default)
 
@@ -630,18 +645,18 @@ class SimExecutable:
                     env.inbox_bytes = torch.zeros(())
                 if net_spec.uses_latency:
                     env.eg_latency_ticks = torch.zeros(())
+                if pair_rules:
+                    env.filter_row = torch.zeros(n, dtype=torch.int8)
             try:
                 mem2, ctrl = phase.fn(env, dict(mem))
             except Exception:  # noqa: BLE001 — best-effort, as in JAX
                 return tuple(prog.mem_spec), tuple(range(len(_FIELDS))), {}
             _check_phase_net_ctrl(ctrl, net_spec, phase.name)
-            for name, default, item in _UNPORTED_FIELDS:
-                if not is_default("pay" if default is None else "i",
-                                  getattr(ctrl, name), default):
+            for name, default in _UNPORTED_FIELDS:
+                if not _static_eq(getattr(ctrl, name), default):
                     raise _not_ported(
-                        f"phase {phase.name!r} sets PhaseCtrl.{name}", item,
-                        _ITEM_TITLES[item],
-                    )
+                        f"phase {phase.name!r} sets PhaseCtrl.{name}", 9,
+                        "observer planes")
             wset = tuple(k for k in mem if mem2.get(k) is not mem[k])
             dyn = tuple(
                 i for i, (name, kind, default) in enumerate(_FIELDS)
@@ -737,6 +752,7 @@ class SimExecutable:
                     hs=net_row.get("hs"),
                     egress_busy=net_row.get("egress_busy"),
                     eg_latency_ticks=net_row.get("eg_latency"),
+                    filter_row=net_row.get("filter_row"),
                     quantum_ms=quantum_ms,
                 )
                 safe_pc = torch.clamp(pc, 0, n_phases - 1)
@@ -806,6 +822,7 @@ class SimExecutable:
                         recv_count=torch.where(active, ctrl["recv_count"], 0),
                         hs_clear=torch.where(active, ctrl["hs_clear"], 0),
                         net_set=torch.where(active, ctrl["net_set"], 0),
+                        net_class=torch.where(active, ctrl["net_class"], -1),
                     )
                     for name in (
                         "send_tag", "send_port", "send_size", "send_payload",
@@ -813,7 +830,7 @@ class SimExecutable:
                         "net_loss", "net_corrupt", "net_reorder",
                         "net_duplicate", "net_loss_corr", "net_corrupt_corr",
                         "net_reorder_corr", "net_duplicate_corr",
-                        "net_enabled",
+                        "net_enabled", "rule_row", "class_rule_row",
                     ):
                         out[name] = ctrl[name]
                 return out
@@ -868,6 +885,8 @@ class SimExecutable:
                         net_row["egress_busy"] = netst["pend_dest"] >= 0
                 if "eg_latency" in netst:
                     net_row["eg_latency"] = netst["eg_latency"]
+                if pair_rules:
+                    net_row["filter_row"] = netst["pair_filter"]
 
             lane_keys = prng.fold_in(key, instance_ids)
             # the shared registers (counters, topics, head registers) are
@@ -963,6 +982,10 @@ class SimExecutable:
                     res["net_latency_ms"], res["net_jitter_ms"],
                     res["net_bandwidth"], res["net_loss"],
                     res["net_enabled"],
+                    rule_rows=res["rule_row"] if pair_rules else None,
+                    net_class=res["net_class"] if class_rules else None,
+                    class_rule_rows=(res["class_rule_row"] if class_rules
+                                     else None),
                     corrupt_pct=res["net_corrupt"],
                     reorder_pct=res["net_reorder"],
                     duplicate_pct=res["net_duplicate"],

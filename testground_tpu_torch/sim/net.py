@@ -12,9 +12,11 @@ default front, or the deliver-front kernel with
 ``SimConfig.pallas_front=True``. In count mode (``store_entries``
 False) deliveries add ``[count, bytes]`` rows into the fixed-next-tick
 staging row or the delay wheel through the ordered scatter-add
-(sim/count_scatter.py), ``advance_wheel`` drains them, and dials get
-their SYN -> ACK replies in the handshake registers. Filter rules, and
-dials in entry mode, raise ``NotImplementedError``.
+(sim/count_scatter.py), and ``advance_wheel`` drains them. Filter rules
+(a dense ``[N, N]`` pair matrix, per-class rows, or both; the strictest
+action wins) keep a send off the link, and in both modes a dial's SYN
+gets its ACK, or its RST from a REJECT rule, in the dialer's handshake
+register. Destination-sharded delivery raises ``NotImplementedError``.
 
 Inbox entry layout (NET_HDR + payload floats):
 ``[visible_tick, src, tag, port, size, payload...]``
@@ -42,6 +44,12 @@ F_VISIBLE, F_SRC, F_TAG, F_PORT, F_SIZE = range(NET_HDR)
 # handshake register fields [N, 4]
 HS_VIS, HS_SRC, HS_PORT, HS_TAG = range(4)
 HS_NONE = 3.0e18  # "no pending reply" visibility sentinel
+
+# filter actions (pair_filter / class_rules entries; -1 in a written row
+# leaves the entry unchanged)
+ACTION_ACCEPT = 0
+ACTION_REJECT = 1
+ACTION_DROP = 2
 
 _INT32_MAX = 2**31 - 1
 
@@ -94,10 +102,6 @@ class NetSpec:
 
 def check_supported(spec: NetSpec) -> None:
     """Raise for the data-plane features the port does not run yet."""
-    if spec.use_pair_rules or spec.use_class_rules:
-        raise _not_ported("filter rules", 7, "entry-mode data plane")
-    if spec.uses_dials and spec.store_entries:
-        raise _not_ported("dials in entry mode", 7, "entry-mode data plane")
     if spec.dest_sharded:
         raise _not_ported("dest_sharded delivery (all_to_all)", 12,
                           "multi-GPU")
@@ -172,6 +176,11 @@ def init_net_state(n: int, spec: NetSpec, device) -> dict:
         if flag:
             st[f"eg_{name}_corr"] = z(n, f32)
             st[f"ar_{name}"] = z(n, f32)
+    if spec.use_pair_rules:
+        st["pair_filter"] = z((n, n), torch.int8)
+    if spec.use_class_rules:
+        st["class_of"] = z(n, i32)
+        st["class_rules"] = z((n, spec.n_classes), torch.int8)
     return st
 
 
@@ -192,6 +201,9 @@ def apply_net_config(
     bandwidth_bps,
     loss_pct,
     enabled,
+    rule_rows=None,
+    net_class=None,
+    class_rule_rows=None,
     corrupt_pct=0.0,
     reorder_pct=0.0,
     duplicate_pct=0.0,
@@ -200,9 +212,21 @@ def apply_net_config(
     reorder_corr_pct=0.0,
     duplicate_corr_pct=0.0,
 ) -> dict:
-    """Apply per-instance ConfigureNetwork writes (vectorized over N)."""
+    """Apply per-instance ConfigureNetwork writes (vectorized over N).
+    ``net_class`` [N] (-1 = keep) re-classes a lane whether or not it
+    sets its shaping this tick; ``rule_rows`` [N, N] and
+    ``class_rule_rows`` [N, C] write their entries >= 0 on lanes that
+    set it."""
     on = set_flag > 0
     net = dict(net)
+    if net_class is not None and "class_of" in net:
+        net["class_of"] = torch.where(net_class >= 0, net_class,
+                                      net["class_of"])
+    for key, rows in (("class_rules", class_rule_rows),
+                      ("pair_filter", rule_rows)):
+        if rows is not None and key in net:
+            net[key] = torch.where(on[:, None] & (rows >= 0),
+                                   rows.to(torch.int8), net[key])
     per_tick, pct = recip(quantum_ms), recip(100.0)
     for key, val in (
         ("eg_latency", lambda: latency_ms * per_tick),
@@ -610,7 +634,15 @@ def deliver(net: dict, spec: NetSpec, tick, rng_key, send_dest, send_tag,
     # destination viability: a crashed or finished instance has no host
     dest_ok = (net["net_enabled"] > 0) & status_running
     enabled = (net["net_enabled"] > 0) & dest_ok[dest_c]
-    transmits = sending & enabled
+    action = filter_action(net, spec, dest_c)
+    # a REJECT or DROP route is a local error: the packet never reaches
+    # the link (no occupancy, no toxic draw advances, no reply)
+    if action is None:
+        transmits = sending & enabled
+        rejected = None
+    else:
+        transmits = sending & enabled & (action == ACTION_ACCEPT)
+        rejected = sending & enabled & (action == ACTION_REJECT)
 
     if "eg_loss" in net:
         lost = _toxic_event(net, rng_key, "loss", n, transmits,
@@ -621,11 +653,10 @@ def deliver(net: dict, spec: NetSpec, tick, rng_key, send_dest, send_tag,
     # serialization delay on the sender's link (HTB rate analog)
     if "eg_rate" in net:
         rate = net["eg_rate"]
-        ser = torch.where(
-            rate > 0,
-            send_size / torch.maximum(rate, rate.new_tensor(1e-9)),
-            0.0,
-        )
+        # a clamp, not a maximum with a new tensor: that copies from the
+        # host, which a CUDA-graph capture of the tick refuses
+        ser = torch.where(rate > 0, send_size / torch.clamp(rate, min=1e-9),
+                          0.0)
         start = torch.maximum(t, net["eg_busy"])
         net["eg_busy"] = torch.where(transmits, start + ser, net["eg_busy"])
     else:
@@ -658,10 +689,22 @@ def deliver(net: dict, spec: NetSpec, tick, rng_key, send_dest, send_tag,
         ) & data_ok
     if not spec.store_entries:
         _count_add(net, spec, tick, visible, data_ok, dest_c, send_size, dup)
-        if spec.uses_dials:
-            _handshake(net, t, visible, deliverable, send_dest, send_tag,
-                       send_port, dest_c, hs_clear)
-        return net
+    else:
+        _entry_append(net, spec, rng_key, n, visible, transmits, data_ok,
+                      dup, send_dest, send_tag, send_port, send_size,
+                      send_payload, has_queue)
+    if spec.uses_dials:
+        _handshake(net, spec, t, visible, deliverable, rejected, send_dest,
+                   send_tag, send_port, dest_c, hs_clear)
+    return net
+
+
+def _entry_append(net, spec, rng_key, n, visible, transmits, data_ok, dup,
+                  send_dest, send_tag, send_port, send_size, send_payload,
+                  has_queue):
+    """Entry mode: corrupt the payloads, build and sanitize the records
+    and append them (bounded behind the egress queue, the ranked scatter
+    without it). Mutates ``net``."""
     if "eg_corrupt" in net:
         send_payload = _corrupt(net, rng_key, n, transmits, data_ok,
                                 send_payload)
@@ -676,11 +719,33 @@ def deliver(net: dict, spec: NetSpec, tick, rng_key, send_dest, send_tag,
         dest_app = torch.cat([dest_app, torch.where(dup, send_dest, -1)])
         rec = torch.cat([rec, rec])
     if has_queue:
-        return _append_messages_bounded(
+        out = _append_messages_bounded(
             net, spec, dest_app, rec,
             max_valid=spec.send_slots * (2 if dup is not None else 1),
         )
-    return _append_messages(net, spec, dest_app, rec)
+    else:
+        out = _append_messages(net, spec, dest_app, rec)
+    net.update(out)
+
+
+def filter_action(net, spec, dest_c):
+    """The filter action of each lane's send to ``dest_c`` [N]: the max
+    of its ``pair_filter`` entry and of its ``class_rules`` entry at the
+    destination's class (the strictest wins, like stacked routes), int8;
+    None for a filter-free program. A gather of one entry a lane: the
+    JAX package's one-hot sum over the C classes adds exact zeros to the
+    same integer."""
+    if "pair_filter" not in net and "class_rules" not in net:
+        return None
+    n = dest_c.shape[0]
+    src = torch.arange(n, device=dest_c.device)
+    action = torch.zeros(n, dtype=torch.int8, device=dest_c.device)
+    if "pair_filter" in net:
+        action = torch.maximum(action, net["pair_filter"][src, dest_c])
+    if "class_rules" in net:
+        dcls = torch.clamp(net["class_of"][dest_c], 0, spec.n_classes - 1)
+        action = torch.maximum(action, net["class_rules"][src, dcls])
+    return action
 
 
 def _count_add(net, spec, tick, visible, data_ok, dest_c, send_size, dup):
@@ -743,16 +808,27 @@ def _hs_empty(device):
     return _HS_EMPTY[device]
 
 
-def _handshake(net, t, visible, deliverable, send_dest, send_tag, send_port,
-               dest_c, hs_clear):
+def _handshake(net, spec, t, visible, deliverable, rejected, send_dest,
+               send_tag, send_port, dest_c, hs_clear):
     """A delivered SYN writes an ACK into the dialer's register, visible
-    one return leg after the SYN arrives. Mutates ``net``.
+    one return leg after the SYN arrives; a SYN refused by a REJECT rule
+    writes an RST, visible after the dialer's own egress latency (the
+    prohibit route's immediate error). The ACK must pass the dialee's own
+    egress filter toward the dialer, so a one-sided DROP breaks both
+    directions (the dial times out). Mutates ``net``.
 
     The JAX package computes the reply only on a tick that carries a SYN
     (``lax.cond``); on any other tick no lane writes the register, so
-    computing it every tick gives the same state. Without filter rules
-    no SYN is refused, so no RST is written."""
-    syn_ok = deliverable & (send_tag == TAG_SYN)
+    computing it every tick gives the same state."""
+    is_syn = send_tag == TAG_SYN
+    syn_ok = deliverable & is_syn
+    if "pair_filter" in net:
+        src = torch.arange(dest_c.shape[0], device=dest_c.device)
+        syn_ok = syn_ok & (net["pair_filter"][dest_c, src] == ACTION_ACCEPT)
+    if "class_rules" in net:
+        my_cls = torch.clamp(net["class_of"], 0, spec.n_classes - 1)
+        syn_ok = syn_ok & (net["class_rules"][dest_c, my_cls]
+                           == ACTION_ACCEPT)
     if "eg_latency" in net:
         lat = net["eg_latency"]
         back_a = torch.clamp(lat[dest_c], min=1.0)
@@ -772,7 +848,8 @@ def _handshake(net, t, visible, deliverable, send_dest, send_tag, send_port,
         ],
         dim=-1,
     )
-    net["hs"] = torch.where(syn_ok[:, None], hs_new, hs)
+    write = syn_ok if rejected is None else syn_ok | (rejected & is_syn)
+    net["hs"] = torch.where(write[:, None], hs_new, hs)
 
 
 def advance_wheel(net: dict, spec: NetSpec, tick) -> dict:

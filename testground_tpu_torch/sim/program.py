@@ -12,10 +12,11 @@ lane's value) and the core batches them over the instance axis with
 Inside a phase, make tensors from the env's own tensors (``*_like``,
 ``new_*``) so they land on the run's device.
 
-This package ports the builder methods the dht, gossipsub and
-benchmarks plans use, and ``end_fail``, ``end_crash`` and
-``send_message``; the others raise ``NotImplementedError`` naming the
-ROADMAP.md module that will port them.
+This package ports the builder methods the dht, gossipsub, benchmarks,
+network, splitbrain, example, placebo and verify plans use; the
+observer-plane methods (``trace``, ``observe``, ``count``, ``gauge``,
+``on_arrival``) raise ``NotImplementedError`` naming the ROADMAP.md
+module that will port them.
 """
 
 from __future__ import annotations
@@ -164,6 +165,7 @@ class TickEnv:
     hs: Any = None  # [4] my handshake register (dialing programs)
     egress_busy: Any = None  # bool: my egress queue holds a deferred send
     eg_latency_ticks: Any = None  # f32 my current egress latency
+    filter_row: Any = None  # [N] i8 my egress filter actions (pair rules)
     quantum_ms: float = 1.0  # ms per tick
 
     # -------- helpers usable inside phase fns --------
@@ -284,6 +286,11 @@ class TopicRegistry:
     @property
     def count(self) -> int:
         return max(1, self._next)
+
+    @property
+    def capacity(self) -> int:
+        """The largest topic capacity."""
+        return max([1] + [c for _, c, _, _ in self._topics.values()])
 
     @property
     def payload_len(self) -> int:
@@ -757,6 +764,19 @@ class ProgramBuilder:
         self.enable_net()
         self.signal_and_wait("network-initialized", churn_weight=churn_weight)
 
+    def set_net_class(self, class_fn) -> None:
+        """Assign my filter class (``class_fn(env, mem)`` -> i32), the
+        key of the class rows configure_network(class_rules_fn=) writes."""
+        self.enable_net(class_rules=True)
+
+        def fn(env, mem):
+            return mem, PhaseCtrl(
+                advance=1,
+                net_class=torch.as_tensor(class_fn(env, mem)).to(torch.int32),
+            )
+
+        self.phase(fn, name="set_net_class")
+
     def configure_network(
         self,
         latency_ms=0.0,
@@ -777,14 +797,18 @@ class ProgramBuilder:
         callback_target=None,
         churn_weight: int = 0,
     ) -> None:
-        """(Must)ConfigureNetwork: write my egress LinkShape row, then
-        signal the callback state and wait for callback_target instances
-        to have done the same. Scalar args may be numbers or
-        fns(env, mem) -> value."""
-        if rules_fn is not None or class_rules_fn is not None:
-            raise _not_ported("configure_network filter rules", 7,
-                              "entry-mode data plane")
-        spec = self.enable_net()
+        """(Must)ConfigureNetwork: write my egress LinkShape row (and
+        filter rows), then signal the callback state and wait for
+        callback_target instances to have done the same. Scalar args may
+        be numbers or fns(env, mem) -> value. ``rules_fn`` returns an
+        [N] action row (-1 = leave unchanged, else ACTION_ACCEPT /
+        REJECT / DROP) toward each instance; ``class_rules_fn`` a
+        [n_classes] row toward each destination class (see
+        set_net_class). Both may be active: the strictest action wins."""
+        spec = self.enable_net(
+            pair_rules=rules_fn is not None,
+            class_rules=class_rules_fn is not None,
+        )
         spec.uses_latency |= callable(latency_ms) or bool(latency_ms)
         spec.uses_jitter |= callable(jitter_ms) or bool(jitter_ms)
         spec.uses_rate |= callable(bandwidth) or bool(bandwidth)
@@ -800,8 +824,27 @@ class ProgramBuilder:
         )
         if not callback_state:
             raise ValueError("configure_network requires a callback_state")
+        n = self.ctx.padded_n
+        n_classes = spec.n_classes
 
         def fn(env, mem):
+            rule_row = cls_row = None
+            if rules_fn is not None:
+                rule_row = torch.as_tensor(rules_fn(env, mem)).to(torch.int32)
+                if tuple(rule_row.shape) != (n,):
+                    raise ValueError(
+                        f"rules_fn must return a [{n}] row (padded instance "
+                        f"count), got {tuple(rule_row.shape)}"
+                    )
+            if class_rules_fn is not None:
+                cls_row = torch.as_tensor(class_rules_fn(env, mem)).to(
+                    torch.int32)
+                if tuple(cls_row.shape) != (n_classes,):
+                    raise ValueError(
+                        f"class_rules_fn must return a [{n_classes}] row, "
+                        f"got {tuple(cls_row.shape)}"
+                    )
+
             # static scalars stay PYTHON values (the core's static-default
             # probe reads them); callables get cast per lane
             def num(v):
@@ -826,6 +869,8 @@ class ProgramBuilder:
                 net_reorder_corr=num(reorder_corr),
                 net_duplicate_corr=num(duplicate_corr),
                 net_enabled=en,
+                rule_row=rule_row,
+                class_rule_row=cls_row,
             )
 
         self.phase(fn, name=f"configure_network:{callback_state}")
@@ -981,10 +1026,6 @@ class ProgramBuilder:
 
     def on_arrival(self, *a, **k) -> None:
         raise _not_ported("ProgramBuilder.on_arrival", 9, "observer planes")
-
-    def set_net_class(self, *a, **k) -> None:
-        raise _not_ported("ProgramBuilder.set_net_class", 7,
-                          "entry-mode data plane")
 
     # -------------------------------------------------------------- build
 

@@ -1,9 +1,10 @@
-"""Shared helpers of the benchmarks-plan parity tests
-(tests/test_torch_storm*.py, tests/test_torch_benchmarks*.py): the JAX
-plan's cases, the JAX and port executables of a case, storm with
+"""Shared helpers of the plan parity tests (tests/test_torch_storm*.py,
+tests/test_torch_benchmarks*.py, tests/test_torch_plans_entry.py): a
+JAX plan's cases, the JAX and port executables of a case, storm with
 ``__graft_entry__``'s compressed params, and the leaf-by-leaf
 comparison."""
 
+import importlib
 import importlib.util
 from pathlib import Path
 
@@ -27,12 +28,18 @@ from testground_tpu_torch.sim.state_io import flatten, state_to_numpy
 REPO = Path(__file__).resolve().parent.parent
 
 
-def jax_plan(case="storm"):
-    """The JAX benchmarks plan's ``case`` (plans/benchmarks/sim.py)."""
+def jax_plan(case="storm", plan="benchmarks"):
+    """The JAX plan's ``case`` (plans/<plan>/sim.py)."""
     spec = importlib.util.spec_from_file_location(
-        "plan_benchmarks_reference", REPO / "plans" / "benchmarks" / "sim.py")
+        f"plan_{plan}_reference", REPO / "plans" / plan / "sim.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
+    return mod.testcases[case]
+
+
+def torch_plan(case="storm", plan="benchmarks"):
+    """The port's ``case`` of the plan (testground_tpu_torch/plans)."""
+    mod = importlib.import_module(f"testground_tpu_torch.plans.{plan}")
     return mod.testcases[case]
 
 
@@ -76,14 +83,14 @@ def storm_pair(n, shaped, **cfg_kw):
             torch_run(tbench.storm, groups, cfg))
 
 
-def case_pair(case, n, params=None, chunk_ticks=64, **cfg):
-    """The benchmarks plan's ``case`` at ``n`` instances (one group with
-    ``params``) run to the end in both packages: (JAX result, port
-    result)."""
+def case_pair(case, n, params=None, chunk_ticks=64, plan="benchmarks",
+              **cfg):
+    """The plan's ``case`` at ``n`` instances (one group with ``params``)
+    run to the end in both packages: (JAX result, port result)."""
     groups = [("single", 0, n,
                {k: str(v) for k, v in (params or {}).items()})]
-    return (jax_run(jax_plan(case), groups, cfg, case=case),
-            torch_run(tbench.testcases[case], groups, cfg, chunk_ticks,
+    return (jax_run(jax_plan(case, plan), groups, cfg, case=case),
+            torch_run(torch_plan(case, plan), groups, cfg, chunk_ticks,
                       case=case))
 
 

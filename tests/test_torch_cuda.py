@@ -2,9 +2,12 @@
 GPU): the deliver-front, ring-merge and count-scatter CUDA kernels
 against their plain torch versions on the same tensors, the whole front
 dispatch captured in a CUDA graph against its eager call, and the dht
-slice (fused front and default lowering), gossipsub and storm (unshaped
-and shaped with churn) on the card against the port's CPU path (on
-the card ``run`` replays a CUDA graph of the tick). This file imports no
+slice (fused front and default lowering), gossipsub, storm (unshaped
+and shaped with churn) and the entry-mode plans with filter rules and
+dials (network's rate-shaped ping-pong and DROP-filtered dial,
+splitbrain reject-sampled, a class-rule dialing program behind the
+egress queue) on the card against the port's CPU path (on the card
+``run`` replays a CUDA graph of the tick). This file imports no
 jax, so it runs on the GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
@@ -280,3 +283,28 @@ def test_storm_gpu_matches_cpu(shaped):
     b = flatten(state_to_numpy(
         cs.graft_storm_exec(n, "cpu", shaped).run().state))
     compare_leaves(a, b, f"storm shaped={shaped}")
+
+
+@pytest.mark.parametrize("make", ["ping-pong", "traffic-blocked",
+                                  "reject-sampled", "class-dials"])
+def test_entry_plans_gpu_matches_cpu(make):
+    """The captured tick of each program against the CPU path; ping-pong
+    is rate-shaped, whose lowering once copied from the host inside the
+    tick (which a capture refuses)."""
+    from testground_tpu_torch import bench
+
+    dev = _cuda()
+    mk = {
+        "ping-pong": lambda d: cs.plan_exec("network", "ping-pong", 2, d),
+        "traffic-blocked": lambda d: cs.plan_exec("network",
+                                                  "traffic-blocked", 2, d),
+        "reject-sampled": lambda d: bench.splitbrain_executable(
+            60, d, "reject-sampled"),
+        "class-dials": lambda d: cs.queued_class_exec(60, d),
+    }[make]
+    launches = int(rm.merge.launches)
+    a = flatten(state_to_numpy(mk(dev).run().state))
+    if make == "class-dials":  # 60 lanes behind 32 slots: bounded append
+        assert int(rm.merge.launches) > launches
+    b = flatten(state_to_numpy(mk("cpu").run().state))
+    compare_leaves(a, b, make)

@@ -162,12 +162,22 @@ def test_deliver_default_front(name, flags, queue):
 
 
 def test_filter_rules_raise():
-    spec = tn.NetSpec(inbox_capacity=8, payload_len=2, use_pair_rules=True)
+    """Filter rules run now (tests/test_torch_filters.py holds them to
+    JAX); the one data-plane feature the deliver still refuses is
+    destination-sharded delivery, filters or not."""
+    spec = tn.NetSpec(inbox_capacity=8, payload_len=2, use_pair_rules=True,
+                      dest_sharded=True)
     _, net, send, running = _state(0, dict(inbox_capacity=8, payload_len=2))
-    with pytest.raises(NotImplementedError, match="filter rules"):
+    net["pair_filter"] = np.zeros((N, N), np.int8)
+    with pytest.raises(NotImplementedError, match="dest_sharded"):
         tn.deliver({k: _t(v) for k, v in net.items()}, spec,
                    torch.tensor(TICK, dtype=torch.int32), prng.PRNGKey(0),
                    *map(_t, send), _t(running))
+    spec.dest_sharded = False
+    got = tn.deliver({k: _t(v) for k, v in net.items()}, spec,
+                     torch.tensor(TICK, dtype=torch.int32), prng.PRNGKey(0),
+                     *map(_t, send), _t(running))
+    assert got["pair_filter"].dtype == torch.int8
 
 
 @pytest.mark.parametrize(
