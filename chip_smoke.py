@@ -113,7 +113,32 @@ Phases, in order (any failure raises and the exit code is not 0):
 23. splitbrain drop-sampled, and a class-rule dialing program behind an
    egress queue of 32 slots (so the ring-merge kernel runs on the card
    and the plain merge on the CPU), at n = 300: GPU path vs CPU path,
-   every state leaf bit-equal.
+   every state leaf bit-equal;
+24. storm at n = 10,000 under ``bench.py``'s fault timeline (three
+   degrade windows, a partition and its heal, two 1% kills, one
+   restart; churn-tolerant rendezvous, 3 SYN retries at 1 s): no
+   timeout, a restart, the still-dead victims crashed and every
+   survivor ok; the degrade windows force latency, so the count scatter
+   runs on the delay wheel once a loop iteration; 24b. a profiler
+   window inside the degrade windows;
+25. storm at n = 10,000 traced (64-slot rings): all ok, events
+   recorded; 25b. a profiler window;
+26. storm at n = 10,000 sampled (interval 100, every probe storm can
+   record, 1,000 sample rows): all ok, samples taken; 26b. a profiler
+   window, and the loop's whole-state passes on the sampled state and
+   on phase 11's; 26c. storm with an empty [faults] and a disabled
+   [trace] and [telemetry]: phase 11's state leaves, and the same
+   device ops (kernels, copies, fills) in the CUDA graph of its loop
+   iteration, counted by node type in the kept graphs;
+   each of 24-26 reports ms per tick, ticks and ticks executed, victims
+   and restarts, trace events and drops, telemetry samples and clipped
+   rows, peak memory and count-scatter launches;
+27. faultsdemo's chaos case at n = 4 and 1,024 (its manifest's largest)
+   with its composition's [faults], [trace] and [telemetry] tables:
+   every instance ok (PASS), the victim restarted;
+28. storm at n = 300 with the compressed params under all three planes
+   (the timeline compressed with the dial window), and faultsdemo at
+   n = 300: GPU path vs CPU path, every state leaf bit-equal.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernel measurements, and ``{"ok": true, "device": {...}}``. Everything
@@ -1515,6 +1540,196 @@ def queued_class_exec(n, device):
                            device=device)
 
 
+# ------------------------------------- the fault and observer planes
+
+PLANE_KEYS = {"faults": "storm10k_faults", "trace": "storm10k_trace",
+              "telem": "storm10k_telem"}
+PLANE_TITLES = {
+    "faults": "under bench.py's 8-event fault timeline",
+    "trace": "traced (64 slots a lane)",
+    "telem": "sampled (interval 100, every probe storm can record)",
+}
+# faultsdemo's chaos case ends near tick 206; max_ticks sizes the
+# telemetry buffer (1,000 rows at interval 10)
+FAULTSDEMO_MAX_TICKS = 10_000
+FAULTSDEMO_BIG_N = 1_024  # plans/faultsdemo/manifest.toml's largest count
+
+
+def plane_phase(torch, dev, report, plane, n=10_000, chunk_ticks=32):
+    """[24]-[26] storm @ n under one plane with bench.py's table for it
+    (``faults_main``, ``trace_main``, ``telem_main``) to termination,
+    asserting what bench.py asserts; the count-scatter launches are read
+    right after the run."""
+    from testground_tpu_torch import bench
+
+    def check(res):
+        return {
+            "n": n, "plane": plane, **bench.check_plane(res, n, plane),
+            "restarts": res.restarts_total(),
+            "trace_events": res.trace_events_total(),
+            "trace_dropped": res.trace_dropped_total(),
+            "telemetry_samples": res.telemetry_samples(),
+            "telemetry_clipped": res.telemetry_clipped(),
+            "horizon_clamped": res.net_horizon_clamped(),
+            "metrics_dropped": res.metrics_dropped(),
+            "net_dropped": res.net_dropped(),
+        }
+
+    ex = bench.storm_executable(n, dev, chunk_ticks=chunk_ticks,
+                                planes=(plane,))
+    key = PLANE_KEYS[plane]
+    out, _ = case_run(torch, dev, report, key, ex, check)
+    out["wheel"] = not ex.program.net_spec.fixed_next_tick
+    launches = out["launches"]["count_scatter"]
+    log(f"  storm@{n:,d} {PLANE_TITLES[plane]}: {out['ok']:,d} ok in "
+        f"{out['ticks']} ticks ({out['ticks_executed']} executed), "
+        f"{out['wall_seconds']:.3f} s wall ({out['ms_per_tick']:.2f} "
+        f"ms/tick); victims {out.get('victims', 0)}, restarts "
+        f"{out['restarts']}; trace events {out['trace_events']:,d}, dropped "
+        f"{out['trace_dropped']:,d}; telemetry samples "
+        f"{out['telemetry_samples']}, clipped {out['telemetry_clipped']}; "
+        f"peak {out['max_memory_allocated'] / 1e9:.2f} GB; count-scatter "
+        f"launches {launches} ({'wheel' if out['wheel'] else 'staging'})")
+    assert launch_bounds(out["ticks_executed"], chunk_ticks, launches), (
+        launches, out["ticks_executed"])
+    assert (out["launches"]["deliver_front"], out["launches"]["ring_merge"]
+            ) == (0, 0), out["launches"]
+    assert out["horizon_clamped"] == 0 and out["metrics_dropped"] == 0
+    assert out["wheel"] == (plane == "faults")
+    return out
+
+
+def faultsdemo_phase(torch, dev, report, n):
+    """[27] faultsdemo's chaos case at ``n`` with its composition's
+    [faults], [trace] and [telemetry] tables: grades PASS (every
+    instance ok), the victim restarted, events and samples recorded."""
+    from testground_tpu_torch.plans import faultsdemo
+
+    def check(res):
+        st = res.statuses()[:n]
+        out = {"n": n, "ok": int((st == 1).sum()),
+               "restarts": res.restarts_total(),
+               "trace_events": res.trace_events_total(),
+               "trace_dropped": res.trace_dropped_total(),
+               "telemetry_samples": res.telemetry_samples(),
+               "telemetry_clipped": res.telemetry_clipped()}
+        assert out["ok"] == n, f"faultsdemo@{n}: {out['ok']} ok"
+        assert out["restarts"] >= 1 and out["trace_events"] > 0
+        assert out["telemetry_samples"] > 0
+        return out
+
+    out, _ = case_run(
+        torch, dev, report, f"faultsdemo{n}",
+        faultsdemo.chaos_executable(n, dev, chunk_ticks=32,
+                                    max_ticks=FAULTSDEMO_MAX_TICKS), check)
+    log(f"  faultsdemo chaos@{n:,d}: PASS, {out['ok']} ok in "
+        f"{out['ticks']} ticks ({out['ticks_executed']} executed), "
+        f"{out['wall_seconds']:.3f} s wall; restarts {out['restarts']}, "
+        f"trace events {out['trace_events']:,d} (dropped "
+        f"{out['trace_dropped']:,d}), samples {out['telemetry_samples']}; "
+        f"launches {out['launches']}")
+    return out
+
+
+def planes_storm_exec(n, device):
+    """storm with ``__graft_entry__``'s compressed params under all three
+    planes: bench.py's fault timeline compressed with the dial window,
+    64-slot rings, samples every 10 ticks (max 2,000 ticks)."""
+    from testground_tpu_torch import bench, graft
+    from testground_tpu_torch.plans import benchmarks
+    from testground_tpu_torch.sim import (
+        BuildContext, GroupSpec, SimConfig, compile_program,
+    )
+
+    params = dict(graft.STORM_PARAMS, **bench.FAULT_PARAMS)
+    scale = graft.STORM_PARAMS["conn_delay_ms"] / bench.PARAMS["conn_delay_ms"]
+    ctx = BuildContext(
+        [GroupSpec("single", 0, n, {k: str(v) for k, v in params.items()})],
+        test_case="storm", test_run="chip-smoke")
+    cfg = SimConfig(quantum_ms=10.0, max_ticks=2_000, chunk_ticks=32,
+                    phase_gating=True)
+    return compile_program(benchmarks.storm, ctx, cfg, device=device,
+                           faults=bench.fault_timeline(scale),
+                           trace={"capacity": bench.TRACE_CAPACITY},
+                           telemetry={"interval": 10})
+
+
+# cudaGraphNodeType values (CUDA runtime API)
+GRAPH_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host",
+                    4: "graph", 5: "empty"}
+
+
+def graph_node_counts(torch, ex):
+    """The nodes of the CUDA graph ``SimExecutable.stepper`` captures for
+    ``ex`` (one loop iteration and its copy back into the state), by
+    type: what every replay launches. Read from the kept graph with the
+    CUDA runtime's ``cudaGraphGetNodes`` / ``cudaGraphNodeGetType``."""
+    import ctypes
+
+    from testground_tpu_torch.sim import core
+
+    st = ex.init_state()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(core.STEPPER_WARMUP):
+            ex.guarded_tick(st)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    ins = list(core._leaves(st))
+    with torch.cuda.graph(graph):
+        out = ex.guarded_tick(st)
+        for dst, src in zip(ins, core._leaves(out)):
+            dst.copy_(src)
+    rt = ctypes.CDLL(f"libcudart.so.{torch.version.cuda.split('.')[0]}")
+
+    def call(fn, *args):
+        rc = getattr(rt, fn)(*args)
+        if rc != 0:
+            raise RuntimeError(f"{fn} returned CUDA error {rc}")
+
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    call("cudaGraphGetNodes", g, None, ctypes.byref(count))
+    nodes = (ctypes.c_void_p * count.value)()
+    call("cudaGraphGetNodes", g, nodes, ctypes.byref(count))
+    kinds: dict = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        call("cudaGraphNodeGetType", ctypes.c_void_p(node),
+             ctypes.byref(kind))
+        name = GRAPH_NODE_TYPES.get(kind.value, str(kind.value))
+        kinds[name] = kinds.get(name, 0) + 1
+    return kinds
+
+
+def zero_overhead_phase(torch, report, dev, storm_ms):
+    """The planes' zero-overhead promise on the card: storm @ 10k with an
+    empty [faults], a disabled [trace] and a disabled [telemetry] builds
+    phase 11's state leaves, and the loop iteration its stepper captures
+    holds the same device ops (kernels, copies and fills, the nodes of
+    its CUDA graph) as phase 11's; its profile window beside phase
+    11b's."""
+    from testground_tpu_torch import bench
+
+    off = bench.storm_executable(10_000, dev, planes=bench.PLANES, off=True)
+    plain = storm_exec(10_000, dev, False)
+    assert (off.faults, off.trace, off.telemetry) == (None, None, None)
+    assert bench.same_leaves(off, plain)
+    counts = {k: graph_node_counts(torch, ex)
+              for k, ex in (("storm10k", plain), ("planes_off", off))}
+    report["planes_off_graph_nodes"] = counts
+    log(f"  captured loop iteration: planes off {counts['planes_off']}, "
+        f"phase 11's storm {counts['storm10k']}")
+    assert counts["planes_off"] == counts["storm10k"], counts
+    assert counts["storm10k"]["kernel"] > 1_000, counts
+    prof = profile_phase(torch, report, "storm10k_planes_off_profile", off,
+                         storm_ms)
+    log(f"  profile window: {prof['device_ops_per_tick']:.1f} device "
+        "ops/tick (phase 11b's count moves by a few ops a tick from run "
+        "to run)")
+
+
 def main() -> int:
     import torch
 
@@ -1707,6 +1922,50 @@ def main() -> int:
     report["classdials300_parity"]["gpu_ring_merge_launches"] = merges
     log(f"  ring-merge kernel launches on the card's run: {merges}")
     assert merges > 0, "the queued program ran no ring merge on the card"
+
+    from testground_tpu_torch import bench as tb
+
+    log("[24] storm @ 10,000 under bench.py's 8-event fault timeline")
+    faulted = plane_phase(torch, dev, report, "faults")
+    log("[24b] faulted storm@10k tick under torch.profiler (inside the "
+        "degrade windows)")
+    profile_phase(torch, report, "storm10k_faults_profile",
+                  tb.storm_executable(10_000, dev, planes=("faults",)),
+                  faulted["ms_per_executed_tick"], warm_ticks=150)
+    log("[25] storm @ 10,000 traced (capacity 64)")
+    traced = plane_phase(torch, dev, report, "trace")
+    log("[25b] traced storm@10k tick under torch.profiler")
+    profile_phase(torch, report, "storm10k_trace_profile",
+                  tb.storm_executable(10_000, dev, planes=("trace",)),
+                  traced["ms_per_executed_tick"])
+    log("[26] storm @ 10,000 sampled (interval 100)")
+    sampled_storm = plane_phase(torch, dev, report, "telem")
+    log("[26b] sampled storm@10k tick under torch.profiler, and the "
+        "whole-state passes with and without the sample buffer")
+    telem_ex = tb.storm_executable(10_000, dev, planes=("telem",))
+    profile_phase(torch, report, "storm10k_telem_profile", telem_ex,
+                  sampled_storm["ms_per_executed_tick"])
+    state_pass_phase(torch, report, "storm10k_telem_state_passes", telem_ex)
+    state_pass_phase(torch, report, "storm10k_state_passes",
+                     storm_exec(10_000, dev, False))
+    del telem_ex
+    log("[26c] storm @ 10,000 with every plane's table off: phase 11's "
+        "leaves and device ops a tick")
+    zero_overhead_phase(torch, report, dev, storm["ms_per_executed_tick"])
+    log(f"[27] faultsdemo chaos @ 4 and @ {FAULTSDEMO_BIG_N:,d} with its "
+        "composition's [faults], [trace] and [telemetry]")
+    for n in (4, FAULTSDEMO_BIG_N):
+        faultsdemo_phase(torch, dev, report, n)
+    log("[28] storm with all three planes and faultsdemo @ 300: GPU vs CPU")
+    parity_phase(np, dev, report, "storm300_planes_parity", planes_storm_exec)
+    from testground_tpu_torch.plans import faultsdemo as tdemo
+
+    parity_phase(np, dev, report, "faultsdemo300_parity",
+                 lambda n, d: tdemo.chaos_executable(
+                     n, d, chunk_ticks=32, max_ticks=2_000))
+    report["plane_count_scatter_launches"] = {
+        p: report[k]["launches"]["count_scatter"]
+        for p, k in PLANE_KEYS.items()}
 
     front_row = next(r for r in rows if r["n"] == 10_000
                      and r["regime"] == "mixed")

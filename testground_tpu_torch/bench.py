@@ -1,8 +1,12 @@
 """Storm at 10,000 instances on the card: the port's counterpart of
-``bench.py``'s headline; and with ``--skip``, ``TG_BENCH_SKIP``'s
-event-skip run of the sparse-timer plan.
+``bench.py``'s headline; with ``--skip``, ``TG_BENCH_SKIP``'s event-skip
+run of the sparse-timer plan; with ``--faults``, ``--trace`` or
+``--telem``, ``TG_BENCH_FAULTS``', ``TG_BENCH_TRACE``'s and
+``TG_BENCH_TELEM``'s runs of storm under the fault, trace and telemetry
+planes.
 
-    python -m testground_tpu_torch.bench [--shaped | --skip]
+    python -m testground_tpu_torch.bench [--shaped | --skip | --faults |
+                                          --trace | --telem]
 
 Runs the storm plan (testground_tpu_torch/plans/benchmarks.py) with
 ``bench.py``'s ``PARAMS`` and ``SimConfig`` (10 ms quantum, max 100,000
@@ -24,6 +28,20 @@ dense run's on every leaf but the skip's own (``ticks_executed`` and the
 occupancy counts, ``EVENT_SKIP_STATE_LEAVES``). Prints both walls and
 the executed/simulated tick ratio.
 
+With ``--faults``, ``--trace`` or ``--telem``: storm at 10,000 without
+the plane, then under it, each to termination, with the plane-off build
+first checked to have the plain build's state leaves (an empty
+``[faults]``, a disabled ``[trace]`` or ``[telemetry]``). ``--faults``:
+``PARAMS`` with churn-tolerant rendezvous, 3 SYN retries and a 1 s
+timeout, under ``FAULT_EVENTS`` (three degrade windows, a partition and
+its heal, two 1% kills, one restart); asserts no timeout, at least one
+restart, the still-dead victims crashed and every survivor ok.
+``--trace``: a 64-slot ring a lane; asserts every instance ok and
+events recorded. ``--telem``: interval 100, every probe storm can
+record; asserts every instance ok and samples taken. Each prints one
+JSON line with ``bench.py``'s fields for the plane (its HLO-identity
+field becomes the leaf-set check).
+
 The other builders here (``barrier_executable``, ``subtree_executable``)
 are those of ``testground_tpu_torch.tools.bench_barrier`` and
 ``bench_subtree``; ``splitbrain_executable`` builds the splitbrain
@@ -40,6 +58,7 @@ from .plans import benchmarks, splitbrain
 from .sim import BuildContext, GroupSpec, SimConfig, compile_program
 from .sim.core import EVENT_SKIP_STATE_LEAVES
 from .sim.state_io import compare_leaves, flatten, state_to_numpy
+from .sim.tables import Faults, Telemetry, Trace
 
 N = 10_000  # bench.py's instance count
 CHUNK_TICKS = 32  # ticks a loop chunk, between host reads of the end
@@ -61,20 +80,86 @@ SHAPED_PARAMS = {
 }
 
 
-def _case_executable(case, n, params, cfg, device, plan=benchmarks):
+# bench.py faults_main's knobs: survivors rendezvous past the kills and
+# keep dialing through the windows
+FAULT_PARAMS = {"churn_tolerant": 1, "dial_retries": 3,
+                "dial_timeout_ms": 1_000}
+# bench.py faults_main's 8-event timeline
+FAULT_EVENTS = [
+    {"kind": "degrade", "at_ms": 1_000, "until_ms": 3_000,
+     "a": "single", "b": "single", "latency_ms": 20},
+    {"kind": "degrade", "at_ms": 2_000, "until_ms": 4_000,
+     "a": "single", "b": "single", "loss_pct": 2},
+    {"kind": "degrade", "at_ms": 3_000, "until_ms": 5_000,
+     "a": "single", "b": "single", "jitter_ms": 5},
+    {"kind": "partition", "at_ms": 5_000, "a": "single", "b": "single"},
+    {"kind": "heal", "at_ms": 5_500, "a": "single", "b": "single"},
+    {"kind": "kill", "at_ms": 6_000, "group": "single", "fraction": 0.01},
+    {"kind": "kill", "at_ms": 7_000, "group": "single", "fraction": 0.01},
+    {"kind": "restart", "at_ms": 9_000, "group": "single"},
+]
+TRACE_CAPACITY = 64  # TG_BENCH_TRACE_CAP's default
+TELEM_INTERVAL = 100  # TG_BENCH_TELEM_INTERVAL's default
+PLANES = ("faults", "trace", "telem")
+
+
+def fault_timeline(scale: float = 1.0) -> dict:
+    """``FAULT_EVENTS`` as a ``[faults]`` dict, every time multiplied by
+    ``scale`` (the tests compress it with storm's dial window)."""
+    out = []
+    for ev in FAULT_EVENTS:
+        ev = dict(ev)
+        for k in ("at_ms", "until_ms"):
+            if k in ev:
+                ev[k] = ev[k] * scale
+        out.append(ev)
+    return {"events": out}
+
+
+def plane_tables(plane, off=False) -> dict:
+    """``compile_program``'s keyword for one plane's table: bench.py's
+    (``off``: an empty ``[faults]``, a disabled ``[trace]`` or
+    ``[telemetry]``, which must build the plain program)."""
+    if plane == "faults":
+        return {"faults": Faults() if off
+                else Faults.from_dict(fault_timeline())}
+    if plane == "trace":
+        return {"trace": Trace(enabled=not off, capacity=TRACE_CAPACITY)}
+    if plane == "telem":
+        return {"telemetry": Telemetry(enabled=not off,
+                                       interval=TELEM_INTERVAL)}
+    raise ValueError(f"unknown plane {plane!r}; expected one of {PLANES}")
+
+
+def _case_executable(case, n, params, cfg, device, plan=benchmarks,
+                     **tables):
     """The ``plan`` module's ``case`` at ``n`` instances in one group with
-    ``params``, built with ``cfg`` on ``device``."""
+    ``params``, built with ``cfg`` on ``device`` (``tables``: the
+    ``faults``/``trace``/``telemetry`` tables)."""
     ctx = BuildContext(
         [GroupSpec("single", 0, n, {k: str(v) for k, v in params.items()})],
         test_case=case,
         test_run="bench",
     )
-    return compile_program(plan.testcases[case], ctx, cfg, device=device)
+    return compile_program(plan.testcases[case], ctx, cfg, device=device,
+                           **tables)
 
 
-def storm_executable(n, device="cuda", shaped=False, chunk_ticks=CHUNK_TICKS):
-    """bench.py's storm executable at ``n`` instances on ``device``."""
+def storm_executable(n, device="cuda", shaped=False, chunk_ticks=CHUNK_TICKS,
+                     planes=(), off=False, fault_params=None):
+    """bench.py's storm executable at ``n`` instances on ``device``;
+    ``planes`` (of "faults", "trace", "telem") add those planes' bench
+    tables (``off``: their empty or disabled forms), and
+    ``fault_params`` (by default: an active fault plane)
+    ``FAULT_PARAMS``."""
     params = dict(PARAMS, **(SHAPED_PARAMS if shaped else {}))
+    tables = {}
+    for plane in planes:
+        tables.update(plane_tables(plane, off))
+    if fault_params is None:
+        fault_params = "faults" in planes and not off
+    if fault_params:
+        params.update(FAULT_PARAMS)
     cfg = SimConfig(
         quantum_ms=10.0,
         chunk_ticks=chunk_ticks,
@@ -86,7 +171,7 @@ def storm_executable(n, device="cuda", shaped=False, chunk_ticks=CHUNK_TICKS):
         cfg.churn_fraction = 0.02
         cfg.churn_start_ms = 5_000.0
         cfg.churn_end_ms = 20_000.0
-    ex = _case_executable("storm", n, params, cfg, device)
+    ex = _case_executable("storm", n, params, cfg, device, **tables)
     if shaped:
         assert not ex.program.net_spec.fixed_next_tick, (
             "shaped storm must exercise the wheel path")
@@ -205,6 +290,49 @@ def check(res, n, shaped):
     return out
 
 
+def check_plane(res, n, plane):
+    """bench.py's assertions on a storm run under ``plane``; returns a
+    summary. ``faults``: no timeout, at least one restart, the
+    still-dead victims (a rejoin clears its lane's kill_tick) crashed
+    and every survivor, the restarted included, ok. ``trace``: all ok,
+    events recorded. ``telem``: all ok, samples taken."""
+    statuses = res.statuses()[:n]
+    out = {"ok": int((statuses == 1).sum())}
+    if plane == "faults":
+        assert not res.timed_out(), (
+            f"faulted storm stalled at {res.ticks} ticks")
+        still_dead = res.state["kill_tick"].cpu().numpy()[:n] >= 0
+        restarted = int(res.state["restarts"].cpu().numpy()[:n].sum())
+        assert restarted >= 1, "restart event never fired"
+        assert (statuses[still_dead] == 3).all(), "dead victim not crashed"
+        assert (statuses[~still_dead] == 1).all(), "survivor not ok"
+        out.update(victims=int(still_dead.sum()) + restarted,
+                   restarted=restarted, still_dead=int(still_dead.sum()))
+    else:
+        assert out["ok"] == n, f"only {out['ok']}/{n} ok"
+    if plane == "trace":
+        out.update(trace_events=res.trace_events_total(),
+                   trace_dropped=res.trace_dropped_total())
+        assert out["trace_events"] > 0, "traced storm recorded no events"
+    if plane == "telem":
+        spec = res.executable.telemetry
+        out.update(telemetry_samples=res.telemetry_samples(),
+                   telemetry_clipped=res.telemetry_clipped(),
+                   sample_points=res.telemetry_samples()
+                   * (spec.k_lane * n + len(spec.glob)))
+        assert out["telemetry_samples"] > 0, "sampled storm took no samples"
+    return out
+
+
+def same_leaves(a, b) -> bool:
+    """The two executables build the same state leaves (names, shapes,
+    dtypes): the port's form of the planes' zero-overhead promise."""
+    fa, fb = (flatten(state_to_numpy(ex.init_state())) for ex in (a, b))
+    return set(fa) == set(fb) and all(
+        fa[k].shape == fb[k].shape and fa[k].dtype == fb[k].dtype
+        for k in fa)
+
+
 def device_line() -> str:
     """``name, power limit`` of the card as nvidia-smi gives them."""
     proc = subprocess.run(
@@ -241,14 +369,84 @@ def skip_main() -> int:
     return 0
 
 
+_PLANE_LINE = {
+    # plane: (metric, on/off ms keys, ticks read)
+    "faults": (f"fault-plane tick overhead at {N} instances (8-event "
+               "timeline)", "baseline_ms_per_tick", "faulted_ms_per_tick",
+               "ticks"),
+    "trace": (f"trace-plane tick overhead at {N} instances (capacity "
+              f"{TRACE_CAPACITY})", "untraced_ms_per_tick",
+              "traced_ms_per_tick", "ticks_executed"),
+    "telem": (f"telemetry-plane tick overhead at {N} instances (interval "
+              f"{TELEM_INTERVAL})", "unsampled_ms_per_tick",
+              "sampled_ms_per_tick", "ticks_executed"),
+}
+
+
+def plane_main(plane) -> int:
+    """storm at ``N`` without ``plane`` (its empty or disabled table),
+    then under it; one JSON line of bench.py's fields for the plane."""
+    # the baseline keeps the plane's params (bench.py's, too)
+    fp = plane == "faults"
+    ex_off = storm_executable(N, "cuda", planes=(plane,), off=True,
+                              fault_params=fp)
+    plain = storm_executable(N, "cuda", fault_params=fp)
+    assert same_leaves(ex_off, plain), f"an off [{plane}] table added state"
+    del plain
+    runs = {}
+    for off in (True, False):
+        ex = ex_off if off else storm_executable(N, "cuda", planes=(plane,))
+        ex.tick_fn()  # built before the clock starts
+        runs[off] = ex.run()
+    base, res = runs[True], runs[False]
+    summary = check_plane(res, N, plane)
+    metric, k_off, k_on, ticks = _PLANE_LINE[plane]
+    ms = {off: r.wall_seconds * 1e3 / max(1, getattr(r, ticks))
+          for off, r in runs.items()}
+    line = {
+        "metric": metric,
+        "value": (ms[False] - ms[True]) / ms[True] * 100.0,
+        "unit": "percent",
+        "vs_baseline": None,
+        "leaves_identical_when_off": True,
+        k_off: ms[True],
+        k_on: ms[False],
+    }
+    if plane == "faults":
+        line.update(baseline_ticks=base.ticks, faulted_ticks=res.ticks,
+                    victims=summary["victims"],
+                    restarted=summary["restarted"])
+    elif plane == "trace":
+        line.update(trace_events=summary["trace_events"],
+                    trace_dropped=summary["trace_dropped"],
+                    events_per_sec=summary["trace_events"]
+                    / max(res.wall_seconds, 1e-9),
+                    traced_wall_seconds=res.wall_seconds)
+    else:
+        line.update(telemetry_samples=summary["telemetry_samples"],
+                    telemetry_clipped=summary["telemetry_clipped"],
+                    sample_points=summary["sample_points"],
+                    samples_per_sec=summary["telemetry_samples"]
+                    / max(res.wall_seconds, 1e-9),
+                    sampled_wall_seconds=res.wall_seconds)
+    line["device"] = device_line()
+    print(json.dumps(line))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--shaped", action="store_true")
     mode.add_argument("--skip", action="store_true")
+    for plane in PLANES:
+        mode.add_argument(f"--{plane}", action="store_true")
     args = ap.parse_args(argv)
     if args.skip:
         return skip_main()
+    for plane in PLANES:
+        if getattr(args, plane):
+            return plane_main(plane)
     ex = storm_executable(N, "cuda", args.shaped)
     ex.tick_fn()  # built before the clock starts
     res = ex.run()

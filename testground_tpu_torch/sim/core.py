@@ -31,7 +31,14 @@ executed tick is followed by a jump of ``tick`` to the next event
 the jump is guarded like the tick. ``phase_gating`` runs the same
 ungated step (the JAX package's gated step is bit-identical to it, and
 its per-phase ``lax.cond`` would cost a host read per phase in eager
-torch). Faults, trace, telemetry, replay and sweep raise
+torch).
+
+The fault plane (sim/faults.py) adds the rejoin of restarted lanes and
+its kills before the step, and its window overlay to ``net.deliver``;
+the trace (sim/trace.py) and telemetry (sim/telemetry.py) planes hook
+the tick's sites in the JAX package's order. Each plane is a Python
+branch on its compiled spec, so without one a tick builds the same
+state and runs the same ops. Replay and sweep raise
 ``NotImplementedError`` naming the ROADMAP.md module that ports them.
 """
 
@@ -46,12 +53,16 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import faults as faultsmod
 from . import net as netmod
 from . import prng
+from . import telemetry as telemetrymod
+from . import trace as tracemod
 from .context import BuildContext
 from .deliver_front import eligible as front_eligible
 from .program import (
     CRASHED,
+    DONE_FAIL,
     DONE_OK,
     PAD,
     Program,
@@ -80,7 +91,11 @@ class SimConfig:
     phase_gating: bool = False
     pallas_front: Optional[bool] = None
     event_skip: Optional[bool] = None
-    fused_observers: bool = True  # a no-op without observer planes
+    # the fused observer lowering: one drop-cause lattice a tick feeds
+    # the trace (one EV_DROP append) and telemetry (one net_drops add)
+    # planes, and the kill/restart pair is one CAT_FAULT append; False
+    # keeps the per-cause emits (the same records and counts)
+    fused_observers: bool = True
     slices: int = 1
 
 
@@ -111,10 +126,15 @@ def merge_kill_ticks(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     ).astype(np.int32)
 
 
-def live_lanes(st: dict):
-    """Lanes that keep the run alive: RUNNING instances (CRASHED lanes
-    with a scheduled restart belong to the fault plane, not ported)."""
-    return st["status"] == RUNNING
+def live_lanes(st: dict, has_restarts: bool = False):
+    """Lanes that keep the run alive: RUNNING instances, and under a
+    fault plane with restart events the CRASHED ones whose rejoin is
+    still scheduled (the run idles forward to the restart)."""
+    live = st["status"] == RUNNING
+    if has_restarts:
+        live = live | ((st["status"] == CRASHED)
+                       & (st["faults"]["restart_tick"] >= 0))
+    return live
 
 
 # "no scheduled event" sentinel of the event-horizon min (int32 max)
@@ -125,15 +145,17 @@ _EV_NEVER = 2**31 - 1
 EVENT_SKIP_STATE_LEAVES = ("ticks_executed", "staging_cnt", "wheel_occ")
 
 
-def next_event_tick(out: dict, nt):
+def next_event_tick(out: dict, nt, has_restarts: bool = False,
+                    fault_plan=None, telem_spec=None):
     """The event-horizon min: the earliest tick >= ``nt`` at which the
     post-tick state ``out`` can evolve (every tick before it is provably
-    an identity), from the terms that exist without faults, replay or
-    telemetry: RUNNING lanes wake at max(blocked_until, nt), pending
-    kills land at max(kill_tick, nt), a queued egress send can leave on
-    any tick, an occupied staging row drains at ``nt``, and the delay
-    wheel's earliest occupied bucket drains at its tick. ``nt`` when no
-    lane lives."""
+    an identity): RUNNING lanes wake at max(blocked_until, nt), pending
+    kills land at max(kill_tick, nt), pending restarts at
+    max(restart_tick, nt), a fault window opens or closes at its
+    boundary, a queued egress send can leave on any tick, an occupied
+    staging row drains at ``nt``, the delay wheel's earliest occupied
+    bucket drains at its tick, and a telemetry sample is taken at its
+    boundary. ``nt`` when no lane lives."""
     run_m = out["status"] == RUNNING
     never = torch.full_like(out["blocked_until"], _EV_NEVER)
     ev = torch.min(
@@ -145,6 +167,13 @@ def next_event_tick(out: dict, nt):
         torch.min(torch.where(kill_p, torch.maximum(out["kill_tick"], nt),
                               never)),
     )
+    if has_restarts:
+        rt = out["faults"]["restart_tick"]
+        rj = (out["status"] == CRASHED) & (rt >= 0)
+        ev = torch.minimum(
+            ev, torch.min(torch.where(rj, torch.maximum(rt, nt), never)))
+    if fault_plan is not None and fault_plan.has_windows:
+        ev = torch.minimum(ev, faultsmod.next_boundary(out["faults"], nt))
     nst = out.get("net", {})
     if "pend_dest" in nst:
         ev = torch.minimum(
@@ -161,7 +190,10 @@ def next_event_tick(out: dict, nt):
             torch.arange(W, dtype=torch.int32, device=nt.device) - nt, W)
         mo = torch.min(torch.where(nst["wheel_occ"] > 0, offs, W))
         ev = torch.minimum(ev, torch.where(mo < W, nt + mo, _EV_NEVER))
-    live_any = torch.any(live_lanes(out))
+    if telem_spec is not None:
+        ev = torch.minimum(ev, telemetrymod.next_boundary_tick(telem_spec,
+                                                               nt))
+    live_any = torch.any(live_lanes(out, has_restarts))
     return torch.where(live_any, torch.maximum(ev, nt), nt)
 
 
@@ -284,10 +316,9 @@ def _check_phase_net_ctrl(ctrl, spec, phase_name: str) -> None:
 # (name, kind, static default). Kinds: "i" int32, "f" float32, "pay"
 # net payload vector, "tpay" topic payload vector, "rule" pair-rule row
 # ([N], all -1 by default; [1] zeros without pair rules), "crule"
-# class-rule row (likewise [C]). Fields of planes the port does not run
-# (trace, telemetry, replay) must stay at their defaults; the build-time
-# probe rejects a phase that sets them, naming the ROADMAP.md item that
-# ports them.
+# class-rule row (likewise [C]). The trace and telemetry fields are
+# carried only under their plane (without it the JAX package's XLA
+# drops them as dead code).
 _FIELDS = (
     ("advance", "i", 0),
     ("jump", "i", -1),
@@ -321,14 +352,21 @@ _FIELDS = (
     ("rule_row", "rule", None),
     ("net_class", "i", -1),
     ("class_rule_row", "crule", None),
+    ("trace_code", "i", -1),
+    ("trace_a0", "i", 0),
+    ("trace_a1", "i", 0),
+    ("observe_hist", "i", -1),
+    ("observe_value", "f", 0.0),
+    ("count_add", "i", 0),
+    ("gauge_set", "i", 0),
+    ("gauge_value", "f", 0.0),
 )
 _VECTOR_KINDS = ("pay", "tpay", "rule", "crule")
-# the observer planes' fields (ROADMAP.md item 9), with their defaults
-_UNPORTED_FIELDS = (
-    ("trace_code", -1), ("trace_a0", 0), ("trace_a1", 0),
-    ("observe_hist", -1), ("observe_value", 0.0), ("count_add", 0),
-    ("gauge_set", 0), ("gauge_value", 0.0), ("replay_consume", 0),
-)
+_TRACE_FIELDS = ("trace_code", "trace_a0", "trace_a1")
+_TELEM_FIELDS = ("observe_hist", "observe_value", "count_add", "gauge_set",
+                 "gauge_value")
+# the replay plane's field (ROADMAP.md item 9), with its default
+_UNPORTED_FIELDS = (("replay_consume", 0),)
 
 
 def _topic_append(buf, mask, pos0, payloads, pay):
@@ -410,19 +448,16 @@ class SimExecutable:
         replay=None,
     ) -> None:
         self.device = resolve_device(device)
-        for plane, val, module, title in (
-            ("[faults]", faults, 8, "fault plane"),
-            ("[trace]", trace, 9, "observer planes"),
-            ("[telemetry]", telemetry, 9, "observer planes"),
-            ("[replay]", replay, 9, "observer planes"),
-        ):
-            if val is not None:
-                raise _not_ported(f"the {plane} plane", module, title)
+        if replay is not None:
+            raise _not_ported("the [replay] plane", 9,
+                              "replay, drain and the election plan")
         if config.slices > 1:
             raise _not_ported("SimConfig.slices > 1", 12, "multi-GPU")
         self.program = program
         self.ctx = ctx
         self.config = config
+        # the trace plane: a compiled TraceSpec or None
+        self.trace = trace
         if (
             config.churn_fraction > 0
             and config.churn_end_ms <= config.churn_start_ms
@@ -434,6 +469,35 @@ class SimExecutable:
                 f"{config.churn_fraction}; the window is [start, end) — "
                 "set churn_end_ms > churn_start_ms"
             )
+        # the fault plane: a compiled FaultPlan or None. Window rows
+        # overlay the data plane, and degrade magnitudes force the
+        # shaping capabilities the overlay adds to
+        self.faults = faults
+        if faults is not None and faults.has_windows:
+            if program.net_spec is None:
+                raise ValueError(
+                    "[faults] declares partition/degrade windows but the "
+                    "plan never enables the network data plane — there "
+                    "is no traffic to shape. Use enable_net()/"
+                    "configure_network in the plan, or restrict the "
+                    "schedule to kill/restart events."
+                )
+            forced = {
+                k: True
+                for k, v in faults.shaping_needs().items()
+                if v and not getattr(program.net_spec, k)
+            }
+            if forced:
+                self.program = program = dataclasses.replace(
+                    program,
+                    net_spec=dataclasses.replace(program.net_spec, **forced),
+                )
+        # the telemetry plane, compiled after the fault plane forced its
+        # capabilities (probe applicability reads the net statics)
+        self.telemetry = telemetrymod.compile_telemetry(
+            telemetry, ctx, program.net_spec, config,
+            has_fault_windows=faults is not None and faults.has_windows,
+        )
         self.params = params or {}
         self.n = ctx.padded_n
         if config.event_skip is True and config.pallas_front is True:
@@ -449,6 +513,26 @@ class SimExecutable:
             else bool(config.event_skip)
         )
         if config.pallas_front is True:
+            # every observer or fault plane hooks the drop-cause mask
+            # chain the fused kernel owns: one raise names them all
+            conflicts = []
+            if faults is not None and faults.has_windows:
+                conflicts.append("[faults] (partition/degrade schedule)")
+            if trace is not None:
+                conflicts.append("[trace]")
+            if self.telemetry is not None:
+                conflicts.append("[telemetry]")
+            if conflicts:
+                raise ValueError(
+                    "SimConfig.pallas_front=True cannot compose with "
+                    + ", ".join(conflicts)
+                    + " — the fused deliver kernel bypasses the "
+                    "drop-cause mask chain these planes hook into. "
+                    "Remove the conflicting table"
+                    + ("s" if len(conflicts) > 1 else "")
+                    + " or drop pallas_front=True to run on the "
+                    "default lowering (docs/perf.md \"Compile cost\")."
+                )
             elig = program.net_spec is not None and front_eligible(
                 program.net_spec, self.n
             )
@@ -471,12 +555,19 @@ class SimExecutable:
         spec = program.net_spec
         if spec is not None:
             netmod.check_supported(spec)
-        if self.event_skip and spec is not None and not spec.store_entries:
-            # the jump's min reads the staging / wheel occupancy counts
+        if (
+            (self.event_skip
+             or (self.telemetry is not None
+                 and "wheel_occ" in self.telemetry.glob))
+            and spec is not None and not spec.store_entries
+        ):
+            # the jump's min, and the wheel_occ gauge, read the staging /
+            # wheel occupancy counts
             self.program = program = dataclasses.replace(
                 program,
                 net_spec=dataclasses.replace(spec, track_occupancy=True),
             )
+        self.has_restarts = faults is not None and faults.has_restarts
         self._tick_fn = None
 
     # ------------------------------------------------------ initial state
@@ -493,7 +584,11 @@ class SimExecutable:
             for name, (shape, dtype, init) in prog.mem_spec.items()
         }
         status0 = np.where(ctx.group_ids >= 0, RUNNING, PAD).astype(np.int32)
+        # the churn schedule, with the fault plane's kills merged in (the
+        # earliest scheduled death wins)
         kill_tick = churn_kill_tick(cfg, ctx.group_ids)
+        if self.faults is not None and self.faults.has_kills:
+            kill_tick = merge_kill_ticks(kill_tick, self.faults.kill_tick)
 
         def z(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
@@ -533,10 +628,28 @@ class SimExecutable:
             state["churn_pub"] = z((n, len(prog.churn_tids)), i32)
         if prog.net_spec is not None:
             state["net"] = netmod.init_net_state(n, prog.net_spec, dev)
+        # the fault plane: its window numerics and restart schedule, the
+        # restarts counter and the first-life signal ledger
+        if self.faults is not None:
+            leaves = self.faults.dynamic_leaves()
+            if leaves:
+                state["faults"] = {k: torch.as_tensor(v, device=dev)
+                                   for k, v in leaves.items()}
+            if self.has_restarts:
+                state["restarts"] = z(n, i32)
+                if prog.churn_sids:
+                    state["stale_sig"] = z(len(prog.churn_sids), i32)
         if self.event_skip:
             # executed tick_fn iterations (the gap to ``tick`` is the
             # dead time the event-horizon jump skipped)
             state["ticks_executed"] = z((), i32)
+        # the observer planes' rings and sample buffers (they survive a
+        # restart: observer state, not process state)
+        if self.trace is not None:
+            state["trace"] = tracemod.init_trace_state(n, self.trace, dev)
+        if self.telemetry is not None:
+            state["telem"] = telemetrymod.init_telemetry_state(
+                n, self.telemetry, dev)
         return state
 
     # ----------------------------------------------------------- tick fn
@@ -566,6 +679,32 @@ class SimExecutable:
         topic_caps = torch.zeros(T, dtype=torch.int32, device=dev)
         for tid, cap, _, _ in topic_specs:
             topic_caps[tid] = cap
+        # the fault and observer planes (each a Python branch below)
+        fault_plan = self.faults
+        has_restarts = self.has_restarts
+        overlay = (
+            faultsmod.Overlay(fault_plan, dev,
+                              want_rev=use_net and net_spec.uses_dials)
+            if fault_plan is not None and fault_plan.has_windows else None
+        )
+        trace_spec, telem_spec = self.trace, self.telemetry
+        trace_gmask = (
+            torch.as_tensor(np.asarray(trace_spec.group_mask, bool),
+                            device=dev)
+            if trace_spec is not None and trace_spec.group_mask is not None
+            else None
+        )
+        telem_consts = (telemetrymod.accum_consts(telem_spec, dev)
+                        if telem_spec is not None else {})
+        zero_i32 = torch.zeros((), dtype=torch.int32, device=dev)
+        # the fields the tick reads: an absent plane's are never carried
+        off = set()
+        if trace_spec is None:
+            off |= set(_TRACE_FIELDS)
+        if telem_spec is None:
+            off |= set(_TELEM_FIELDS)
+        live_fields = tuple(i for i, (name, _, _) in enumerate(_FIELDS)
+                            if name not in off)
         consts: dict = {}
 
         def const(v, dtype):
@@ -626,6 +765,7 @@ class SimExecutable:
                 crashed_total=scal,
                 dead_signals={k: scal for k in churn_sids} or None,
                 dead_pubs={k: scal for k in churn_tids} or None,
+                restarts=scal,
                 params={k: torch.zeros((), dtype=v.dtype, device=cpu)
                         for k, v in params.items()},
                 quantum_ms=quantum_ms,
@@ -650,17 +790,18 @@ class SimExecutable:
             try:
                 mem2, ctrl = phase.fn(env, dict(mem))
             except Exception:  # noqa: BLE001 — best-effort, as in JAX
-                return tuple(prog.mem_spec), tuple(range(len(_FIELDS))), {}
+                return tuple(prog.mem_spec), live_fields, {}
             _check_phase_net_ctrl(ctrl, net_spec, phase.name)
             for name, default in _UNPORTED_FIELDS:
                 if not _static_eq(getattr(ctrl, name), default):
                     raise _not_ported(
                         f"phase {phase.name!r} sets PhaseCtrl.{name}", 9,
-                        "observer planes")
+                        "replay, drain and the election plan")
             wset = tuple(k for k in mem if mem2.get(k) is not mem[k])
             dyn = tuple(
-                i for i, (name, kind, default) in enumerate(_FIELDS)
-                if not is_default(kind, getattr(ctrl, name), default)
+                i for i in live_fields
+                if not is_default(_FIELDS[i][1], getattr(ctrl, _FIELDS[i][0]),
+                                  _FIELDS[i][2])
             )
             # fields set to a Python number: the same number every tick
             static = {
@@ -728,7 +869,8 @@ class SimExecutable:
         def make_step(tick, counters, topic_len, topic_bufs, topic_head,
                       crashed_total, dead_signals, dead_pubs):
             def step_instance(pc, status, blocked_until, last_seq, mem_row,
-                              instance, group, ginst, prow, net_row, key):
+                              instance, group, ginst, prow, net_row, key,
+                              lane_extra):
                 env = TickEnv(
                     tick=tick,
                     instance=instance,
@@ -743,6 +885,7 @@ class SimExecutable:
                     crashed_total=crashed_total,
                     dead_signals=dead_signals,
                     dead_pubs=dead_pubs,
+                    restarts=lane_extra.get("restarts", zero_i32),
                     params=prow,
                     inbox=net_row.get("inbox"),
                     inbox_r=net_row.get("inbox_r"),
@@ -833,14 +976,116 @@ class SimExecutable:
                         "net_enabled", "rule_row", "class_rule_row",
                     ):
                         out[name] = ctrl[name]
+                if trace_spec is not None:
+                    out.update(
+                        trace_code=torch.where(active, ctrl["trace_code"], -1),
+                        trace_a0=ctrl["trace_a0"], trace_a1=ctrl["trace_a1"],
+                    )
+                if telem_spec is not None:
+                    out.update(
+                        observe_hist=torch.where(active, ctrl["observe_hist"],
+                                                 -1),
+                        observe_value=ctrl["observe_value"],
+                        count_add=torch.where(active, ctrl["count_add"], 0),
+                        gauge_set=torch.where(active, ctrl["gauge_set"], 0),
+                        gauge_value=ctrl["gauge_value"],
+                    )
                 return out
 
             return torch.func.vmap(step_instance)
+
+        def rejoin(st, tick, em):
+            """The fault plane's restarts, before the kill check: a
+            CRASHED lane whose restart tick came re-enters as a fresh
+            process (pc 0, fresh memory, empty inbox, the default link,
+            its kill cleared, its restarts counted); its first-life
+            signals move to the stale ledger. Mutates ``st``."""
+            ftst = st["faults"]
+            rj = (
+                (st["status"] == CRASHED)
+                & (ftst["restart_tick"] >= 0)
+                & (tick >= ftst["restart_tick"])
+            )
+            st["status"] = torch.where(rj, RUNNING, st["status"])
+            st["pc"] = torch.where(rj, 0, st["pc"])
+            st["blocked_until"] = torch.where(rj, 0, st["blocked_until"])
+            st["last_seq"] = torch.where(rj, 0, st["last_seq"])
+            st["kill_tick"] = torch.where(rj, -1, st["kill_tick"])
+            st["faults"] = {
+                **ftst,
+                "restart_tick": torch.where(rj, -1, ftst["restart_tick"]),
+            }
+            st["restarts"] = st["restarts"] + rj.to(torch.int32)
+            if em is not None and not em.fused:
+                # the rings survive the rejoin (observer state); the
+                # fused build merges this into the kill site's append
+                em.emit(tracemod.CAT_FAULT, rj, tracemod.EV_RESTART,
+                        arg0=st["restarts"])
+            st["mem"] = {
+                name: torch.where(
+                    rj.reshape((n,) + (1,) * len(shape)), init,
+                    st["mem"][name])
+                for name, (shape, dtype, init) in prog.mem_spec.items()
+            }
+            # signals are rendezvous contributions, re-made by the fresh
+            # life; topic rows are data and persist
+            if churn_sids:
+                st["stale_sig"] = st["stale_sig"] + torch.sum(
+                    torch.where(rj[:, None], st["churn_sig"], 0), dim=0,
+                    dtype=torch.int32)
+                st["churn_sig"] = torch.where(rj[:, None], 0, st["churn_sig"])
+            if use_net:
+                nrst = dict(st["net"])
+                if net_spec.store_entries:
+                    nrst["inbox_r"] = torch.where(rj, nrst["inbox_w"],
+                                                  nrst["inbox_r"])
+                else:
+                    nrst["avail"] = torch.where(rj, 0, nrst["avail"])
+                    nrst["bytes_in"] = torch.where(rj, 0.0, nrst["bytes_in"])
+                if "hs" in nrst:
+                    nrst["hs"] = torch.where(rj[:, None],
+                                             netmod._hs_empty(dev), nrst["hs"])
+                if "pend_dest" in nrst:
+                    nrst["pend_dest"] = torch.where(rj, -1, nrst["pend_dest"])
+                # the default link: the fresh plan has configured nothing
+                for k in (
+                    "eg_latency", "eg_jitter", "eg_rate", "eg_busy",
+                    "eg_loss", "eg_corrupt", "eg_reorder", "eg_duplicate",
+                    "eg_loss_corr", "eg_corrupt_corr", "eg_reorder_corr",
+                    "eg_duplicate_corr", "ar_loss", "ar_corrupt",
+                    "ar_reorder", "ar_duplicate",
+                ):
+                    if k in nrst:
+                        nrst[k] = torch.where(rj, 0.0, nrst[k])
+                nrst["net_enabled"] = torch.where(rj, 1, nrst["net_enabled"])
+                for k in ("pair_filter", "class_rules"):
+                    if k in nrst:
+                        nrst[k] = torch.where(rj[:, None], 0, nrst[k])
+                if "class_of" in nrst:
+                    nrst["class_of"] = torch.where(rj, 0, nrst["class_of"])
+                st["net"] = nrst
+            return rj
 
         def tick_fn(st: dict) -> dict:
             tick = st["tick"]
             key = prng.fold_in(base_key, tick)
             st = dict(st)
+            # this tick's observer helpers; a lane's records keep the JAX
+            # site order: restart, kill, wheel drain, lane transitions,
+            # user, sync, net send and drops
+            em = (
+                tracemod.TraceEmitter(trace_spec, st["trace"], tick, n,
+                                      fused=cfg.fused_observers,
+                                      gmask=trace_gmask)
+                if trace_spec is not None else None
+            )
+            acc = (
+                telemetrymod.TelemetryAccum(telem_spec, st["telem"], n,
+                                            fused=cfg.fused_observers,
+                                            consts=telem_consts)
+                if telem_spec is not None else None
+            )
+            rj = rejoin(st, tick, em) if has_restarts else None
             # churn BEFORE the step: a victim must not act on its kill tick
             killed_now = (
                 (st["status"] == RUNNING)
@@ -848,13 +1093,36 @@ class SimExecutable:
                 & (tick >= st["kill_tick"])
             )
             st["status"] = torch.where(killed_now, CRASHED, st["status"])
+            if em is not None:
+                if em.fused and has_restarts:
+                    # a rejoin clears kill_tick, so a lane writes at most
+                    # one of the pair a tick: one append, the same slots
+                    em.emit(
+                        tracemod.CAT_FAULT, rj | killed_now,
+                        torch.where(rj, tracemod.EV_RESTART,
+                                    tracemod.EV_KILL),
+                        arg0=torch.where(rj, st["restarts"], st["kill_tick"]),
+                    )
+                else:
+                    em.emit(tracemod.CAT_FAULT, killed_now, tracemod.EV_KILL,
+                            arg0=st["kill_tick"])
+            if acc is not None:
+                # a wake: the first executed tick at a lane's
+                # blocked_until (a rejoin resets it to 0: not a wake)
+                acc.count(
+                    "lane_wakes",
+                    (st["status"] == RUNNING) & (st["blocked_until"] > 0)
+                    & (tick == st["blocked_until"]),
+                )
             crashed = st["status"] == CRASHED
             crashed_total = torch.sum(crashed, dtype=torch.int32)
             # contributions the dead already made to churn-watched states
-            # and topics: churn barriers add these back
+            # and topics (churn barriers add these back), and the
+            # first-life signals of restarted lanes
             dead_signals = {
                 sid: torch.sum(torch.where(crashed, st["churn_sig"][:, k], 0),
                                dtype=torch.int32)
+                + (st["stale_sig"][k] if has_restarts else 0)
                 for k, sid in enumerate(churn_sids)
             } or None
             dead_pubs = {
@@ -869,7 +1137,8 @@ class SimExecutable:
                 if count_mode:
                     # this tick's bucket becomes visible before the phases
                     # read avail and bytes (deliver writes ticks >= tick+1)
-                    netst = netmod.advance_wheel(netst, net_spec, tick)
+                    netst = netmod.advance_wheel(netst, net_spec, tick,
+                                                 trace=em, telem=acc)
                     st["net"] = netst
                 avail0 = netmod.visible_prefix(netst, net_spec, tick)
                 net_row = {"inbox_avail": avail0}
@@ -889,6 +1158,7 @@ class SimExecutable:
                     net_row["filter_row"] = netst["pair_filter"]
 
             lane_keys = prng.fold_in(key, instance_ids)
+            lane_extra = {"restarts": st["restarts"]} if has_restarts else {}
             # the shared registers (counters, topics, head registers) are
             # closed over, not mapped: a phase's reduce of one runs once
             vstep = make_step(tick, st["counters"], st["topic_len"],
@@ -897,8 +1167,28 @@ class SimExecutable:
             res = vstep(
                 st["pc"], st["status"], st["blocked_until"], st["last_seq"],
                 st["mem"], instance_ids, group_ids, group_instance, params,
-                net_row, lane_keys,
+                net_row, lane_keys, lane_extra,
             )
+            pc, status, blocked = res["pc"], res["status"], res["blocked_until"]
+            if em is not None:
+                # lane transitions: BLOCK with its wake tick, PC moves,
+                # DONE; then the plan's own CAT_USER events
+                em.emit(tracemod.CAT_LANE,
+                        (blocked != st["blocked_until"]) & (blocked > tick),
+                        tracemod.EV_BLOCK, arg0=blocked)
+                em.emit(tracemod.CAT_LANE, pc != st["pc"], tracemod.EV_PC,
+                        arg0=pc, arg1=st["pc"])
+                em.emit(tracemod.CAT_LANE,
+                        (status != st["status"])
+                        & ((status == DONE_OK) | (status == DONE_FAIL)),
+                        tracemod.EV_DONE, arg0=status)
+                codes = res["trace_code"]
+                em.emit(tracemod.CAT_USER, codes >= 0, codes,
+                        arg0=res["trace_a0"], arg1=res["trace_a1"])
+            if acc is not None:
+                acc.observe(res["observe_hist"], res["observe_value"])
+                acc.count("user_count", res["count_add"])
+                acc.set_gauge(res["gauge_set"], res["gauge_value"])
 
             sig, pub = res["signal"], res["publish"]
             new_counters, sig_seq, sig_valid = _ranked_scatter(
@@ -908,6 +1198,15 @@ class SimExecutable:
                 pub, T, st["topic_len"]
             )
             pos0 = torch.where(pub_valid, pub_seq - 1, 0)  # 0-based slot
+            if em is not None:
+                # every signal_entry and publish, with its ranked seq
+                em.emit(tracemod.CAT_SYNC, sig_valid, tracemod.EV_SIGNAL,
+                        arg0=sig, arg1=sig_seq)
+                em.emit(tracemod.CAT_SYNC, pub_valid, tracemod.EV_PUBLISH,
+                        arg0=pub, arg1=pub_seq)
+            if acc is not None:
+                acc.count("sync_signals", sig_valid)
+                acc.count("sync_publishes", pub_valid)
             topic_bufs = dict(st["topic_bufs"])
             topic_head = dict(st["topic_head"])
             stream_viol = st["stream_violations"]
@@ -951,13 +1250,12 @@ class SimExecutable:
                 st["metrics_buf"], st["metrics_cnt"], st["metrics_dropped"],
                 mids >= 0, rec,
             )
-            status = res["status"]
             out = {
                 "tick": tick + 1,
                 "kill_tick": st["kill_tick"],
-                "pc": res["pc"],
+                "pc": pc,
                 "status": status,
-                "blocked_until": res["blocked_until"],
+                "blocked_until": blocked,
                 "last_seq": last_seq,
                 "counters": new_counters,
                 "topic_len": new_topic_len,
@@ -994,16 +1292,59 @@ class SimExecutable:
                     reorder_corr_pct=res["net_reorder_corr"],
                     duplicate_corr_pct=res["net_duplicate_corr"],
                 )
+                # the fault overlay composes after the plan's writes, so
+                # a plan cannot clear it
+                fault_arg = (overlay(st["faults"], tick, group_ids,
+                                     res["send_dest"])
+                             if overlay is not None else None)
                 nst = netmod.deliver(
                     nst, net_spec, tick, prng.fold_in(key, 7),
                     res["send_dest"], res["send_tag"], res["send_port"],
                     res["send_size"], res["send_payload"],
                     status == RUNNING, hs_clear=res["hs_clear"],
+                    fault=fault_arg, trace=em, telem=acc,
                 )
                 nst = netmod.consume(nst, net_spec, tick, res["recv_count"],
                                      prefix=avail0)
                 out["net"] = nst
+            # the fault plane's leaves carry this tick's rejoin updates
+            for k in ("faults", "restarts", "stale_sig"):
+                if k in st:
+                    out[k] = st[k]
+            if em is not None:
+                out["trace"] = em.state
+            if acc is not None:
+                out["telem"] = boundary(acc, out, tick, status, blocked)
             return out
+
+        def boundary(acc, out, tick, status, blocked):
+            """The telemetry sample boundary at the end of the tick, its
+            gauges read from the post-tick state."""
+            lane_g, glob_g = {}, {}
+            if "inbox_depth" in telem_spec.gauges:
+                nst2 = out["net"]
+                lane_g["inbox_depth"] = (
+                    nst2["inbox_w"] - nst2["inbox_r"]
+                    if net_spec.store_entries else nst2["avail"])
+            if "user_gauge" in telem_spec.gauges:
+                lane_g["user_gauge"] = acc.state["gauge_reg"]
+            run_m = status == RUNNING
+            if "live_lanes" in telem_spec.glob:
+                glob_g["live_lanes"] = torch.sum(run_m, dtype=torch.int32)
+            if "blocked_frac" in telem_spec.glob:
+                # blocked next tick while blocked > tick + 1; a true
+                # division of two sums, as in JAX
+                blk = run_m & (blocked > tick + 1)
+                glob_g["blocked_frac"] = torch.sum(
+                    blk.to(torch.float32)) / torch.clamp(
+                        torch.sum(run_m.to(torch.float32)), min=1.0)
+            if "wheel_occ" in telem_spec.glob:
+                nst2 = out["net"]
+                glob_g["wheel_occ"] = (
+                    torch.sum(nst2["wheel_occ"], dtype=torch.int32)
+                    if "wheel_occ" in nst2 else nst2["staging_cnt"])
+            return telemetrymod.apply_boundary(telem_spec, acc.state, tick,
+                                               lane_g, glob_g)
 
         return tick_fn
 
@@ -1023,7 +1364,8 @@ class SimExecutable:
         executed = st["ticks_executed"] + 1
         out = self.tick_fn()(st)
         out["ticks_executed"] = executed
-        nxt = next_event_tick(out, out["tick"])
+        nxt = next_event_tick(out, out["tick"], self.has_restarts,
+                              self.faults, self.telemetry)
         out["tick"] = torch.clamp(nxt, max=self.config.max_ticks)
         return out
 
@@ -1033,7 +1375,8 @@ class SimExecutable:
         max_ticks and a lane still running) holds, an identity on every
         leaf (the jump and ``ticks_executed`` included) where it does
         not. No host read."""
-        go = (st["tick"] < self.config.max_ticks) & torch.any(live_lanes(st))
+        go = (st["tick"] < self.config.max_ticks) & torch.any(
+            live_lanes(st, self.has_restarts))
         step = self.skip_step if self.event_skip else self.tick_fn()
         return _tree_where(go, step(st), st)
 
@@ -1084,7 +1427,7 @@ class SimExecutable:
             for _ in range(max(1, cfg.chunk_ticks)):
                 st = step(st)
             tick = int(st["tick"])
-            running = int(torch.sum(live_lanes(st)))
+            running = int(torch.sum(live_lanes(st, self.has_restarts)))
             if running == 0 or tick >= cfg.max_ticks:
                 break
         if self.device.type == "cuda":
@@ -1195,6 +1538,55 @@ class SimResult:
     def net_egress_overflow(self) -> int:
         return self._net("egress_overflow")
 
+    def restarts_total(self) -> int:
+        """Rejoins under the fault plane (0 without one)."""
+        if "restarts" not in self.state:
+            return 0
+        return int(_np(self.state["restarts"]).sum())
+
+    def trace_events_total(self) -> int:
+        """Recorded trace events across all lanes (0 untraced)."""
+        if "trace" not in self.state:
+            return 0
+        return int(_np(self.state["trace"]["trace_cnt"]).sum())
+
+    def trace_dropped_total(self) -> int:
+        """Trace events lost to full per-lane rings."""
+        if "trace" not in self.state:
+            return 0
+        return int(_np(self.state["trace"]["trace_dropped"]).sum())
+
+    def telemetry_samples(self) -> int:
+        """Sample boundaries recorded by the telemetry plane."""
+        if "telem" not in self.state:
+            return 0
+        return int(self.state["telem"]["cnt"])
+
+    def telemetry_clipped(self) -> int:
+        """Sample boundaries lost to a full buffer."""
+        if "telem" not in self.state:
+            return 0
+        return int(self.state["telem"]["clipped"])
+
+    def telemetry_records(self) -> tuple[list[dict], list[dict]]:
+        """The demuxed (lane_records, global_records) in the
+        ``results.out`` format (sim/telemetry.py telemetry_records)."""
+        if "telem" not in self.state:
+            return [], []
+        ex = self.executable
+        return telemetrymod.telemetry_records(
+            self.state, ex.telemetry, ex.ctx, ex.config.quantum_ms)
+
+    def chrome_trace(self) -> dict:
+        """The trace rings as Chrome trace-event JSON, the dict (a
+        runner writes it to ``trace.json``); empty events untraced."""
+        ex = self.executable
+        if "trace" not in self.state:
+            return {"traceEvents": [], "displayTimeUnit": "ms"}
+        return tracemod.chrome_trace(self.state, ex.ctx,
+                                     ex.config.quantum_ms,
+                                     fault_plan=ex.faults)
+
     def metrics_records(self) -> list[dict]:
         """Flatten per-instance metric buffers into records."""
         names = self.executable.program.metrics.names()
@@ -1236,11 +1628,38 @@ def compile_program(
 ) -> SimExecutable:
     """Build a plan's program and wrap it in an executable on ``device``.
     ``build_fn(builder)`` may return a dict of per-instance param arrays
-    exposed to phases via ``env.params``."""
+    exposed to phases via ``env.params``. ``faults`` is a compiled
+    sim.faults.FaultPlan, or a sim.tables.Faults / dict schedule,
+    compiled here (an empty or disabled one is no plan); ``trace`` a
+    sim.trace.TraceSpec or a Trace / dict table; ``telemetry`` a
+    sim.telemetry.TelemetrySpec or a Telemetry / dict table, compiled by
+    the executor. An absent or disabled table builds the plain
+    program."""
     from .program import ProgramBuilder
+    from .tables import Faults
 
     config = config or SimConfig()
     resolve_device(device)
+    if isinstance(faults, dict):
+        faults = Faults.from_dict(faults)
+    if faults is not None and getattr(faults, "disabled", False):
+        faults = None
+    if faults is not None:
+        if not isinstance(faults, faultsmod.FaultPlan):
+            faults = faultsmod.compile_faults(faults, ctx, config)
+        elif faults.kill_tick.shape[0] != ctx.padded_n:
+            faults = faults.padded_to(ctx.padded_n)
+    if trace is not None:
+        if isinstance(trace, tracemod.TraceSpec):
+            gm = trace.group_mask
+            if gm is not None and len(gm) < ctx.padded_n:
+                trace = dataclasses.replace(
+                    trace,
+                    group_mask=tuple(gm)
+                    + (False,) * (ctx.padded_n - len(gm)),
+                )
+        else:
+            trace = tracemod.compile_trace(trace, ctx)
     b = ProgramBuilder(ctx)
     params = build_fn(b) or {}
     program = b.build()

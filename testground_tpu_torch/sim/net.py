@@ -16,7 +16,11 @@ staging row or the delay wheel through the ordered scatter-add
 (a dense ``[N, N]`` pair matrix, per-class rows, or both; the strictest
 action wins) keep a send off the link, and in both modes a dial's SYN
 gets its ACK, or its RST from a REJECT rule, in the dialer's handshake
-register. Destination-sharded delivery raises ``NotImplementedError``.
+register. The fault plane's overlay (sim/faults.py) blocks, delays and
+drops sends in ``deliver``; the trace and telemetry planes record each
+send, each drop with its cause, each delivery and each queue overflow
+through the ``trace`` and ``telem`` hooks, in the JAX package's order.
+Destination-sharded delivery raises ``NotImplementedError``.
 
 Inbox entry layout (NET_HDR + payload floats):
 ``[visible_tick, src, tag, port, size, payload...]``
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from . import count_scatter, prng, ring_merge
+from . import trace as tracemod
 from .program import TAG_ACK, TAG_RST, TAG_SYN, _not_ported
 
 NET_HDR = 5  # visible, src, tag, port, size
@@ -358,7 +363,7 @@ def _egress_admit(tick, age, wants, M, n):
 
 
 def _append_messages_bounded(net: dict, spec: NetSpec, dest, records,
-                             max_valid: int) -> dict:
+                             max_valid: int, trace=None, telem=None) -> dict:
     """Entry-mode append when the egress queue guarantees at most
     ``max_valid`` valid lanes: compact, rank within the compact domain,
     stage into a flat [arrival_slots*N, width] buffer at rank*N + dest,
@@ -400,6 +405,13 @@ def _append_messages_bounded(net: dict, spec: NetSpec, dest, records,
     net["inbox"] = ring_merge.merge(net["inbox"], w, k_eff, arr)
     net["inbox_w"] = w + k_eff
     net["inbox_dropped"] = net["inbox_dropped"] + (k_all - k_eff)
+    if trace is not None:
+        # rx overflow is per-dest accounting here: the drop sits on the
+        # RECEIVER lane, arg1 the negated dropped count
+        trace.emit(tracemod.CAT_NET, k_all > k_eff, tracemod.EV_DROP,
+                   arg0=tracemod.DROP_QUEUE_FULL, arg1=-(k_all - k_eff))
+    if telem is not None:
+        telem.drop("net_drops_queue_full", k_all - k_eff)
     return net
 
 
@@ -407,7 +419,8 @@ def _isum(mask):
     return torch.sum(mask, dtype=torch.int32)
 
 
-def _append_messages(net: dict, spec: NetSpec, dest, records) -> dict:
+def _append_messages(net: dict, spec: NetSpec, dest, records, trace=None,
+                     telem=None) -> dict:
     """Ranked scatter of message records into destination inboxes: the
     UNBOUNDED path (no egress queue), where every lane may send. A lane's
     rank among same-dest senders (ordered by lane) fixes its slot
@@ -449,6 +462,20 @@ def _append_messages(net: dict, spec: NetSpec, dest, records) -> dict:
                          net["inbox_dropped"].new_zeros(1)])
     dropped.index_add_(0, torch.where(lost, safe, N), ones)
     net["inbox_dropped"] = dropped[:N]
+    # rx-ring overflow on the SENDER lane (a duplicate copy's drop lands
+    # on its original's lane)
+    if telem is not None:
+        telem.drop("net_drops_queue_full",
+                   lost[:N].to(torch.int32)
+                   + (lost[N:].to(torch.int32) if n > N else 0))
+    if trace is not None:
+        trace.emit(tracemod.CAT_NET, lost[:N], tracemod.EV_DROP,
+                   arg0=tracemod.DROP_QUEUE_FULL, arg1=dest[:N])
+        if n > N:
+            # the duplicate copies (lanes N..2N-1) rank after their
+            # originals: a second append records their drops
+            trace.emit(tracemod.CAT_NET, lost[N:], tracemod.EV_DROP,
+                       arg0=tracemod.DROP_QUEUE_FULL, arg1=dest[N:])
     return net
 
 
@@ -471,7 +498,7 @@ def _toxic_event(net: dict, key, name: str, n: int, sending, rate):
     return ev
 
 
-def egress_queue(pend: dict, tick, send, running, M: int):
+def egress_queue(pend: dict, tick, send, running, M: int, masks=None):
     """The entry-mode egress queue: at most ``M`` sends leave per tick,
     oldest first; the rest wait in the depth-1 per-sender ``pend_*``
     registers. A dead lane abandons its queued send; a new send arriving
@@ -480,7 +507,8 @@ def egress_queue(pend: dict, tick, send, running, M: int):
     Returns ``(pend_out, capped send, counters)``: the new ``pend_*``
     lanes, the effective send set with ``send_dest = -1`` on lanes that
     do not leave this tick, and int32 [3] (abandoned, deferred + stashed,
-    overflowed)."""
+    overflowed). A ``masks`` dict gets the per-lane ``overflow`` mask
+    (the observer planes' queue-full drops)."""
     send_dest, send_tag, send_port, send_size, send_payload = send
     n = send_dest.shape[0]
     abandoned = (pend["pend_dest"] >= 0) & ~running
@@ -498,6 +526,8 @@ def egress_queue(pend: dict, tick, send, running, M: int):
     go = _egress_admit(tick, age, wants, M, n)
     deferred = wants & ~go
     overflow = deferred & has_pending & new_valid
+    if masks is not None:
+        masks["overflow"] = overflow
     # a deferred send stays queued; a delivered pending frees the slot
     # for the simultaneous new send (stashed, admitted now)
     stash_new = ~deferred & has_pending & new_valid
@@ -581,7 +611,7 @@ def _corrupt(net, rng_key, n, transmits, data_ok, send_payload):
 
 def deliver(net: dict, spec: NetSpec, tick, rng_key, send_dest, send_tag,
             send_port, send_size, send_payload, status_running,
-            hs_clear=None) -> dict:
+            hs_clear=None, fault=None, trace=None, telem=None) -> dict:
     """One tick of the data plane: the egress queue (entry mode with
     ``send_slots``), destination viability, the loss / rate / jitter /
     latency / reorder / duplicate / corrupt shaping, then either the
@@ -594,10 +624,24 @@ def deliver(net: dict, spec: NetSpec, tick, rng_key, send_dest, send_tag,
     (sim/deliver_front.py).
 
     ``hs_clear`` [N] i32: lanes starting a fresh dial this tick; their
-    register is cleared before this tick's reply is written."""
+    register is cleared before this tick's reply is written. ``fault``:
+    the fault overlay of this tick (sim/faults.py ``Overlay``): ``block``
+    keeps a send off the link (DROP semantics), ``lat``/``jit`` add to
+    the sender's link row, ``loss`` combines with the link's loss as an
+    independent drop, ``rev_lat`` adds to the ACK's return leg.
+    ``trace``/``telem``: the tick's TraceEmitter and TelemetryAccum (None
+    without the plane)."""
     check_supported(spec)
     net = dict(net)
     if spec.pallas_front and "pend_dest" in net:
+        for plane, what in ((fault, "a [faults] partition/degrade overlay"),
+                            (trace, "a [trace] table"),
+                            (telem, "a [telemetry] table")):
+            if plane is not None:
+                raise ValueError(
+                    f"pallas_front=True cannot compose with {what} (the "
+                    "fused kernel bypasses the mask chain it hooks into) "
+                    "— run it on the default lowering")
         from . import deliver_front
 
         pend_out, rec, dest_app, ctr = deliver_front.front(
@@ -618,15 +662,25 @@ def deliver(net: dict, spec: NetSpec, tick, rng_key, send_dest, send_tag,
     t = tick.to(torch.float32)
     has_queue = "pend_dest" in net
     if has_queue:
+        new_dest, masks = send_dest, {}
         pend_out, send, ctr = egress_queue(
             net, tick, (send_dest, send_tag, send_port, send_size,
                         send_payload),
-            status_running, spec.send_slots,
+            status_running, spec.send_slots, masks,
         )
         net.update(pend_out)
         net["egress_abandoned"] = net["egress_abandoned"] + ctr[0]
         net["egress_deferred"] = net["egress_deferred"] + ctr[1]
         net["egress_overflow"] = net["egress_overflow"] + ctr[2]
+        if trace is not None or telem is not None:
+            # the overflowed new send is tail-dropped at the sender's
+            # own queue
+            overflow = masks["overflow"]
+            if trace is not None:
+                trace.emit(tracemod.CAT_NET, overflow, tracemod.EV_DROP,
+                           arg0=tracemod.DROP_QUEUE_FULL, arg1=new_dest)
+            if telem is not None:
+                telem.drop("net_drops_queue_full", overflow)
         send_dest, send_tag, send_port, send_size, send_payload = send
 
     sending = (send_dest >= 0) & status_running
@@ -636,19 +690,49 @@ def deliver(net: dict, spec: NetSpec, tick, rng_key, send_dest, send_tag,
     enabled = (net["net_enabled"] > 0) & dest_ok[dest_c]
     action = filter_action(net, spec, dest_c)
     # a REJECT or DROP route is a local error: the packet never reaches
-    # the link (no occupancy, no toxic draw advances, no reply)
+    # the link (no occupancy, no toxic draw advances, no reply); a fault
+    # partition blocks the same way
     if action is None:
         transmits = sending & enabled
         rejected = None
     else:
         transmits = sending & enabled & (action == ACTION_ACCEPT)
         rejected = sending & enabled & (action == ACTION_REJECT)
+    if fault is not None and "block" in fault:
+        transmits = transmits & ~fault["block"]
 
+    observed = trace is not None or telem is not None
+    fused = (trace.fused if trace is not None
+             else (telem.fused if telem is not None else True))
+    if observed:
+        # each local drop with its cause; the causes partition
+        # `sending & ~transmits` (disabled, churn, filter, partition)
+        drops = _drop_causes(net, sending, dest_ok, dest_c, enabled,
+                             action, fault)
+    if trace is not None:
+        trace.emit(tracemod.CAT_NET, sending, tracemod.EV_SEND,
+                   arg0=send_dest, arg1=send_tag)
+    if telem is not None:
+        telem.count("net_sends", sending)
+    if observed and not fused:
+        _emit_drops(drops, send_dest, trace, telem)
+
+    # a degrade window's loss combines with the link's as an independent
+    # drop (and shifts a correlated link's Markov threshold alike)
     if "eg_loss" in net:
-        lost = _toxic_event(net, rng_key, "loss", n, transmits,
-                            net["eg_loss"])
+        loss_rate = net["eg_loss"]
+        if fault is not None and "loss" in fault:
+            loss_rate = 1.0 - (1.0 - loss_rate) * (1.0 - fault["loss"])
+        lost = _toxic_event(net, rng_key, "loss", n, transmits, loss_rate)
     else:
         lost = torch.zeros_like(transmits)
+    if observed:
+        loss_drops = ([(tracemod.DROP_LOSS, transmits & lost)]
+                      if "eg_loss" in net else [])
+        if fused:
+            _fused_drops(drops + loss_drops, send_dest, trace, telem)
+        else:
+            _emit_drops(loss_drops, send_dest, trace, telem)
     deliverable = transmits & ~lost
     # serialization delay on the sender's link (HTB rate analog)
     if "eg_rate" in net:
@@ -661,14 +745,20 @@ def deliver(net: dict, spec: NetSpec, tick, rng_key, send_dest, send_tag,
         net["eg_busy"] = torch.where(transmits, start + ser, net["eg_busy"])
     else:
         ser, start = 0.0, t
-    # jitter: uniform in [-j, +j]
+    # jitter: uniform in [-j, +j]; a degrade window widens the amplitude
     if "eg_jitter" in net:
-        jit = net["eg_jitter"] * (
+        jit_amp = net["eg_jitter"]
+        if fault is not None and "jit" in fault:
+            jit_amp = jit_amp + fault["jit"]
+        jit = jit_amp * (
             2.0 * prng.uniform(prng.fold_in(rng_key, 1), (n,)) - 1.0
         )
     else:
         jit = 0.0
     lat = net["eg_latency"] if "eg_latency" in net else 0.0
+    if fault is not None and "lat" in fault:
+        # degrade latency adds to the sender's link row
+        lat = lat + fault["lat"]
     lj = lat + jit
     lj = (torch.maximum(lj, torch.zeros_like(lj))
           if isinstance(lj, torch.Tensor) else max(lj, 0.0))
@@ -692,16 +782,78 @@ def deliver(net: dict, spec: NetSpec, tick, rng_key, send_dest, send_tag,
     else:
         _entry_append(net, spec, rng_key, n, visible, transmits, data_ok,
                       dup, send_dest, send_tag, send_port, send_size,
-                      send_payload, has_queue)
+                      send_payload, has_queue, trace, telem)
     if spec.uses_dials:
         _handshake(net, spec, t, visible, deliverable, rejected, send_dest,
-                   send_tag, send_port, dest_c, hs_clear)
+                   send_tag, send_port, dest_c, hs_clear,
+                   rev_lat=None if fault is None else fault.get("rev_lat"))
     return net
+
+
+# the telemetry column of each drop cause
+_DROP_PROBE = {
+    tracemod.DROP_DISABLED: "net_drops_disabled",
+    tracemod.DROP_CHURN: "net_drops_churn",
+    tracemod.DROP_FILTER: "net_drops_filter",
+    tracemod.DROP_PARTITION: "net_drops_partition",
+    tracemod.DROP_LOSS: "net_drops_loss",
+}
+
+
+def _drop_causes(net, sending, dest_ok, dest_c, enabled, action, fault):
+    """The local drops of this tick's sends as ``[(cause, mask), ...]``
+    in the JAX lattice's order: the sender's own link down, the
+    destination dead, a filter rule, a fault partition (the last two
+    only where the program has them)."""
+    own_up = net["net_enabled"] > 0
+    drops = [
+        (tracemod.DROP_DISABLED, sending & ~own_up),
+        (tracemod.DROP_CHURN, sending & own_up & ~dest_ok[dest_c]),
+    ]
+    if action is not None:
+        drops.append((tracemod.DROP_FILTER,
+                      sending & enabled & (action != ACTION_ACCEPT)))
+    if fault is not None and "block" in fault:
+        accept = sending & enabled
+        if action is not None:
+            accept = accept & (action == ACTION_ACCEPT)
+        drops.append((tracemod.DROP_PARTITION, accept & fault["block"]))
+    return drops
+
+
+def _emit_drops(drops, send_dest, trace, telem):
+    """The per-cause drop path: one EV_DROP append and one telemetry
+    column add a cause."""
+    for cause, mask in drops:
+        if trace is not None:
+            trace.emit(tracemod.CAT_NET, mask, tracemod.EV_DROP, arg0=cause,
+                       arg1=send_dest)
+        if telem is not None:
+            telem.drop(_DROP_PROBE[cause], mask)
+
+
+def _fused_drops(drops, send_dest, trace, telem):
+    """The fused drop path: one cause lattice feeds one EV_DROP append
+    and one ``net_drops`` union add. The causes are disjoint a lane (a
+    loss fires only on a transmitting lane), so the records and the
+    counts are the per-cause build's."""
+    cause = None
+    for c, mask in drops:
+        cause = (torch.where(mask, c, -1) if cause is None
+                 else torch.where(mask, c, cause))
+    dropped_m = cause >= 0
+    if trace is not None:
+        trace.emit(tracemod.CAT_NET, dropped_m, tracemod.EV_DROP,
+                   arg0=cause, arg1=send_dest)
+    if telem is not None:
+        telem.count("net_drops", dropped_m)
+        for c, mask in drops:
+            telem.count(_DROP_PROBE[c], mask)
 
 
 def _entry_append(net, spec, rng_key, n, visible, transmits, data_ok, dup,
                   send_dest, send_tag, send_port, send_size, send_payload,
-                  has_queue):
+                  has_queue, trace=None, telem=None):
     """Entry mode: corrupt the payloads, build and sanitize the records
     and append them (bounded behind the egress queue, the ranked scatter
     without it). Mutates ``net``."""
@@ -718,13 +870,29 @@ def _entry_append(net, spec, rng_key, n, visible, transmits, data_ok, dup,
         # ranks after every original (lanes N..2N-1)
         dest_app = torch.cat([dest_app, torch.where(dup, send_dest, -1)])
         rec = torch.cat([rec, rec])
+    if trace is not None or telem is not None:
+        # the arrivals at each receiver's NIC (the appends account for
+        # their ring's own overflow)
+        N_r = net["inbox_r"].shape[0]
+        arr_cnt = torch.zeros(N_r + 1, dtype=torch.int32,
+                              device=dest_app.device)
+        arr_cnt.index_add_(0, torch.where(dest_app >= 0, dest_app, N_r),
+                           torch.ones_like(dest_app))
+        arr_cnt = arr_cnt[:N_r]
+        if trace is not None:
+            trace.emit(tracemod.CAT_NET, arr_cnt > 0, tracemod.EV_DELIVER,
+                       arg0=arr_cnt)
+        if telem is not None:
+            telem.count("net_delivers", arr_cnt)
     if has_queue:
         out = _append_messages_bounded(
             net, spec, dest_app, rec,
             max_valid=spec.send_slots * (2 if dup is not None else 1),
+            trace=trace, telem=telem,
         )
     else:
-        out = _append_messages(net, spec, dest_app, rec)
+        out = _append_messages(net, spec, dest_app, rec, trace=trace,
+                               telem=telem)
     net.update(out)
 
 
@@ -809,7 +977,7 @@ def _hs_empty(device):
 
 
 def _handshake(net, spec, t, visible, deliverable, rejected, send_dest,
-               send_tag, send_port, dest_c, hs_clear):
+               send_tag, send_port, dest_c, hs_clear, rev_lat=None):
     """A delivered SYN writes an ACK into the dialer's register, visible
     one return leg after the SYN arrives; a SYN refused by a REJECT rule
     writes an RST, visible after the dialer's own egress latency (the
@@ -819,7 +987,9 @@ def _handshake(net, spec, t, visible, deliverable, rejected, send_dest,
 
     The JAX package computes the reply only on a tick that carries a SYN
     (``lax.cond``); on any other tick no lane writes the register, so
-    computing it every tick gives the same state."""
+    computing it every tick gives the same state. ``rev_lat``: a degrade
+    window's latency on the return leg (sim/faults.py), added to the
+    dialee's own before the one-tick floor."""
     is_syn = send_tag == TAG_SYN
     syn_ok = deliverable & is_syn
     if "pair_filter" in net:
@@ -831,9 +1001,14 @@ def _handshake(net, spec, t, visible, deliverable, rejected, send_dest,
                            == ACTION_ACCEPT)
     if "eg_latency" in net:
         lat = net["eg_latency"]
-        back_a = torch.clamp(lat[dest_c], min=1.0)
+        back_lat = lat[dest_c] if rev_lat is None else lat[dest_c] + rev_lat
+        back_a = torch.clamp(back_lat, min=1.0)
         back_r = t + 1.0 + torch.clamp(lat, min=0.0)
         back_visible = torch.where(syn_ok, visible + back_a, back_r)
+    elif rev_lat is not None:
+        back_visible = torch.where(syn_ok,
+                                   visible + torch.clamp(rev_lat, min=1.0),
+                                   t + 1.0)
     else:
         back_visible = torch.where(syn_ok, visible + 1.0, t + 1.0)
     hs = net["hs"]
@@ -852,11 +1027,14 @@ def _handshake(net, spec, t, visible, deliverable, rejected, send_dest,
     net["hs"] = torch.where(write[:, None], hs_new, hs)
 
 
-def advance_wheel(net: dict, spec: NetSpec, tick) -> dict:
+def advance_wheel(net: dict, spec: NetSpec, tick, trace=None,
+                  telem=None) -> dict:
     """Count mode, start of tick: drain the staging row or this tick's
     wheel bucket into the per-dest visible count and byte total. The
     bucket is picked with a one-element index tensor, never a 0-dim one,
-    which torch would read back to the host."""
+    which torch would read back to the host. A nonzero drained row is
+    the count-mode delivery: EV_DELIVER (count, bytes) and
+    ``net_delivers`` are recorded here."""
     net = dict(net)
     if spec.fixed_next_tick:
         row = net["staging"]
@@ -870,6 +1048,12 @@ def advance_wheel(net: dict, spec: NetSpec, tick) -> dict:
         net["wheel"] = net["wheel"].index_fill(0, b, 0.0)
         if "wheel_occ" in net:
             net["wheel_occ"] = net["wheel_occ"].index_fill(0, b, 0)
+    if trace is not None:
+        cnt = row[:, 0].to(torch.int32)
+        trace.emit(tracemod.CAT_NET, cnt > 0, tracemod.EV_DELIVER, arg0=cnt,
+                   arg1=row[:, 1].to(torch.int32))
+    if telem is not None:
+        telem.count("net_delivers", row[:, 0].to(torch.int32))
     net["avail"] = net["avail"] + row[:, 0].to(torch.int32)
     net["bytes_in"] = net["bytes_in"] + row[:, 1]
     return net

@@ -13,10 +13,11 @@ Inside a phase, make tensors from the env's own tensors (``*_like``,
 ``new_*``) so they land on the run's device.
 
 This package ports the builder methods the dht, gossipsub, benchmarks,
-network, splitbrain, example, placebo and verify plans use; the
-observer-plane methods (``trace``, ``observe``, ``count``, ``gauge``,
-``on_arrival``) raise ``NotImplementedError`` naming the ROADMAP.md
-module that will port them.
+network, splitbrain, example, placebo, verify and faultsdemo plans use,
+with the trace and telemetry hooks (``trace``, ``observe``, ``count``,
+``gauge``); the replay plane's ``on_arrival`` raises
+``NotImplementedError`` naming the ROADMAP.md module that will port
+it.
 """
 
 from __future__ import annotations
@@ -117,7 +118,8 @@ class PhaseCtrl:
     rule_row: Any = None
     net_class: Any = -1
     class_rule_row: Any = None
-    # ---- observer planes (not ported; must stay at their defaults) ----
+    # ---- observer planes (sim/trace.py, sim/telemetry.py; the replay
+    # plane's replay_consume is not ported and must stay at its default)
     trace_code: Any = -1
     trace_a0: Any = 0
     trace_a1: Any = 0
@@ -156,6 +158,9 @@ class TickEnv:
     dead_signals: Any = None
     # {tid: i32} (shared): the same, for publishes to churn-watched topics
     dead_pubs: Any = None
+    # i32: my rejoins so far under a [faults] schedule with restarts (0
+    # without one)
+    restarts: Any = 0
     # ---- data plane views (None when the program doesn't use the net)
     inbox: Any = None  # [Q, width] this instance's inbox ring
     inbox_r: Any = None  # i32 read cursor
@@ -214,7 +219,7 @@ class TickEnv:
             )
         if not isinstance(k, int):
             raise _not_ported("inbox_entry() with a traced index", 9,
-                              "observer planes (the election plan)")
+                              "replay, drain and the election plan")
         cap = self.inbox.shape[0]
         if self.inbox_head is not None and k < self.inbox_head.shape[0]:
             return self.inbox_head[k]
@@ -1012,20 +1017,97 @@ class ProgramBuilder:
 
     # ------------------------------------------------- not ported (yet)
 
-    def trace(self, *a, **k) -> None:
-        raise _not_ported("ProgramBuilder.trace", 9, "observer planes")
+    # -------------------------------------------------------------- trace
 
-    def observe(self, *a, **k) -> None:
-        raise _not_ported("ProgramBuilder.observe", 9, "observer planes")
+    def trace(self, code: int, a0=0, a1=0) -> None:
+        """Emit a custom CAT_USER trace event and advance (sim/trace.py).
+        ``code`` is a static int >= 0; ``a0``/``a1`` numbers or
+        ``fn(env, mem) -> i32``. Recorded only under a ``[trace]`` table
+        (with the "user" category); otherwise a pure advance."""
+        if code < 0:
+            raise ValueError(
+                f"trace code must be >= 0 (got {code}); negative codes "
+                "are the 'no event' sentinel"
+            )
 
-    def count(self, *a, **k) -> None:
-        raise _not_ported("ProgramBuilder.count", 9, "observer planes")
+        def val(v, env, mem):
+            if not callable(v):
+                return int(v)
+            r = v(env, mem)
+            return (r.to(torch.int32) if isinstance(r, torch.Tensor)
+                    else int(r))
 
-    def gauge(self, *a, **k) -> None:
-        raise _not_ported("ProgramBuilder.gauge", 9, "observer planes")
+        def fn(env, mem):
+            return mem, PhaseCtrl(
+                advance=1,
+                trace_code=code,
+                trace_a0=val(a0, env, mem),
+                trace_a1=val(a1, env, mem),
+            )
+
+        self.phase(fn, name=f"trace:{code}")
+
+    # ---------------------------------------------------------- telemetry
+
+    @staticmethod
+    def _f32(v):
+        return v.to(torch.float32) if isinstance(v, torch.Tensor) else float(v)
+
+    def observe(self, hist: int, value_fn) -> None:
+        """Observe one value an instance (``value_fn(env, mem) -> f32``)
+        into ``[telemetry]`` histogram number ``hist`` and advance
+        (sim/telemetry.py); without the table, or with fewer declared
+        histograms, a pure advance."""
+        if hist < 0:
+            raise ValueError(
+                f"histogram index must be >= 0 (got {hist}); negative "
+                "indices are the 'no observation' sentinel"
+            )
+
+        def fn(env, mem):
+            return mem, PhaseCtrl(
+                advance=1,
+                observe_hist=hist,
+                observe_value=self._f32(value_fn(env, mem)),
+            )
+
+        self.phase(fn, name=f"observe:{hist}")
+
+    def count(self, amount=1) -> None:
+        """Add ``amount`` (an int or ``fn(env, mem) -> i32``) to the
+        telemetry plane's per-interval ``user_count`` probe and
+        advance."""
+
+        def fn(env, mem):
+            if callable(amount):
+                r = amount(env, mem)
+                add = (r.to(torch.int32) if isinstance(r, torch.Tensor)
+                       else int(r))
+            else:
+                add = int(amount)
+            return mem, PhaseCtrl(advance=1, count_add=add)
+
+        self.phase(fn, name="count")
+
+    def gauge(self, value_fn) -> None:
+        """Latch the telemetry plane's ``user_gauge`` register to
+        ``value_fn(env, mem) -> f32`` (sampled at every boundary until
+        re-latched) and advance."""
+
+        def fn(env, mem):
+            return mem, PhaseCtrl(
+                advance=1,
+                gauge_set=1,
+                gauge_value=self._f32(value_fn(env, mem)),
+            )
+
+        self.phase(fn, name="gauge")
+
+    # ------------------------------------------------------------- replay
 
     def on_arrival(self, *a, **k) -> None:
-        raise _not_ported("ProgramBuilder.on_arrival", 9, "observer planes")
+        raise _not_ported("ProgramBuilder.on_arrival", 9,
+                          "replay, drain and the election plan")
 
     # -------------------------------------------------------------- build
 

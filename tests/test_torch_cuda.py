@@ -308,3 +308,21 @@ def test_entry_plans_gpu_matches_cpu(make):
         assert int(rm.merge.launches) > launches
     b = flatten(state_to_numpy(mk("cpu").run().state))
     compare_leaves(a, b, make)
+
+
+@pytest.mark.parametrize("make", ["storm-planes", "faultsdemo"])
+def test_fault_and_observer_planes_gpu_match_cpu(make):
+    """Storm under the fault timeline, traced and sampled, and faultsdemo
+    with its composition's tables: the captured tick (the rejoin, the
+    overlay, the emission and sample sites) against the CPU path."""
+    from testground_tpu_torch.plans import faultsdemo
+
+    dev = _cuda()
+    mk = {
+        "storm-planes": lambda d: cs.planes_storm_exec(48, d),
+        "faultsdemo": lambda d: faultsdemo.chaos_executable(
+            24, d, chunk_ticks=32, max_ticks=2_000),
+    }[make]
+    a = flatten(state_to_numpy(mk(dev).run().state))
+    b = flatten(state_to_numpy(mk("cpu").run().state))
+    compare_leaves(a, b, make)
