@@ -138,7 +138,29 @@ Phases, in order (any failure raises and the exit code is not 0):
    every instance ok (PASS), the victim restarted;
 28. storm at n = 300 with the compressed params under all three planes
    (the timeline compressed with the dial window), and faultsdemo at
-   n = 300: GPU path vs CPU path, every state leaf bit-equal.
+   n = 300: GPU path vs CPU path, every state leaf bit-equal;
+29. ``bench --replay``'s legs at n = 10,000: storm with a disabled
+   [replay] table builds phase 11's state leaves, runs its ops a tick
+   and captures the same graph nodes as [26c]'s storm; the echo
+   workload (32 requests a lane, every 50 ticks) self-driven and
+   replayed, and a sparse trace (every 1,000 ticks) that consumes all
+   320,000 arrivals under half its ticks; ms per executed tick,
+   arrivals/s, and no kernel launched (the echo has no data plane);
+30. ``bench --drain``'s legs at n = 10,000: sparsetimer (40 rounds of
+   50 ms, dense, 100-tick chunks) traced and sampled; the drain flag
+   changes no leaf, no tick op and no captured graph node; the drained
+   runs (16 slots a lane, 3 sample rows) drop and clip nothing, stream
+   what an undrained 1,024-slot run demuxes, and capture the loop
+   iteration once a run; overhead, cost a batch, and the count scatter
+   once a loop iteration of the drained run;
+31. the election plan's quorum case with its composition's [replay] and
+   [faults] at n = 5 and at 1,024 (its manifest's largest, with the
+   sized timeout and run length): PASS, with the JAX package's tick
+   count, fewest leader changes, requests served and arrivals
+   consumed (``election.JAX_OUTCOMES``);
+32. GPU vs CPU at n = 300, every state leaf bit-equal: the replayed
+   echo dense and skipped, a drained sparsetimer (and its three streamed
+   files byte-equal), and election at 5 under its composition.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernel measurements, and ``{"ok": true, "device": {...}}``. Everything
@@ -764,24 +786,16 @@ def launch_bounds(executed, chunk_ticks, launches) -> bool:
 def reset_launch_counts() -> None:
     """Every kernel wrapper's launch count to 0, just before a main-path
     run."""
-    from testground_tpu_torch.sim import count_scatter as csc
-    from testground_tpu_torch.sim import deliver_front as df
-    from testground_tpu_torch.sim import ring_merge as rm
+    from testground_tpu_torch import bench
 
-    df.reset_counters()
-    rm.merge.launches.reset()
-    csc.scatter_add.launches.reset()
+    bench.kernel_launches(reset=True)
 
 
 def other_launches():
     """Launches of the three kernels since the last reset."""
-    from testground_tpu_torch.sim import count_scatter as csc
-    from testground_tpu_torch.sim import deliver_front as df
-    from testground_tpu_torch.sim import ring_merge as rm
+    from testground_tpu_torch import bench
 
-    return {"deliver_front": int(df.front_lanes.launches),
-            "ring_merge": int(rm.merge.launches),
-            "count_scatter": int(csc.scatter_add.launches)}
+    return bench.kernel_launches()
 
 
 def case_run(torch, dev, report, key, ex, check):
@@ -798,6 +812,7 @@ def case_run(torch, dev, report, key, ex, check):
     out = {
         "ticks": res.ticks, "ticks_executed": res.ticks_executed,
         "event_skip": ex.event_skip, "wall_seconds": res.wall_seconds,
+        "capture_seconds": res.capture_seconds,
         "ms_per_tick": res.wall_seconds / max(res.ticks, 1) * 1e3,
         "ms_per_executed_tick": (res.wall_seconds
                                  / max(res.ticks_executed, 1) * 1e3),
@@ -1730,6 +1745,136 @@ def zero_overhead_phase(torch, report, dev, storm_ms):
         "to run)")
 
 
+# ------------------------------------- replay, drain and the election
+
+
+def replay_phase(torch, dev, report, storm_nodes):
+    """[29] bench --replay's legs at 10k, and the disabled table's
+    captured graph against [26c]'s storm (``storm_nodes``)."""
+    from testground_tpu_torch import bench
+
+    off, _ = bench.replay_off_storm(10_000, dev)
+    nodes = graph_node_counts(torch, off)
+    del off
+    log(f"  captured loop iteration: [replay] disabled {nodes}, phase "
+        f"11's storm {storm_nodes}")
+    assert nodes == storm_nodes, (nodes, storm_nodes)
+    line = bench.replay_leg(10_000, dev)
+    runs = line.pop("results")
+    line["graph_nodes_off"] = nodes
+    line["legs"] = {k: {"ticks": r.ticks, "ticks_executed": r.ticks_executed,
+                        "wall_seconds": r.wall_seconds,
+                        "capture_seconds": r.capture_seconds}
+                    for k, r in runs.items()}
+    report["replay10k"] = line
+    for leg, counts in line["launches"].items():
+        assert counts == {"deliver_front": 0, "ring_merge": 0,
+                          "count_scatter": 0}, (leg, counts)
+    log(f"  echo@10,000: self-driven {line['selfdriven_ms_per_tick']:.4f} "
+        f"ms/executed tick, replayed {line['replayed_ms_per_tick']:.4f} "
+        f"({line['value']:+.1f}%); sparse {line['arrivals']:,d} arrivals "
+        f"at {line['arrivals_per_sec']:,.0f}/s, "
+        f"{line['sparse_ticks_executed']} of "
+        f"{line['sparse_ticks_simulated']} ticks executed; legs "
+        f"{line['legs']}; launches {line['launches']}")
+    return line
+
+
+def drain_phase(torch, dev, report):
+    """[30] bench --drain's legs at 10k, the drain flag's captured graph,
+    and the count scatter's launches in the drained run."""
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.sim.core import STEPPER_WARMUP
+
+    nodes = {k: graph_node_counts(torch, bench.drain_executable(
+        10_000, dev, drain=k == "drain_on", samples=0))
+        for k in ("drain_off", "drain_on")}
+    log(f"  captured loop iteration: {nodes}")
+    assert nodes["drain_on"] == nodes["drain_off"], nodes
+    # one plain and one drained run (bench --drain takes two of each):
+    # a drained run's host demux takes ~45 s at this size
+    line = bench.drain_leg(10_000, dev, runs=1)
+    line["graph_nodes"] = nodes
+    report["drain10k"] = line
+    launches = line["launches"]
+    log(f"  sparsetimer@10,000 drained: {line['ticks']} ticks, "
+        f"{line['drain_batches']} batches, {line['drained_events']:,d} "
+        f"events and {line['drained_samples']} samples streamed "
+        f"(overflow x{line['overflow_factor']:.1f}), none dropped or "
+        f"clipped; wall {line['undrained_wall_seconds']:.3f} s plain, "
+        f"{line['drained_wall_seconds']:.3f} s drained "
+        f"({line['value']:+.1f}%, {line['per_batch_ms']:.2f} ms a "
+        f"batch); launches {launches}")
+    lo = line["ticks_executed"] + STEPPER_WARMUP
+    assert lo <= launches["count_scatter"] < lo + bench.DRAIN_CHUNK, (
+        launches, line["ticks_executed"])
+    assert (launches["deliver_front"], launches["ring_merge"]) == (0, 0)
+    return line
+
+
+ELECTION_BIG_N = 1_024  # plans/election/manifest.toml's largest count
+
+
+def election_phase(torch, dev, report, n):
+    """[31] election's quorum case at ``n`` with its composition's
+    [replay] and [faults]: PASS, and the JAX package's outcomes."""
+    from testground_tpu_torch.plans import election
+
+    def check(res):
+        g = election.grade(res, n)
+        want = election.JAX_OUTCOMES[n]
+        assert g["pass"], f"election@{n}: {g}"
+        assert {k: g[k] for k in want} == want, (g, want)
+        if n == 5:
+            assert g["leaders"] == [0], g
+        g["leaders"] = len(g["leaders"])
+        return {"n": n, **g}
+
+    out, _ = case_run(torch, dev, report, f"election{n}",
+                      election.election_executable(n, dev), check)
+    log(f"  election quorum@{n:,d}: PASS in {out['ticks']} ticks "
+        f"({out['ticks_executed']} executed), {out['wall_seconds']:.3f} s "
+        f"wall ({out['ms_per_executed_tick']:.2f} ms/executed tick); "
+        f"fewest leader changes {out['min_changes']}, served "
+        f"{out['served']}, consumed {out['consumed']}, restarts "
+        f"{out['restarts']}, {out['leaders']} final leader(s); launches "
+        f"{out['launches']}")
+    return out
+
+
+def drain_parity_phase(torch, np, dev, report, n=300):
+    """[32] a drained sparsetimer at ``n`` on the card and on the CPU:
+    every state leaf bit-equal and the three streamed files byte-equal."""
+    import tempfile
+    from pathlib import Path
+
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.sim.drain import EVENTS_FILE, RESULTS_FILE
+    from testground_tpu_torch.sim.state_io import (
+        compare_leaves, flatten, state_to_numpy,
+    )
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-drain-") as tmp:
+        states, stats = {}, {}
+        for d in (dev, "cpu"):
+            res, dr = bench.drained_run(
+                bench.drain_executable(n, d, rounds=10), Path(tmp) / str(d))
+            states[str(d)] = flatten(state_to_numpy(res.state))
+            stats[str(d)] = dr.stats()
+        leaves = compare_leaves(states[str(dev)], states["cpu"],
+                                "drained sparsetimer: GPU vs CPU")
+        sizes = {}
+        for f in (EVENTS_FILE, RESULTS_FILE, "trace.json"):
+            a = (Path(tmp) / str(dev) / f).read_bytes()
+            assert a == (Path(tmp) / "cpu" / f).read_bytes(), f
+            sizes[f] = len(a)
+    assert stats[str(dev)] == stats["cpu"], stats
+    report["drain300_parity"] = {"leaves": leaves, "files": sizes,
+                                 "stats": stats["cpu"]}
+    log(f"  drained sparsetimer@{n}: GPU vs CPU bit-equal over {leaves} "
+        f"leaves, streamed files byte-equal {sizes}, {stats['cpu']}")
+
+
 def main() -> int:
     import torch
 
@@ -1967,10 +2112,40 @@ def main() -> int:
         p: report[k]["launches"]["count_scatter"]
         for p, k in PLANE_KEYS.items()}
 
+    log("[29] bench --replay @ 10,000: the disabled table, the echo "
+        "self-driven and replayed, the sparse trace")
+    replay_phase(torch, dev, report,
+                 report["planes_off_graph_nodes"]["storm10k"])
+    log("[30] bench --drain @ 10,000: sparsetimer traced and sampled, "
+        "drained at every chunk")
+    drain = drain_phase(torch, dev, report)
+    log(f"[31] election quorum @ 5 and @ {ELECTION_BIG_N:,d} with its "
+        "composition's [replay] and [faults]")
+    for n in (5, ELECTION_BIG_N):
+        election_phase(torch, dev, report, n)
+    log("[32] replayed echo (dense and skipped), drained sparsetimer and "
+        "election @ 5: GPU vs CPU")
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-replay-") as tmp:
+        trace = tb.write_echo_trace(os.path.join(tmp, "echo.jsonl"), 300)
+        for skip in (False, True):
+            parity_phase(np, dev, report,
+                         f"replay300_{'skip' if skip else 'dense'}_parity",
+                         lambda n, d, skip=skip: tb.echo_executable(
+                             n, d, trace, event_skip=skip))
+    drain_parity_phase(torch, np, dev, report)
+    from testground_tpu_torch.plans import election as telection
+
+    parity_phase(np, dev, report, "election5_parity",
+                 lambda n, d: telection.election_executable(n, d), n=5)
+
     front_row = next(r for r in rows if r["n"] == 10_000
                      and r["regime"] == "mixed")
     merge_row = merge_rows[0]  # dht@10k's shape
-    scatter_row = scatter_rows[0]  # storm@10k's staging shape
+    # the shape of the path whose launches the line reports: the drained
+    # sparsetimer's beat tick
+    scatter_row = next(r for r in scatter_rows if r["case"] == "ring")
     kernels = {"kernels": [
         {
             "name": "deliver_front",
@@ -2004,7 +2179,8 @@ def main() -> int:
             "source": "testground_tpu_torch/csrc/count_scatter.cu",
             # no TPU kernel: XLA's scatter-add of count mode
             "replaces": "testground_tpu/sim/net.py:1313",
-            "launches": storm["launches"]["count_scatter"],
+            # this slice's path that runs it: the drained run of [30]
+            "launches": drain["launches"]["count_scatter"],
             "max_abs_err": scatter_err,
             "ms": scatter_row["wrapper_ms"],
             "plain_ms": scatter_row["plain_ms"],

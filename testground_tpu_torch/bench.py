@@ -3,10 +3,13 @@
 run of the sparse-timer plan; with ``--faults``, ``--trace`` or
 ``--telem``, ``TG_BENCH_FAULTS``', ``TG_BENCH_TRACE``'s and
 ``TG_BENCH_TELEM``'s runs of storm under the fault, trace and telemetry
-planes.
+planes; with ``--replay`` and ``--drain``, ``TG_BENCH_REPLAY``'s and
+``TG_BENCH_DRAIN``'s legs (``replay_main`` and ``drain_main`` of
+``bench.py``).
 
     python -m testground_tpu_torch.bench [--shaped | --skip | --faults |
-                                          --trace | --telem]
+                                          --trace | --telem | --replay |
+                                          --drain]
 
 Runs the storm plan (testground_tpu_torch/plans/benchmarks.py) with
 ``bench.py``'s ``PARAMS`` and ``SimConfig`` (10 ms quantum, max 100,000
@@ -42,6 +45,29 @@ record; asserts every instance ok and samples taken. Each prints one
 JSON line with ``bench.py``'s fields for the plane (its HLO-identity
 field becomes the leaf-set check).
 
+With ``--replay``: storm at 10,000 without a [replay] table and with a
+disabled one must build the same state leaves and run the same ops a
+tick; then an echo workload at 10,000 instances, ``REPLAY_K`` requests
+a lane every ``REPLAY_PERIOD`` ticks, once self-driven (a sleep loop)
+and once replayed from a recorded trace through ``on_arrival``, and a
+sparse trace (one request every ``REPLAY_SPARSE`` ticks), each with
+every lane's ``got == K``; the sparse leg must consume n x K arrivals
+and execute under half its ticks. Prints ms per executed tick of both
+dense legs (timed after the capture), arrivals/s and the sparse leg's
+executed and simulated ticks.
+
+With ``--drain``: sparsetimer at 10,000 (``DRAIN_ROUNDS`` rounds of
+``DRAIN_PERIOD_MS``, dense, ``DRAIN_CHUNK``-tick chunks) traced and
+sampled. The drain flag must change no state leaf and no tick op; an
+undrained run with ``DRAIN_REF_CAP`` slots a lane is the reference
+(no drops; its busiest lane at least 8x ``DRAIN_CAP``); then the same
+executable with ``DRAIN_CAP`` slots and ``chunk // interval + 2`` sample
+rows runs plain and drained (twice each): the drained runs
+lose nothing, their streamed events equal the reference's Chrome
+events and their streamed samples its telemetry records, and they
+capture the loop iteration once a run. Prints the drain's overhead, its
+cost a batch and the count-scatter launches of a drained run.
+
 The other builders here (``barrier_executable``, ``subtree_executable``)
 are those of ``testground_tpu_torch.tools.bench_barrier`` and
 ``bench_subtree``; ``splitbrain_executable`` builds the splitbrain
@@ -53,12 +79,18 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
+from pathlib import Path
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from .plans import benchmarks, splitbrain
-from .sim import BuildContext, GroupSpec, SimConfig, compile_program
+from .sim import BuildContext, GroupSpec, PhaseCtrl, SimConfig
+from .sim import compile_program
 from .sim.core import EVENT_SKIP_STATE_LEAVES
 from .sim.state_io import compare_leaves, flatten, state_to_numpy
-from .sim.tables import Faults, Telemetry, Trace
+from .sim.tables import Faults, Replay, Telemetry, Trace
 
 N = 10_000  # bench.py's instance count
 CHUNK_TICKS = 32  # ticks a loop chunk, between host reads of the end
@@ -434,6 +466,347 @@ def plane_main(plane) -> int:
     return 0
 
 
+# ------------------------------------------------------------ replay leg
+
+REPLAY_K = 32  # TG_BENCH_REPLAY_K's default: requests a lane
+REPLAY_PERIOD = 50  # TG_BENCH_REPLAY_PERIOD's default, ticks
+REPLAY_SPARSE = 1_000  # TG_BENCH_REPLAY_SPARSE's default, ticks
+
+
+def write_echo_trace(path, n, K=REPLAY_K, period=REPLAY_PERIOD) -> str:
+    """bench.py replay_main's recorded workload: every lane gets a request
+    (op 1) at ticks period, 2·period, ..., K·period."""
+    with open(path, "w") as f:
+        f.write(json.dumps({"replay_version": 1}) + "\n")
+        for lane in range(n):
+            for k in range(K):
+                f.write(json.dumps({"lane": lane, "tick": (k + 1) * period,
+                                    "op": 1}) + "\n")
+    return str(path)
+
+
+def echo_replayed(b):
+    """The replayed echo: count each arrival as on_arrival consumes it."""
+    got = b.declare("got", (), torch.int32, 0)
+
+    def handler(env, mem, due):
+        mem = dict(mem)
+        mem[got] = mem[got] + due.to(torch.int32)
+        return mem, PhaseCtrl()
+
+    b.on_arrival(handler)
+    b.end_ok()
+
+
+def echo_self(K=REPLAY_K):
+    """The self-driven echo: K rounds of a REPLAY_PERIOD ms sleep and a
+    count."""
+
+    def build(b):
+        got = b.declare("got", (), torch.int32, 0)
+        h = b.loop_begin(K)
+        b.sleep_ms(REPLAY_PERIOD)  # 1 ms quantum: REPLAY_PERIOD ticks
+
+        def bump(env, mem):
+            mem = dict(mem)
+            mem[got] = mem[got] + 1
+            return mem, PhaseCtrl(advance=1)
+
+        b.phase(bump, "bump")
+        b.loop_end(h)
+        b.end_ok()
+
+    return build
+
+
+def echo_executable(n, device="cuda", trace_path=None, K=REPLAY_K,
+                    event_skip=None):
+    """replay_main's echo at ``n`` instances: replayed from the recorded
+    trace at ``trace_path`` (a [replay] table), or self-driven without
+    one. replay_main's SimConfig: 1 ms quantum, metrics capacity 8, max
+    (K + 2)·max(REPLAY_PERIOD, REPLAY_SPARSE) + 1,000 ticks."""
+    cfg = SimConfig(quantum_ms=1.0, chunk_ticks=CHUNK_TICKS,
+                    max_ticks=(K + 2) * max(REPLAY_PERIOD, REPLAY_SPARSE)
+                    + 1_000,
+                    metrics_capacity=8, event_skip=event_skip)
+    ctx = BuildContext([GroupSpec("single", 0, n, {})], test_case="echo",
+                       test_run="bench-replay")
+    if trace_path is None:
+        return compile_program(echo_self(K), ctx, cfg, device=device)
+    return compile_program(echo_replayed, ctx, cfg, device=device,
+                           replay=Replay(trace=str(trace_path)))
+
+
+def check_echo(res, n):
+    """Every lane counted its REPLAY_K requests."""
+    got = res.state["mem"]["got"].cpu().numpy()[:n]
+    assert (got == REPLAY_K).all(), (
+        f"echo workload dropped requests: {got.min()}..{got.max()} of "
+        f"{REPLAY_K}")
+    return {"ok": int((res.statuses()[:n] == 1).sum())}
+
+
+class OpLog(TorchDispatchMode):
+    """Records the name of every torch op dispatched under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def tick_ops(ex) -> list:
+    """The names of the ops two loop iterations of ``ex`` dispatch from
+    its initial state (the port's form of "the same compiled tick")."""
+    st = ex.init_state()
+    # the build-time probe, and the constants a first tick caches, stay
+    # outside the log
+    ex.guarded_tick(ex.init_state())
+    with torch.no_grad(), OpLog() as log:
+        for _ in range(2):
+            st = ex.guarded_tick(st)
+    return log.ops
+
+
+def replay_off_storm(n, device="cuda"):
+    """storm @ ``n`` with bench.py's params and a disabled [replay] table
+    naming a file that does not exist (never read), beside the plain
+    build: (off, plain)."""
+    plain = storm_executable(n, device)
+    off = compile_program(
+        benchmarks.storm, plain.ctx, plain.config, device=device,
+        replay=Replay(trace="never-read.jsonl", enabled=False))
+    return off, plain
+
+
+def replay_leg(n=N, device="cuda") -> dict:
+    """replay_main's legs at ``n`` on ``device`` (asserting what it
+    asserts); returns its fields and the three results."""
+    off, plain = replay_off_storm(n, device)
+    assert off.replay is None and same_leaves(off, plain), (
+        "a disabled [replay] table added state")
+    assert tick_ops(off) == tick_ops(plain), (
+        "a disabled [replay] table changed the tick's ops")
+    del off, plain
+    runs, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="tg-bench-replay-") as tmp:
+        for leg, trace in (
+            ("self", None),
+            ("replayed", write_echo_trace(Path(tmp) / "dense.jsonl", n)),
+            ("sparse", write_echo_trace(Path(tmp) / "sparse.jsonl", n,
+                                        period=REPLAY_SPARSE)),
+        ):
+            ex = echo_executable(n, device, trace)
+            ex.tick_fn()  # built before the clock starts
+            kernel_launches(reset=True)
+            runs[leg] = ex.run()
+            launches[leg] = kernel_launches()
+            check_echo(runs[leg], n)
+    ms = {k: r.wall_seconds * 1e3 / max(1, r.ticks_executed)
+          for k, r in runs.items()}
+    sp = runs["sparse"]
+    arrivals = sp.replay_consumed()
+    assert arrivals == n * REPLAY_K, (arrivals, n * REPLAY_K)
+    assert sp.skip_ratio < 0.5, (
+        f"sparse replay executed {sp.skip_ratio:.2%} of its ticks: the "
+        "next-arrival term of the event-horizon min is not jumping")
+    return {
+        "metric": f"replay-plane tick overhead at {n} instances "
+                  f"({REPLAY_K} requests/lane)",
+        "value": (ms["replayed"] - ms["self"]) / ms["self"] * 100.0,
+        "unit": "percent",
+        "vs_baseline": None,
+        "leaves_and_ops_identical_off": True,
+        "selfdriven_ms_per_tick": ms["self"],
+        "replayed_ms_per_tick": ms["replayed"],
+        "arrivals": arrivals,
+        "arrivals_per_sec": arrivals / max(sp.wall_seconds, 1e-9),
+        "skip_ratio_sparse": sp.skip_ratio,
+        "sparse_ticks_executed": sp.ticks_executed,
+        "sparse_ticks_simulated": sp.ticks,
+        # the stepper's warm-up and capture, outside every wall above
+        "capture_seconds": {k: r.capture_seconds for k, r in runs.items()},
+        "launches": launches,
+        "results": runs,
+    }
+
+
+def replay_main(n=N) -> int:
+    line = replay_leg(n)
+    line.pop("results")
+    line["device"] = device_line()
+    print(json.dumps(line))
+    return 0
+
+
+# ------------------------------------------------------------- drain leg
+
+DRAIN_ROUNDS = 40  # TG_BENCH_TIMER_ROUNDS' default in drain_main
+DRAIN_PERIOD_MS = 50  # TG_BENCH_TIMER_PERIOD_MS' default in drain_main
+DRAIN_CHUNK = 100  # TG_BENCH_CHUNK's default in drain_main
+DRAIN_CAP = 16  # TG_BENCH_DRAIN_CAP's default: slots a lane, drained
+DRAIN_REF_CAP = 1_024  # TG_BENCH_DRAIN_REF_CAP's default: the reference
+DRAIN_INTERVAL = 100  # TG_BENCH_DRAIN_TELEM_INTERVAL's default
+# the drained sample buffer: one chunk's boundaries and slack
+DRAIN_SAMPLES = max(2, DRAIN_CHUNK // DRAIN_INTERVAL + 2)
+
+
+def drain_executable(n, device="cuda", capacity=DRAIN_CAP, drain=True,
+                     samples=DRAIN_SAMPLES, rounds=DRAIN_ROUNDS,
+                     chunk_ticks=DRAIN_CHUNK):
+    """drain_main's sparsetimer at ``n``, dense, traced with ``capacity``
+    slots a lane and sampled every DRAIN_INTERVAL ticks into ``samples``
+    rows (0: the whole run), the tables' drain flag set to ``drain``;
+    max max(20,000, rounds·period·3) ticks."""
+    cfg = SimConfig(quantum_ms=1.0, chunk_ticks=chunk_ticks,
+                    max_ticks=max(20_000, rounds * DRAIN_PERIOD_MS * 3),
+                    metrics_capacity=16, event_skip=False)
+    return _case_executable(
+        "sparsetimer", n,
+        {"timer_rounds": rounds, "timer_period_ms": DRAIN_PERIOD_MS}, cfg,
+        device, trace=Trace(capacity=capacity, drain=drain),
+        telemetry=Telemetry(interval=DRAIN_INTERVAL, drain=drain,
+                            samples=samples))
+
+
+def drained_run(ex, out_dir):
+    """``ex`` run to the end with both planes drained into ``out_dir`` and
+    finalized: (result, drain)."""
+    from .sim.drain import ObserverDrain
+
+    d = ObserverDrain(ex, trace_drain=True, telem_drain=True,
+                      run_dir=out_dir)
+    res = ex.run(drain=d)
+    d.finalize(res.state, fault_plan=ex.faults)
+    return res, d
+
+
+def check_drained(ref, out_dir, stats):
+    """The drained stream against the undrained reference ``ref``: no
+    event dropped and no sample clipped; the streamed events equal the
+    reference's Chrome events, the streamed samples its telemetry
+    records. Returns the number of events and records compared."""
+    from .sim.drain import EVENTS_FILE, RESULTS_FILE
+
+    assert stats["trace_dropped"] == 0, (
+        f"{stats['trace_dropped']} events dropped under drain")
+    assert stats["telemetry_clipped"] == 0, (
+        f"{stats['telemetry_clipped']} boundaries clipped under drain")
+    lines = [json.loads(ln) for ln in
+             (Path(out_dir) / EVENTS_FILE).read_text().splitlines()]
+    got_ev = [e for e in lines if e.get("ph") != "M"]
+    ref_ev = [e for e in ref.chrome_trace()["traceEvents"]
+              if e.get("ph") != "M"]
+    assert got_ev == ref_ev, "drained trace stream != undrained demux"
+    lane, glob = ref.telemetry_records()
+    got_t = [json.loads(ln) for ln in
+             (Path(out_dir) / RESULTS_FILE).read_text().splitlines()]
+
+    def key(r):
+        return (r["virtual_time_s"], r["name"], str(r["instance"]))
+
+    assert sorted(got_t, key=key) == sorted(lane + glob, key=key), (
+        "drained telemetry stream != undrained demux")
+    return len(got_ev), len(got_t)
+
+
+def kernel_launches(reset=False) -> dict:
+    """The launch counts of the three kernel wrappers (``reset``: set
+    them to 0 first)."""
+    from .sim import count_scatter as csc
+    from .sim import deliver_front as df
+    from .sim import ring_merge as rm
+
+    if reset:
+        df.reset_counters()
+        rm.merge.launches.reset()
+        csc.scatter_add.launches.reset()
+    return {"deliver_front": int(df.front_lanes.launches),
+            "ring_merge": int(rm.merge.launches),
+            "count_scatter": int(csc.scatter_add.launches)}
+
+
+def drain_leg(n=N, device="cuda", runs=2, rounds=DRAIN_ROUNDS) -> dict:
+    """drain_main's legs at ``n`` on ``device`` (asserting what it
+    asserts), ``runs`` runs each plain and drained; returns its fields."""
+    # (a) the drain flag builds the same state and runs the same ops
+    # (the whole-run sample buffer: a fixed depth needs the drain)
+    flag_off = drain_executable(n, device, drain=False, samples=0,
+                                rounds=rounds)
+    flag_on = drain_executable(n, device, samples=0, rounds=rounds)
+    assert same_leaves(flag_off, flag_on)
+    assert tick_ops(flag_off) == tick_ops(flag_on), (
+        "the drain flag changed the tick's ops")
+    del flag_off, flag_on
+    # (b) the undrained reference with rings for the whole run
+    ex_big = drain_executable(n, device, capacity=DRAIN_REF_CAP,
+                              drain=False, samples=0, rounds=rounds)
+    ex_big.tick_fn()
+    ref = ex_big.run()
+    ok = int((ref.statuses()[:n] == 1).sum())
+    assert ok == n, f"only {ok}/{n} ok"
+    assert ref.trace_dropped_total() == 0, "reference ring too small"
+    per_lane = ref.state["trace"]["trace_cnt"].cpu().numpy()[:n]
+    overflow_x = float(per_lane.max()) / DRAIN_CAP
+    assert overflow_x >= 8.0, (
+        f"event volume only {overflow_x:.1f}x the drained capacity")
+    # (c) one small executable, run plain and drained
+    ex = drain_executable(n, device, rounds=rounds)
+    ex.tick_fn()
+    walls_plain = [ex.run().wall_seconds for _ in range(runs)]
+    walls_drain = []
+    with tempfile.TemporaryDirectory(prefix="tg-bench-drain-") as tmp:
+        for i in range(runs):
+            dest = Path(tmp) / str(i)
+            captures = ex.captures
+            kernel_launches(reset=True)
+            res, d = drained_run(ex, dest)
+            launches = kernel_launches()
+            walls_drain.append(res.wall_seconds)
+            # the boundaries drain around the one captured iteration
+            if ex.device.type == "cuda":
+                assert ex.captures == captures + 1, (ex.captures, captures)
+        stats = d.stats()
+        events, records = check_drained(ref, dest, stats)
+    wall_plain, wall_drain = min(walls_plain), min(walls_drain)
+    return {
+        "metric": f"drain-plane per-chunk overhead at {n} instances "
+                  f"(capacity {DRAIN_CAP}, chunk {DRAIN_CHUNK})",
+        "value": (wall_drain - wall_plain) / wall_plain * 100.0,
+        "unit": "percent",
+        "vs_baseline": None,
+        "overhead_target_pct": 5.0,
+        "leaves_and_ops_identical_drain_flag": True,
+        "stream_equal_to_undrained": True,
+        "trace_dropped": 0,
+        "telemetry_clipped": 0,
+        "overflow_factor": overflow_x,
+        "drained_events": stats["trace_events"],
+        "drained_samples": stats["telemetry_samples"],
+        "drain_batches": stats["drain_batches"],
+        "events_compared": events,
+        "records_compared": records,
+        "undrained_wall_seconds": wall_plain,
+        "drained_wall_seconds": wall_drain,
+        "per_batch_ms": (wall_drain - wall_plain) * 1e3
+        / max(1, stats["drain_batches"]),
+        "ticks": res.ticks,
+        "ticks_executed": res.ticks_executed,
+        "launches": launches,
+        "reference_wall_seconds": ref.wall_seconds,
+    }
+
+
+def drain_main(n=N) -> int:
+    line = drain_leg(n)
+    line["device"] = device_line()
+    print(json.dumps(line))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -441,9 +814,15 @@ def main(argv=None) -> int:
     mode.add_argument("--skip", action="store_true")
     for plane in PLANES:
         mode.add_argument(f"--{plane}", action="store_true")
+    mode.add_argument("--replay", action="store_true")
+    mode.add_argument("--drain", action="store_true")
     args = ap.parse_args(argv)
     if args.skip:
         return skip_main()
+    if args.replay:
+        return replay_main()
+    if args.drain:
+        return drain_main()
     for plane in PLANES:
         if getattr(args, plane):
             return plane_main(plane)

@@ -36,10 +36,15 @@ torch).
 The fault plane (sim/faults.py) adds the rejoin of restarted lanes and
 its kills before the step, and its window overlay to ``net.deliver``;
 the trace (sim/trace.py) and telemetry (sim/telemetry.py) planes hook
-the tick's sites in the JAX package's order. Each plane is a Python
-branch on its compiled spec, so without one a tick builds the same
-state and runs the same ops. Replay and sweep raise
-``NotImplementedError`` naming the ROADMAP.md module that ports them.
+the tick's sites in the JAX package's order; the replay plane
+(sim/replay.py) feeds each lane its head-of-schedule view, advances the
+cursors by what the phases consumed and adds its next arrival to the
+event-horizon min. Each plane is a Python branch on its compiled spec,
+so without one a tick builds the same state and runs the same ops. At
+each chunk boundary ``SimExecutable.run`` hands the state to the drain
+plane (sim/drain.py), then to the caller's ``on_chunk`` and
+``should_stop``. Sweep raises ``NotImplementedError`` naming the
+ROADMAP.md module that ports it.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from ..device import resolve_device
 from . import faults as faultsmod
 from . import net as netmod
 from . import prng
+from . import replay as replaymod
 from . import telemetry as telemetrymod
 from . import trace as tracemod
 from .context import BuildContext
@@ -154,8 +160,9 @@ def next_event_tick(out: dict, nt, has_restarts: bool = False,
     max(restart_tick, nt), a fault window opens or closes at its
     boundary, a queued egress send can leave on any tick, an occupied
     staging row drains at ``nt``, the delay wheel's earliest occupied
-    bucket drains at its tick, and a telemetry sample is taken at its
-    boundary. ``nt`` when no lane lives."""
+    bucket drains at its tick, a running lane's next recorded arrival
+    comes due (under a replay plan: ``out["replay"]``), and a telemetry
+    sample is taken at its boundary. ``nt`` when no lane lives."""
     run_m = out["status"] == RUNNING
     never = torch.full_like(out["blocked_until"], _EV_NEVER)
     ev = torch.min(
@@ -190,6 +197,9 @@ def next_event_tick(out: dict, nt, has_restarts: bool = False,
             torch.arange(W, dtype=torch.int32, device=nt.device) - nt, W)
         mo = torch.min(torch.where(nst["wheel_occ"] > 0, offs, W))
         ev = torch.minimum(ev, torch.where(mo < W, nt + mo, _EV_NEVER))
+    if "replay" in out:
+        ev = torch.minimum(
+            ev, replaymod.next_arrival_term(out["replay"], run_m, nt))
     if telem_spec is not None:
         ev = torch.minimum(ev, telemetrymod.next_boundary_tick(telem_spec,
                                                                nt))
@@ -360,13 +370,15 @@ _FIELDS = (
     ("count_add", "i", 0),
     ("gauge_set", "i", 0),
     ("gauge_value", "f", 0.0),
+    ("replay_consume", "i", 0),
 )
 _VECTOR_KINDS = ("pay", "tpay", "rule", "crule")
 _TRACE_FIELDS = ("trace_code", "trace_a0", "trace_a1")
 _TELEM_FIELDS = ("observe_hist", "observe_value", "count_add", "gauge_set",
                  "gauge_value")
-# the replay plane's field (ROADMAP.md item 9), with its default
-_UNPORTED_FIELDS = (("replay_consume", 0),)
+_REPLAY_FIELDS = ("replay_consume",)
+# the replay plane's per-lane head view, as the phases' TickEnv reads it
+_REPLAY_VIEW = ("arr_tick", "arr_op", "arr_arg", "arr_pending", "arr_left")
 
 
 def _topic_append(buf, mask, pos0, payloads, pay):
@@ -448,14 +460,17 @@ class SimExecutable:
         replay=None,
     ) -> None:
         self.device = resolve_device(device)
-        if replay is not None:
-            raise _not_ported("the [replay] plane", 9,
-                              "replay, drain and the election plan")
         if config.slices > 1:
             raise _not_ported("SimConfig.slices > 1", 12, "multi-GPU")
         self.program = program
         self.ctx = ctx
         self.config = config
+        # the replay plane: a compiled ReplayPlan or None. Its recorded
+        # churn rows fold into the fault plane before anything reads it
+        # (a windowless plan when there is no [faults] table)
+        self.replay = replay
+        if replay is not None:
+            faults = replaymod.merge_into_faults(replay, faults)
         # the trace plane: a compiled TraceSpec or None
         self.trace = trace
         if (
@@ -569,6 +584,9 @@ class SimExecutable:
             )
         self.has_restarts = faults is not None and faults.has_restarts
         self._tick_fn = None
+        # CUDA-graph captures of the loop iteration made so far: one a
+        # run on the card (a drain at a chunk boundary captures nothing)
+        self.captures = 0
 
     # ------------------------------------------------------ initial state
 
@@ -650,6 +668,11 @@ class SimExecutable:
         if self.telemetry is not None:
             state["telem"] = telemetrymod.init_telemetry_state(
                 n, self.telemetry, dev)
+        # the replay plane's arrival table and cursors (the cursor
+        # survives a restart: delivered requests are not replayed)
+        if self.replay is not None:
+            state["replay"] = replaymod.init_replay_state(n, self.replay,
+                                                          dev)
         return state
 
     # ----------------------------------------------------------- tick fn
@@ -688,6 +711,11 @@ class SimExecutable:
             if fault_plan is not None and fault_plan.has_windows else None
         )
         trace_spec, telem_spec = self.trace, self.telemetry
+        replay_plan = self.replay
+        replay_rows = (
+            torch.arange(replay_plan.capacity, dtype=torch.int32, device=dev)
+            if replay_plan is not None else None
+        )
         trace_gmask = (
             torch.as_tensor(np.asarray(trace_spec.group_mask, bool),
                             device=dev)
@@ -703,6 +731,8 @@ class SimExecutable:
             off |= set(_TRACE_FIELDS)
         if telem_spec is None:
             off |= set(_TELEM_FIELDS)
+        if replay_plan is None:
+            off |= set(_REPLAY_FIELDS)
         live_fields = tuple(i for i, (name, _, _) in enumerate(_FIELDS)
                             if name not in off)
         consts: dict = {}
@@ -770,6 +800,10 @@ class SimExecutable:
                         for k, v in params.items()},
                 quantum_ms=quantum_ms,
             )
+            if replay_plan is not None:
+                for k in _REPLAY_VIEW:
+                    setattr(env, k, torch.zeros(()) if k == "arr_arg"
+                            else scal)
             if use_net:
                 env.inbox_avail = scal
                 if net_spec.uses_dials:
@@ -792,11 +826,6 @@ class SimExecutable:
             except Exception:  # noqa: BLE001 — best-effort, as in JAX
                 return tuple(prog.mem_spec), live_fields, {}
             _check_phase_net_ctrl(ctrl, net_spec, phase.name)
-            for name, default in _UNPORTED_FIELDS:
-                if not _static_eq(getattr(ctrl, name), default):
-                    raise _not_ported(
-                        f"phase {phase.name!r} sets PhaseCtrl.{name}", 9,
-                        "replay, drain and the election plan")
             wset = tuple(k for k in mem if mem2.get(k) is not mem[k])
             dyn = tuple(
                 i for i in live_fields
@@ -896,6 +925,11 @@ class SimExecutable:
                     egress_busy=net_row.get("egress_busy"),
                     eg_latency_ticks=net_row.get("eg_latency"),
                     filter_row=net_row.get("filter_row"),
+                    arr_pending=lane_extra.get("arr_pending"),
+                    arr_op=lane_extra.get("arr_op"),
+                    arr_arg=lane_extra.get("arr_arg"),
+                    arr_tick=lane_extra.get("arr_tick"),
+                    arr_left=lane_extra.get("arr_left"),
                     quantum_ms=quantum_ms,
                 )
                 safe_pc = torch.clamp(pc, 0, n_phases - 1)
@@ -990,6 +1024,9 @@ class SimExecutable:
                         gauge_set=torch.where(active, ctrl["gauge_set"], 0),
                         gauge_value=ctrl["gauge_value"],
                     )
+                if replay_plan is not None:
+                    out["replay_take"] = torch.where(
+                        active, ctrl["replay_consume"], 0)
                 return out
 
             return torch.func.vmap(step_instance)
@@ -1159,6 +1196,11 @@ class SimExecutable:
 
             lane_keys = prng.fold_in(key, instance_ids)
             lane_extra = {"restarts": st["restarts"]} if has_restarts else {}
+            if replay_plan is not None:
+                # this tick's head-of-schedule view, one [N, R] pass
+                lane_extra.update(zip(
+                    _REPLAY_VIEW,
+                    replaymod.head_fields(st["replay"], tick, replay_rows)))
             # the shared registers (counters, topics, head registers) are
             # closed over, not mapped: a phase's reduce of one runs once
             vstep = make_step(tick, st["counters"], st["topic_len"],
@@ -1307,6 +1349,13 @@ class SimExecutable:
                 nst = netmod.consume(nst, net_spec, tick, res["recv_count"],
                                      prefix=avail0)
                 out["net"] = nst
+            if replay_plan is not None:
+                # pop the consumed arrivals: each cursor advances by what
+                # its lane took, clamped to its due count
+                take = torch.minimum(torch.clamp(res["replay_take"], min=0),
+                                     lane_extra["arr_pending"])
+                out["replay"] = {**st["replay"],
+                                 "cursor": st["replay"]["cursor"] + take}
             # the fault plane's leaves carry this tick's rejoin updates
             for k in ("faults", "restarts", "stale_sig"):
                 if k in st:
@@ -1405,6 +1454,7 @@ class SimExecutable:
             out = self.guarded_tick(st)
             for dst, src in zip(ins, _leaves(out)):
                 dst.copy_(src)
+        self.captures += 1
 
         def replay(state):
             assert state is st, "a captured stepper advances its own state"
@@ -1414,26 +1464,69 @@ class SimExecutable:
         replay.graph = graph  # the graph lives as long as the stepper
         return replay
 
-    def run(self) -> "SimResult":
-        """Run the dense loop to completion: ``chunk_ticks`` loop
-        iterations (``stepper``) between two host reads of the
-        termination condition."""
+    def run(self, on_chunk=None, drain=None, should_stop=None,
+            watchdog=None, checkpoint=None,
+            resume_state=None) -> "SimResult":
+        """Run the loop to completion: ``chunk_ticks`` loop iterations
+        (``stepper``) between two host reads of the termination
+        condition, which gives the JAX package's chunk boundaries (dense:
+        every ``chunk_ticks`` ticks up to ``max_ticks``; event skip:
+        every ``chunk_ticks`` executed iterations).
+
+        At each boundary, in the JAX package's order: ``drain`` (a
+        sim/drain.py ``ObserverDrain``) streams the observer rings and
+        sample buffers out and zeroes their cursors in place, then
+        ``on_chunk(tick, running, info)`` is called (``info`` holds the
+        boundary state, and the drain's watermarks under
+        ``"observer"``), then ``should_stop()`` is polled, at the last
+        boundary too: True ends the run there with the drained prefix kept and
+        ``SimResult.terminated`` set. ``wall_seconds`` starts after the
+        stepper's capture (``capture_seconds``). ``watchdog``,
+        ``checkpoint`` and
+        ``resume_state`` belong to the durability plane, not ported
+        yet."""
+        for what, v in (("watchdog", watchdog), ("checkpoint", checkpoint),
+                        ("resume_state", resume_state)):
+            if v is not None:
+                raise _not_ported(f"SimExecutable.run({what}=...)", 11,
+                                  "runner and serving integration")
         cfg = self.config
         self.tick_fn()  # built before the clock starts
         st = self.init_state()
-        wall0 = time.monotonic()
+        t0 = time.monotonic()
         step = self.stepper(st)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        # the capture is set-up, as the JAX package's warmup is: the
+        # clock starts after it
+        wall0 = time.monotonic()
+        terminated = False
         while True:
             for _ in range(max(1, cfg.chunk_ticks)):
                 st = step(st)
             tick = int(st["tick"])
             running = int(torch.sum(live_lanes(st, self.has_restarts)))
-            if running == 0 or tick >= cfg.max_ticks:
+            if drain is not None:
+                # before the callback, so it reads the post-drain
+                # cumulative watermarks
+                st = drain.drain(st)
+            if on_chunk is not None:
+                info = {"state": st}
+                if drain is not None:
+                    info["observer"] = drain.stats()
+                on_chunk(tick, running, info)
+            done = running == 0 or tick >= cfg.max_ticks
+            stopping = should_stop is not None and should_stop()
+            if done:
+                break
+            if stopping:
+                terminated = True
                 break
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.monotonic() - wall0
-        return SimResult(self, st, wall_seconds=wall)
+        return SimResult(self, st, wall_seconds=wall, terminated=terminated,
+                         capture_seconds=wall0 - t0)
 
 
 def _np(x) -> np.ndarray:
@@ -1448,6 +1541,12 @@ class SimResult:
     executable: SimExecutable
     state: dict
     wall_seconds: float = 0.0
+    # the run was stopped at a chunk boundary by the caller's
+    # should_stop: the state is a valid prefix, not a finished run
+    terminated: bool = False
+    # the stepper's warm-up and capture before the clock started (on the
+    # card; about 0 on the CPU), not in wall_seconds
+    capture_seconds: float = 0.0
 
     @property
     def ticks(self) -> int:
@@ -1544,6 +1643,20 @@ class SimResult:
             return 0
         return int(_np(self.state["restarts"]).sum())
 
+    def replay_consumed(self) -> int:
+        """Recorded arrivals consumed across all lanes (0 without a
+        [replay] table)."""
+        if "replay" not in self.state:
+            return 0
+        return int(_np(self.state["replay"]["cursor"]).sum())
+
+    def replay_consumed_per_lane(self) -> np.ndarray:
+        """Per-lane consumed-arrival counts (empty without a [replay]
+        table)."""
+        if "replay" not in self.state:
+            return np.zeros(0, np.int32)
+        return _np(self.state["replay"]["cursor"])
+
     def trace_events_total(self) -> int:
         """Recorded trace events across all lanes (0 untraced)."""
         if "trace" not in self.state:
@@ -1633,8 +1746,9 @@ def compile_program(
     compiled here (an empty or disabled one is no plan); ``trace`` a
     sim.trace.TraceSpec or a Trace / dict table; ``telemetry`` a
     sim.telemetry.TelemetrySpec or a Telemetry / dict table, compiled by
-    the executor. An absent or disabled table builds the plain
-    program."""
+    the executor; ``replay`` a sim.replay.ReplayPlan or a Replay / dict
+    table, compiled here against the padded context. An absent or
+    disabled table builds the plain program."""
     from .program import ProgramBuilder
     from .tables import Faults
 
@@ -1660,6 +1774,12 @@ def compile_program(
                 )
         else:
             trace = tracemod.compile_trace(trace, ctx)
+    if replay is not None:
+        if isinstance(replay, replaymod.ReplayPlan):
+            if replay.arr_cnt.shape[0] != ctx.padded_n:
+                replay = replay.padded_to(ctx.padded_n)
+        else:
+            replay = replaymod.compile_replay(replay, ctx, config)
     b = ProgramBuilder(ctx)
     params = build_fn(b) or {}
     program = b.build()

@@ -1,0 +1,359 @@
+"""The streaming result plane: chunk-boundary observer drains
+(counterpart of ``testground_tpu/sim/drain.py``).
+
+The trace (sim/trace.py) and telemetry (sim/telemetry.py) planes record
+into fixed-capacity device buffers demuxed after the run, so a buffer's
+capacity bounds the whole run's depth. With a drain, at every chunk
+boundary of ``SimExecutable.run`` the host
+
+1. reads the observer leaves of the boundary state (one device-to-host
+   copy, outside the captured tick),
+2. zeroes their cursors (``trace_cnt``, ``telem.cnt``) in place, so the
+   captured stepper, which replays into the state's own tensors, goes
+   on writing from slot 0, and
+3. demuxes the batch: trace events append to ``<run_dir>/trace.jsonl``
+   (one Chrome trace-event object a line; ``finalize`` assembles
+   ``trace.json`` from it) and telemetry samples to ``results.out``.
+
+A buffer then bounds one chunk, not the run. A tick runs wholly inside
+one chunk and appends are monotone per lane, so the drained batches
+concatenate to an undrained run's end-of-run demux, record for record.
+Only the cursors reset: ``trace_dropped`` and ``telem.clipped`` stay
+cumulative (a chunk that overflows still reports its loss), and the
+interval accumulators, the gauge register and the histograms are
+run-scoped (the histograms demux once, at ``finalize``). The drain never
+touches the tick: a drained and an undrained run of one executable run
+the same loop iteration.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import numpy as np
+
+from . import telemetry as telemetrymod
+from . import trace as tracemod
+from .program import _not_ported
+
+# the streamed files: the trace events (the event file the daemon tails
+# for GET /events) and the telemetry records
+EVENTS_FILE = "trace.jsonl"
+RESULTS_FILE = "results.out"
+
+
+def drain_flags(rinput) -> tuple[bool, bool]:
+    """(trace_drain, telemetry_drain) asked for by a composition's
+    observer tables: ``drain = true`` on an enabled table (a disabled
+    one compiles to nothing, so there is nothing to drain)."""
+
+    def _flag(table) -> bool:
+        if table is None:
+            return False
+        if isinstance(table, dict):
+            return bool(table.get("enabled", True)) and bool(
+                table.get("drain", False)
+            )
+        return bool(getattr(table, "enabled", True)) and bool(
+            getattr(table, "drain", False)
+        )
+
+    return (
+        _flag(getattr(rinput, "trace", None)),
+        _flag(getattr(rinput, "telemetry", None)),
+    )
+
+
+class _Stream:
+    """One output stream's host-side watermarks and files. Files are
+    truncated on the first append, appended after, and never held
+    open."""
+
+    def __init__(self, out_dir: Path) -> None:
+        self.dir = Path(out_dir)
+        self.trace_events = 0
+        self.trace_dropped = 0  # the latest cumulative device value
+        self.telemetry_samples = 0
+        self.telemetry_clipped = 0  # the latest cumulative device value
+        # sample boundaries passed so far, recorded and clipped: the
+        # timestamp base of the next batch (a clipped boundary still
+        # advances virtual time)
+        self.telemetry_boundaries = 0
+        self._seen_lanes: set[int] = set()
+        self._trace_open = False
+        self._results_open = False
+
+    def _append(self, fname: str, lines, fresh_attr: str) -> None:
+        if not lines:
+            return
+        self.dir.mkdir(parents=True, exist_ok=True)
+        mode = "a" if getattr(self, fresh_attr) else "w"
+        setattr(self, fresh_attr, True)
+        with open(self.dir / fname, mode) as f:
+            for row in lines:
+                f.write(json.dumps(row) + "\n")
+
+    def append_trace(self, rows) -> None:
+        self._append(EVENTS_FILE, rows, "_trace_open")
+
+    def append_results(self, rows) -> None:
+        self._append(RESULTS_FILE, rows, "_results_open")
+
+    def stats(self) -> dict:
+        return {
+            "trace_events": self.trace_events,
+            "trace_dropped": self.trace_dropped,
+            "telemetry_samples": self.telemetry_samples,
+            "telemetry_clipped": self.telemetry_clipped,
+        }
+
+
+def _host(tree: dict) -> dict:
+    """A dict of tensors as numpy arrays on the host."""
+    return {k: v.detach().cpu().numpy() for k, v in tree.items()}
+
+
+class ObserverDrain:
+    """The host side of the drain plane for one run. Construct it with
+    the executable and ``run_dir``; ``SimExecutable.run(drain=...)``
+    calls :meth:`drain` at every chunk boundary, and the caller calls
+    :meth:`finalize` with the final state. ``scenario_dir`` (the
+    batched runs' per-scenario directories) belongs to the sweep plane,
+    not ported yet."""
+
+    def __init__(
+        self,
+        ex,
+        *,
+        trace_drain: bool = False,
+        telem_drain: bool = False,
+        run_dir=None,
+        scenario_dir=None,
+    ) -> None:
+        if scenario_dir is not None:
+            raise _not_ported("ObserverDrain(scenario_dir=...)", 10,
+                              "sweep and search")
+        if run_dir is None:
+            raise ValueError(
+                "ObserverDrain needs exactly one of run_dir/scenario_dir"
+            )
+        self.ex = ex
+        self.trace_spec = getattr(ex, "trace", None) if trace_drain else None
+        self.telem_spec = (
+            getattr(ex, "telemetry", None) if telem_drain else None
+        )
+        self.batches = 0
+        self._stream = _Stream(run_dir)
+        # the lanes demux reads: real instances only
+        self.n = ex.ctx.n_instances
+        self.quantum_ms = ex.config.quantum_ms
+
+    @property
+    def active(self) -> bool:
+        return self.trace_spec is not None or self.telem_spec is not None
+
+    # --------------------------------------------------------- host side
+
+    def _drain_trace_rows(self, buf, cnt, dropped) -> None:
+        stream = self._stream
+        stream.trace_dropped = int(np.asarray(dropped)[: self.n].sum())
+        ev = tracemod.trace_events(
+            {"trace_buf": buf, "trace_cnt": cnt}, self.n
+        )
+        if not len(ev):
+            return
+        rows: list[dict] = []
+        if not stream._seen_lanes:
+            rows.append(dict(tracemod.PROCESS_META))
+        new_lanes = set(int(x) for x in ev["lane"]) - stream._seen_lanes
+        if new_lanes:
+            rows.extend(tracemod.chrome_thread_meta(new_lanes, self.ex.ctx))
+            stream._seen_lanes |= new_lanes
+        rows.extend(tracemod.chrome_event_rows(ev, self.quantum_ms))
+        stream.trace_events += len(ev)
+        stream.append_trace(rows)
+
+    def _drain_telem_rows(self, leaves: dict) -> None:
+        stream = self._stream
+        clipped_now = int(np.asarray(leaves["clipped"]))
+        clip_delta = clipped_now - stream.telemetry_clipped
+        stream.telemetry_clipped = clipped_now
+        batch_cnt = min(int(leaves["cnt"]), self.telem_spec.s_cap)
+        if batch_cnt:
+            # a batch's rows are the first boundaries of its window (a
+            # full buffer clips the tail), at [boundaries,
+            # boundaries + cnt); the chunk's clipped ones follow them
+            lane, glob = telemetrymod.telemetry_records(
+                {"telem": leaves},
+                self.telem_spec,
+                self.ex.ctx,
+                self.quantum_ms,
+                n_instances=self.n,
+                sample_base=stream.telemetry_boundaries,
+                include_hist=False,
+            )
+            stream.telemetry_samples += batch_cnt
+            stream.append_results(lane + glob)
+        stream.telemetry_boundaries += batch_cnt + clip_delta
+
+    def drain(self, st: dict) -> dict:
+        """One chunk boundary: read the observer leaves to the host,
+        demux and append the batch, and zero the device cursors in
+        place. Returns ``st`` itself (a captured stepper advances its
+        own state's tensors)."""
+        if not self.active:
+            return st
+        # one device-to-host read a boundary: the drain's whole cost
+        # on the card
+        if self.trace_spec is not None:
+            tr = _host(st["trace"])
+            self._drain_trace_rows(tr["trace_buf"], tr["trace_cnt"],
+                                   tr["trace_dropped"])
+            st["trace"]["trace_cnt"].zero_()
+        if self.telem_spec is not None:
+            self._drain_telem_rows(_host(st["telem"]))
+            st["telem"]["cnt"].zero_()
+        self.batches += 1
+        return st
+
+    # -------------------------------------------------------- finalizing
+
+    def finalize(self, state: dict, fault_plan=None) -> None:
+        """After the run: the fault windows' track from the final
+        state's window leaves and, for an event-free run, the metadata
+        row, onto the trace stream; the cumulative histograms onto the
+        results stream; then ``trace.json`` assembled from
+        ``trace.jsonl``."""
+        stream = self._stream
+        if self.trace_spec is not None:
+            tail: list[dict] = []
+            if not stream._trace_open:
+                # an event-free run still gets a (metadata-only) stream
+                tail.append(dict(tracemod.PROCESS_META))
+            if (
+                fault_plan is not None
+                and fault_plan.has_windows
+                and "faults" in state
+            ):
+                tail.extend(
+                    tracemod.fault_window_events(
+                        fault_plan,
+                        state["faults"],
+                        float(self.quantum_ms) * 1e3,
+                        last_tick=int(tracemod._np(state.get("tick", 0))),
+                    )
+                )
+            stream.append_trace(tail)
+            _assemble_trace_json(stream.dir)
+        if self.telem_spec is not None and self.telem_spec.n_hist:
+            # the histograms were never reset: they demux once, from
+            # the final state
+            lane, glob = telemetrymod.telemetry_records(
+                state,
+                self.telem_spec,
+                self.ex.ctx,
+                self.quantum_ms,
+                n_instances=self.n,
+                include_samples=False,
+            )
+            stream.append_results(lane + glob)
+
+    # -------------------------------------------------------- accounting
+
+    def stats(self) -> dict:
+        """The cumulative watermarks of the drained planes, and the
+        batch count."""
+        raw = self._stream.stats()
+        out: dict = {}
+        if self.trace_spec is not None:
+            out["trace_events"] = raw["trace_events"]
+            out["trace_dropped"] = raw["trace_dropped"]
+        if self.telem_spec is not None:
+            out["telemetry_samples"] = raw["telemetry_samples"]
+            out["telemetry_clipped"] = raw["telemetry_clipped"]
+        out["drain_batches"] = self.batches
+        return out
+
+    def journal(self) -> dict:
+        """The run journal's ``drain`` record."""
+        return {
+            "trace": self.trace_spec is not None,
+            "telemetry": self.telem_spec is not None,
+            "batches": self.batches,
+        }
+
+    # ------------------------------------------------- resume position
+
+    def snapshot(self) -> dict:
+        """The drain's host-side position: the stream's watermarks and
+        the byte sizes of its files at this boundary. :meth:`restore`
+        truncates the files back to them, so a resumed stream equals an
+        uninterrupted run's."""
+        stream = self._stream
+        rec = {
+            **stream.stats(),
+            "telemetry_boundaries": stream.telemetry_boundaries,
+            "seen_lanes": sorted(stream._seen_lanes),
+            "trace_open": stream._trace_open,
+            "results_open": stream._results_open,
+            "trace_bytes": _file_size(stream.dir / EVENTS_FILE),
+            "results_bytes": _file_size(stream.dir / RESULTS_FILE),
+        }
+        return {"batches": self.batches, "streams": {"root": rec}}
+
+    def restore(self, snap: dict) -> None:
+        """Re-enter the position :meth:`snapshot` recorded: the
+        watermarks, and each streamed file truncated to its recorded
+        size. Raises OSError when a file it names is gone."""
+        self.batches = int(snap.get("batches", 0))
+        rec = (snap.get("streams") or {}).get("root")
+        if rec is None:
+            return
+        stream = self._stream
+        stream.trace_events = int(rec.get("trace_events", 0))
+        stream.trace_dropped = int(rec.get("trace_dropped", 0))
+        stream.telemetry_samples = int(rec.get("telemetry_samples", 0))
+        stream.telemetry_clipped = int(rec.get("telemetry_clipped", 0))
+        stream.telemetry_boundaries = int(
+            rec.get("telemetry_boundaries", 0)
+        )
+        stream._seen_lanes = set(int(x) for x in rec.get("seen_lanes", []))
+        stream._trace_open = bool(rec.get("trace_open", False))
+        stream._results_open = bool(rec.get("results_open", False))
+        for fname, size_key, open_flag in (
+            (EVENTS_FILE, "trace_bytes", stream._trace_open),
+            (RESULTS_FILE, "results_bytes", stream._results_open),
+        ):
+            if not open_flag:
+                continue  # the next append truncates anyway
+            with open(stream.dir / fname, "r+b") as f:
+                f.truncate(int(rec.get(size_key, 0)))
+
+
+def _file_size(path: Path) -> int:
+    try:
+        return path.stat().st_size
+    except OSError:
+        return 0
+
+
+def _assemble_trace_json(out_dir: Path) -> None:
+    """Wrap the streamed ``trace.jsonl`` lines into a Perfetto-loadable
+    ``trace.json`` document (a streaming copy)."""
+    src = Path(out_dir) / EVENTS_FILE
+    if not src.exists():
+        return
+    dst = Path(out_dir) / "trace.json"
+    with open(dst, "w") as out, open(src) as f:
+        out.write('{"traceEvents": [')
+        first = True
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            if not first:
+                out.write(", ")
+            out.write(line)
+            first = False
+        out.write('], "displayTimeUnit": "ms"}')

@@ -13,11 +13,9 @@ Inside a phase, make tensors from the env's own tensors (``*_like``,
 ``new_*``) so they land on the run's device.
 
 This package ports the builder methods the dht, gossipsub, benchmarks,
-network, splitbrain, example, placebo, verify and faultsdemo plans use,
-with the trace and telemetry hooks (``trace``, ``observe``, ``count``,
-``gauge``); the replay plane's ``on_arrival`` raises
-``NotImplementedError`` naming the ROADMAP.md module that will port
-it.
+network, splitbrain, example, placebo, verify, faultsdemo and election
+plans use, with the trace and telemetry hooks (``trace``, ``observe``,
+``count``, ``gauge``) and the replay plane's ``on_arrival``.
 """
 
 from __future__ import annotations
@@ -118,8 +116,8 @@ class PhaseCtrl:
     rule_row: Any = None
     net_class: Any = -1
     class_rule_row: Any = None
-    # ---- observer planes (sim/trace.py, sim/telemetry.py; the replay
-    # plane's replay_consume is not ported and must stay at its default)
+    # ---- observer planes (sim/trace.py, sim/telemetry.py), recorded
+    # only under their tables
     trace_code: Any = -1
     trace_a0: Any = 0
     trace_a1: Any = 0
@@ -128,6 +126,9 @@ class PhaseCtrl:
     count_add: Any = 0
     gauge_set: Any = 0
     gauge_value: Any = 0.0
+    # ---- replay plane (sim/replay.py; consumed only under a [replay]
+    # table): pop this many DUE arrivals off my schedule (clamped to
+    # env.arrivals_pending())
     replay_consume: Any = 0
 
 
@@ -171,6 +172,15 @@ class TickEnv:
     egress_busy: Any = None  # bool: my egress queue holds a deferred send
     eg_latency_ticks: Any = None  # f32 my current egress latency
     filter_row: Any = None  # [N] i8 my egress filter actions (pair rules)
+    # ---- replay plane views (sim/replay.py; None without a [replay]
+    # table: read them through the helpers below, which name the missing
+    # table)
+    arr_pending: Any = None  # i32 arrivals due (tick reached), unconsumed
+    arr_op: Any = None  # i32 the head arrival's op code (valid iff pending)
+    arr_arg: Any = None  # f32 the head arrival's size/argument
+    arr_tick: Any = None  # i32 the head arrival's tick (REPLAY_NEVER when
+    #                       my schedule is exhausted)
+    arr_left: Any = None  # i32 unconsumed rows left, future ones included
     quantum_ms: float = 1.0  # ms per tick
 
     # -------- helpers usable inside phase fns --------
@@ -196,6 +206,41 @@ class TickEnv:
         the static int from topics.topic())."""
         return self.topic_buf[topic_id][pos]
 
+    # -------- replay plane (sim/replay.py) --------
+
+    def _need_replay(self, what: str):
+        if self.arr_pending is None:
+            raise RuntimeError(
+                f"{what} needs a [replay] table: this composition "
+                "declares no recorded workload, so no arrival schedule "
+                "rides in state (docs/replay.md)"
+            )
+
+    def arrivals_pending(self):
+        """How many scheduled arrivals are due for me this tick (their
+        tick reached, not consumed yet). Pop them with
+        ``PhaseCtrl(replay_consume=...)`` or through
+        ``ProgramBuilder.on_arrival``."""
+        self._need_replay("arrivals_pending()")
+        return self.arr_pending
+
+    def next_arrival(self):
+        """The head arrival's ``(op, arg)``; valid iff
+        ``arrivals_pending() > 0``."""
+        self._need_replay("next_arrival()")
+        return self.arr_op, self.arr_arg
+
+    def next_arrival_tick(self):
+        """The head arrival's tick (``sim.replay.REPLAY_NEVER`` once my
+        schedule is exhausted): what ``on_arrival`` sleeps to."""
+        self._need_replay("next_arrival_tick()")
+        return self.arr_tick
+
+    def arrivals_exhausted(self):
+        """True once every scheduled arrival on my lane was consumed."""
+        self._need_replay("arrivals_exhausted()")
+        return self.arr_left <= 0
+
     def ms(self, ticks):
         return ticks * self.quantum_ms
 
@@ -209,26 +254,39 @@ class TickEnv:
 
     def inbox_entry(self, k):
         """The k-th visible inbox record ([width] f32); valid iff
-        ``k < inbox_avail``. Rows 0..head_k-1 come from the per-tick head
-        cache; deeper static reads come from the ring."""
+        ``k < inbox_avail``. A static ``k`` below head_k reads the
+        per-tick head cache, a deeper one (or any, without a head cache)
+        gathers the ring row ``(inbox_r + k) % cap``; a traced ``k``
+        gathers the head row for ``k < head_k`` and the ring row
+        otherwise and selects between the two. Every read is a gather,
+        as in the JAX package (a masked sum would turn a -0.0 field into
+        +0.0), and a gather makes no host read under vmap."""
         if self.inbox is None:
             raise RuntimeError(
                 "inbox_entry() needs entry records; this program enabled "
                 "the count-only inbox (enable_net(count_only=True)) which "
                 "tracks only arrival counts and byte totals"
             )
-        if not isinstance(k, int):
-            raise _not_ported("inbox_entry() with a traced index", 9,
-                              "replay, drain and the election plan")
         cap = self.inbox.shape[0]
-        if self.inbox_head is not None and k < self.inbox_head.shape[0]:
-            return self.inbox_head[k]
-        pos = torch.remainder(self.inbox_r + k, cap)
-        oh = torch.arange(cap, device=self.inbox.device) == pos
-        return torch.sum(
-            torch.where(oh[:, None], self.inbox, torch.zeros_like(self.inbox)),
-            dim=0,
-        )
+
+        def row(table, idx):
+            return torch.index_select(table, 0, idx.reshape(1))[0]
+
+        def ring_row(kk):
+            return row(self.inbox, torch.remainder(self.inbox_r + kk, cap))
+
+        if self.inbox_head is None:
+            return ring_row(k)
+        K = self.inbox_head.shape[0]
+        if isinstance(k, int):
+            if k < K:
+                return self.inbox_head[k]
+            return ring_row(k)
+        # the head row index as JAX reads it: min(k, K - 1), a negative
+        # index counted from the end, then clamped into range
+        hk = torch.clamp(k, max=K - 1)
+        hk = torch.clamp(torch.where(hk < 0, hk + K, hk), min=0)
+        return torch.where(k < K, row(self.inbox_head, hk), ring_row(k))
 
 
 class StateRegistry:
@@ -1105,11 +1163,37 @@ class ProgramBuilder:
 
     # ------------------------------------------------------------- replay
 
-    def on_arrival(self, *a, **k) -> None:
-        raise _not_ported("ProgramBuilder.on_arrival", 9,
-                          "replay, drain and the election plan")
+    def on_arrival(self, handler_fn, name: str = "on_arrival") -> None:
+        """Drive a ``[replay]`` schedule (sim/replay.py): one phase that
+        consumes the lane's recorded arrivals in order, one an executed
+        tick while arrivals are due, sleeps through the gaps between them
+        (the event-horizon jump lands on the next arrival), and advances
+        once the schedule is exhausted.
 
-    # -------------------------------------------------------------- build
+        ``handler_fn(env, mem, due) -> (mem, PhaseCtrl)`` runs on every
+        evaluated tick; ``due`` is the per-lane bool "an arrival is being
+        consumed now", so the handler gates its own actions and mem
+        writes on it (``torch.where(due, ...)``). Read the request with
+        ``env.next_arrival()``. This combinator owns the returned
+        PhaseCtrl's ``advance``, ``jump``, ``sleep`` and
+        ``replay_consume``; every other field passes through. Without a
+        ``[replay]`` table the phase raises "needs a [replay] table"
+        when the tick is built."""
+
+        def fn(env, mem):
+            due = env.arrivals_pending() > 0
+            done = env.arrivals_exhausted() & ~due
+            mem2, ctrl = handler_fn(env, mem, due)
+            # sleep to the next scheduled arrival when idle: the lane
+            # wakes on its tick (blocked_until = head tick)
+            gap = torch.clamp(env.next_arrival_tick() - env.tick - 1, min=0)
+            ctrl.replay_consume = due.to(torch.int32)
+            ctrl.advance = done.to(torch.int32)
+            ctrl.jump = -1
+            ctrl.sleep = torch.where(due | done, 0, gap)
+            return mem2, ctrl
+
+        self.phase(fn, name=name)
 
     def build(self) -> Program:
         if self._net_spec is not None:

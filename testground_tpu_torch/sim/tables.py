@@ -1,5 +1,5 @@
-"""The composition tables of the fault and observer planes: ``[faults]``,
-``[trace]`` and ``[telemetry]``.
+"""The composition tables of the fault, observer and replay planes:
+``[faults]``, ``[trace]``, ``[telemetry]`` and ``[replay]``.
 
 The port's own copy of those tables of ``testground_tpu/api/composition.py``
 (the port imports nothing of the JAX package, not even its jax-free
@@ -316,8 +316,9 @@ class Trace:
     demuxed after the run to Chrome trace-event JSON (sim/trace.py). A
     present but disabled table compiles to the untraced program;
     ``capacity`` is the per-lane slot count, ``categories`` and
-    ``groups`` filter what records (empty = all). ``drain`` parses, but
-    the port streams no ring yet (ROADMAP.md item 9)."""
+    ``groups`` filter what records (empty = all). ``drain`` streams the
+    ring out at every chunk boundary (sim/drain.py), so ``capacity``
+    bounds one chunk's events instead of the run's."""
 
     enabled: bool = True
     capacity: int = 256
@@ -429,7 +430,7 @@ class Telemetry:
     ``interval`` is ticks a sample, ``probes`` the catalog subset (empty
     = every probe the program can record), ``samples`` an explicit
     buffer depth (0 = the whole run; smaller only with ``drain``, which
-    parses, but the port streams no sample yet: ROADMAP.md item 9)."""
+    streams the samples out at every chunk boundary, sim/drain.py)."""
 
     enabled: bool = True
     interval: int = 1000
@@ -497,4 +498,96 @@ class Telemetry:
             histograms=[TelemetryHistogram.from_dict(h) for h in hists],
             drain=bool(d.get("drain", False)),
             samples=int(d.get("samples", 0)),
+        )
+
+
+# ------------------------------------------------------------------ replay
+
+# hard bound on the per-lane arrival table: [N, capacity] x 3 leaves in
+# device state; longer recorded workloads belong in split traces
+MAX_REPLAY_CAPACITY = 16_384
+
+
+def _replay_num(v, name: str):
+    """A replay scaling field: a positive number, or a ``"$param"``
+    reference resolved against test params when the trace compiles
+    (sim/replay.py). Returns the normalized value."""
+    if isinstance(v, str):
+        if v.startswith("$") and len(v) > 1:
+            return v
+        raise CompositionError(
+            f"replay: {name} must be a number or a '$param' reference, "
+            f"got {v!r}"
+        )
+    if isinstance(v, bool) or not isinstance(v, (int, float)):
+        raise CompositionError(
+            f"replay: {name} must be a number, got {v!r}"
+        )
+    if float(v) <= 0:
+        raise CompositionError(
+            f"replay: {name} must be > 0, got {v} (a zero/negative "
+            "scaling is an empty or inverted workload)"
+        )
+    return float(v)
+
+
+@dataclass
+class Replay:
+    """The ``[replay]`` table: a recorded workload trace (request
+    arrivals per instance per tick, and optional kill/restart rows),
+    compiled by sim/replay.py into per-lane schedule tensors riding in
+    the state. ``trace`` is the JSON-lines file; ``scale`` multiplies the
+    request load (the fractional part keeps each extra copy by a
+    seed-keyed draw) and ``time_scale`` stretches the timeline, both
+    numbers or ``"$param"`` references; ``capacity`` is the per-lane
+    table depth (0 = this trace's at this scale, an overflow is an
+    error). A disabled table compiles to the replay-free program and
+    never reads the file."""
+
+    trace: str = ""
+    scale: Any = 1.0
+    time_scale: Any = 1.0
+    capacity: int = 0
+    enabled: bool = True
+
+    def validate(self) -> None:
+        if not self.trace:
+            raise CompositionError(
+                "replay.trace is required (the recorded workload file; "
+                "see docs/replay.md)"
+            )
+        if self.capacity < 0:
+            raise CompositionError(
+                f"replay.capacity must be >= 0, got {self.capacity}"
+            )
+        if self.capacity > MAX_REPLAY_CAPACITY:
+            raise CompositionError(
+                f"replay.capacity {self.capacity} exceeds the "
+                f"{MAX_REPLAY_CAPACITY} bound (the table rides in device "
+                "state; split the trace instead)"
+            )
+        _replay_num(self.scale, "scale")
+        _replay_num(self.time_scale, "time_scale")
+
+    def param_refs(self) -> set[str]:
+        """Names of test params referenced as ``"$name"`` values."""
+        return {
+            v[1:]
+            for v in (self.scale, self.time_scale)
+            if isinstance(v, str) and v.startswith("$")
+        }
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Replay":
+        _reject_unknown_keys(
+            d,
+            {"trace", "scale", "time_scale", "capacity", "enabled"},
+            "[replay]",
+        )
+        return cls(
+            trace=str(d.get("trace", "")),
+            scale=d.get("scale", 1.0),
+            time_scale=d.get("time_scale", 1.0),
+            capacity=int(d.get("capacity", 0)),
+            enabled=bool(d.get("enabled", True)),
         )

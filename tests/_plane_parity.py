@@ -1,10 +1,12 @@
-"""Shared helpers of the fault, trace and telemetry parity tests
-(tests/test_torch_faults.py, test_torch_trace.py, test_torch_telemetry.py,
-test_torch_plans_faults.py): one program built in both packages with the
-same ``[faults]``/``[trace]``/``[telemetry]`` tables (dicts, parsed by
-each package's own table classes), the comparison of everything the
-planes give (every state leaf, the demuxed trace events, the Chrome
-trace JSON text, the telemetry records), and the op log of one tick."""
+"""Shared helpers of the fault, trace, telemetry, replay and drain parity
+tests (tests/test_torch_faults.py, test_torch_trace.py,
+test_torch_telemetry.py, test_torch_plans_faults.py, test_torch_replay.py,
+test_torch_drain.py, test_torch_plans_election.py): one program built in
+both packages with the same ``[faults]``/``[trace]``/``[telemetry]``/
+``[replay]`` tables (dicts, parsed by each package's own table classes),
+the comparison of everything the planes give (every state leaf, the
+demuxed trace events, the Chrome trace JSON text, the telemetry records,
+the consumed arrivals), and the op log of one tick."""
 
 import json
 
@@ -12,9 +14,9 @@ import jax
 import numpy as np
 import torch
 from _storm_parity import assert_leaves_equal
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from testground_tpu.api import Faults as JFaults
+from testground_tpu.api import Replay as JReplay
 from testground_tpu.api import Telemetry as JTelemetry
 from testground_tpu.api import Trace as JTrace
 from testground_tpu.parallel import instance_mesh
@@ -23,6 +25,7 @@ from testground_tpu.sim import SimConfig as JConfig
 from testground_tpu.sim import compile_program as j_compile
 from testground_tpu.sim import trace as jtrace
 from testground_tpu.sim.context import GroupSpec as JGroup
+from testground_tpu_torch.bench import OpLog
 from testground_tpu_torch.sim import BuildContext as TCtx
 from testground_tpu_torch.sim import GroupSpec as TGroup
 from testground_tpu_torch.sim import SimConfig as TConfig
@@ -31,23 +34,25 @@ from testground_tpu_torch.sim import tables
 from testground_tpu_torch.sim import trace as ttrace
 
 
-def j_tables(faults=None, trace=None, telemetry=None):
+def j_tables(faults=None, trace=None, telemetry=None, replay=None):
     """The JAX package's table objects of the dict tables."""
     return dict(
         faults=None if faults is None else JFaults.from_dict(faults),
         trace=None if trace is None else JTrace.from_dict(trace),
         telemetry=(None if telemetry is None
                    else JTelemetry.from_dict(telemetry)),
+        replay=None if replay is None else JReplay.from_dict(replay),
     )
 
 
-def t_tables(faults=None, trace=None, telemetry=None):
+def t_tables(faults=None, trace=None, telemetry=None, replay=None):
     """The port's table objects of the dict tables."""
     return dict(
         faults=None if faults is None else tables.Faults.from_dict(faults),
         trace=None if trace is None else tables.Trace.from_dict(trace),
         telemetry=(None if telemetry is None
                    else tables.Telemetry.from_dict(telemetry)),
+        replay=None if replay is None else tables.Replay.from_dict(replay),
     )
 
 
@@ -70,7 +75,7 @@ def t_build(plan, groups, case="t", chunk_ticks=64, **cfg_and_tables):
 
 
 def _split(kw):
-    tabs = {k: kw.pop(k) for k in ("faults", "trace", "telemetry")
+    tabs = {k: kw.pop(k) for k in ("faults", "trace", "telemetry", "replay")
             if k in kw}
     return tabs, kw
 
@@ -100,19 +105,8 @@ def assert_planes_equal(jpair, tpair):
         assert json.dumps(tr.chrome_trace()) == want
     assert tr.telemetry_records() == jr.telemetry_records()
     assert tr.restarts_total() == jr.restarts_total()
+    assert tr.replay_consumed() == jr.replay_consumed()
     return leaves
-
-
-class OpLog(TorchDispatchMode):
-    """Records the name of every torch op dispatched under it."""
-
-    def __init__(self):
-        super().__init__()
-        self.ops = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.ops.append(str(func))
-        return func(*args, **(kwargs or {}))
 
 
 def tick_op_log(ex, ticks=2):

@@ -6,7 +6,10 @@ slice (fused front and default lowering), gossipsub, storm (unshaped
 and shaped with churn) and the entry-mode plans with filter rules and
 dials (network's rate-shaped ping-pong and DROP-filtered dial,
 splitbrain reject-sampled, a class-rule dialing program behind the
-egress queue) on the card against the port's CPU path (on the card
+egress queue), the fault and observer planes, the replay plane (the
+echo workload dense and skipped, election at 5) and a drained run (the
+in-place cursor reset under the captured stepper, its streamed files
+byte-equal) on the card against the port's CPU path (on the card
 ``run`` replays a CUDA graph of the tick). This file imports no
 jax, so it runs on the GPU machine:
 
@@ -322,6 +325,54 @@ def test_fault_and_observer_planes_gpu_match_cpu(make):
         "storm-planes": lambda d: cs.planes_storm_exec(48, d),
         "faultsdemo": lambda d: faultsdemo.chaos_executable(
             24, d, chunk_ticks=32, max_ticks=2_000),
+    }[make]
+    a = flatten(state_to_numpy(mk(dev).run().state))
+    b = flatten(state_to_numpy(mk("cpu").run().state))
+    compare_leaves(a, b, make)
+
+
+def test_drain_resets_in_place_under_the_captured_stepper(tmp_path):
+    """A drained sparsetimer run on the card: the drain zeroes the ring
+    and sample cursors inside the state the captured loop iteration
+    replays into, so the card streams exactly what the CPU path streams
+    (three files byte-equal, every state leaf bit-equal) with one capture
+    for the whole run."""
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.sim.drain import EVENTS_FILE, RESULTS_FILE
+
+    dev = _cuda()
+    states, stats = {}, {}
+    for d in (dev, "cpu"):
+        ex = bench.drain_executable(48, d, rounds=6, chunk_ticks=40)
+        res, dr = bench.drained_run(ex, tmp_path / str(d))
+        states[str(d)] = flatten(state_to_numpy(res.state))
+        stats[str(d)] = dr.stats()
+        if d is dev:
+            assert ex.captures == 1
+    assert stats[str(dev)] == stats["cpu"]
+    assert stats["cpu"]["drain_batches"] > 5
+    compare_leaves(states[str(dev)], states["cpu"], "drained sparsetimer")
+    for f in (EVENTS_FILE, RESULTS_FILE, "trace.json"):
+        assert (tmp_path / str(dev) / f).read_bytes() == \
+            (tmp_path / "cpu" / f).read_bytes(), f
+
+
+@pytest.mark.parametrize("make", ["echo-dense", "echo-skip", "election"])
+def test_replay_gpu_matches_cpu(make, tmp_path):
+    """The replay plane's captured tick (the head view, the cursor
+    advance, the next-arrival term, the replayed churn) against the CPU
+    path: the echo workload dense and skipped, and election at 5 under
+    its composition."""
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.plans import election
+
+    dev = _cuda()
+    trace = bench.write_echo_trace(tmp_path / "echo.jsonl", 48, K=6)
+    mk = {
+        "echo-dense": lambda d: bench.echo_executable(
+            48, d, trace, K=6, event_skip=False),
+        "echo-skip": lambda d: bench.echo_executable(48, d, trace, K=6),
+        "election": lambda d: election.election_executable(5, d),
     }[make]
     a = flatten(state_to_numpy(mk(dev).run().state))
     b = flatten(state_to_numpy(mk("cpu").run().state))

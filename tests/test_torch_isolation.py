@@ -51,6 +51,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "testground_tpu_torch.kernels.ring_merge",
         "testground_tpu_torch.plans.gossipsub",
         "testground_tpu_torch.tools.microbench_append",
+        "testground_tpu_torch.sim.replay",
+        "testground_tpu_torch.sim.drain",
+        "testground_tpu_torch.plans.election",
     ):
         assert mod in out["modules"]
     assert out["bad"] == []
