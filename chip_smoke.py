@@ -56,11 +56,14 @@ Phases, in order (any failure raises and the exit code is not 0):
 10. count-scatter kernel vs plain (on a CPU copy), bit-equal: storm's
    staging shape N = 10,000 (uniform, every lane to one of 7 rows, all
    dropped; ~30% of lanes dropped; a storm tick, ~4.7% kept),
-   N = 1,000,003 (uniform, 7 rows) and the wheel shape 64 x 10,000
-   (uniform, a storm tick, one bucket); the whole function under the
+   N = 1,000,003 (uniform, 7 rows), the wheel shape 64 x 10,000
+   (uniform, a storm tick, one bucket), sparsetimer's beat, and the
+   64-seed sweep's folded call (64 storm ticks, 640,000 rows and lanes);
+   the whole function under the
    plan it picks, the plain version, ``index_add_`` and the bound; where
    the time goes (small plan: the trace build's per-block phases; large
-   plan at 1M uniform: time by kernel under ``torch.profiler``);
+   plan at 1M uniform and at the sweep's folded call: time by kernel
+   under ``torch.profiler``);
 11. storm at n = 10,000 with bench.py's params and SimConfig, to
    termination (``testground_tpu_torch.bench``'s assertions: all ok,
    zero drops, clamps and metric drops, bytes read = bytes sent), the
@@ -147,7 +150,8 @@ Phases, in order (any failure raises and the exit code is not 0):
    320,000 arrivals under half its ticks; ms per executed tick,
    arrivals/s, and no kernel launched (the echo has no data plane);
 30. ``bench --drain``'s legs at n = 10,000: sparsetimer (40 rounds of
-   50 ms, dense, 100-tick chunks) traced and sampled; the drain flag
+   50 ms, dense, 100-tick chunks) traced
+   and sampled; the drain flag
    changes no leaf, no tick op and no captured graph node; the drained
    runs (16 slots a lane, 3 sample rows) drop and clip nothing, stream
    what an undrained 1,024-slot run demuxes, and capture the loop
@@ -160,7 +164,24 @@ Phases, in order (any failure raises and the exit code is not 0):
    consumed (``election.JAX_OUTCOMES``);
 32. GPU vs CPU at n = 300, every state leaf bit-equal: the replayed
    echo dense and skipped, a drained sparsetimer (and its three streamed
-   files byte-equal), and election at 5 under its composition.
+   files byte-equal), and election at 5 under its composition;
+33. ``bench --sweep``'s legs at n = 10,000: storm with bench.py's params
+   over 64 seeds as one scenario-batched run (the loop iteration vmapped
+   over the scenario axis, captured once in a CUDA graph): every
+   scenario all ok with no drop, one capture, the count scatter once a
+   batched iteration (its vmap rule folds the 64 scenarios into one
+   launch of 640,000 rows and lanes); a serial sample of 2 seeds, each
+   its own executable and capture; scenarios/s batched and serial; and
+   scenarios 0, 31 and 63 equal to their serial runs on every leaf;
+   33b. a profiler window over the batched iteration;
+34. ``bench --search``: cliff's edge at n = 10,000 by bisection over a
+   257-value grid, 8 scenarios a round through one sweep executable
+   rebound every round: one capture, at most ceil(log2 257) + 1 = 10
+   rounds (as JAX's search_main counts its grid), the edge at the
+   first grid value above x_fail = 0.663;
+35. storm at n = 300 shaped with churn under the compressed fault
+   timeline, swept over 4 seeds (600 ticks), on the card and on the CPU:
+   every scenario's every state leaf bit-equal.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernel measurements, and ``{"ok": true, "device": {...}}``. Everything
@@ -209,7 +230,14 @@ REGIMES = [
 ]
 
 
+_T0 = time.monotonic()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's header (``[n] ...``) with the seconds since
+    the script started."""
+    if msg.startswith("["):
+        msg = f"{msg}  (t = {time.monotonic() - _T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -921,12 +949,17 @@ def profile_phase(torch, report, key, ex, wall_ms_per_tick, warm_ticks=100,
     torch.profiler (CUPTI). Device busy time is the sum of the kernels'
     (and copies') own durations; its share is taken against the
     unprofiled wall per tick of the main run, since the profiler slows
-    the host."""
+    the host. A sweep executable steps its batched iteration (every
+    scenario's tick at once)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    st = ex.init_state()
-    step = ex.stepper(st)  # as run() steps: CUDA-graph replays
+    # as run() steps: CUDA-graph replays
+    if hasattr(ex, "chunk_stepper"):
+        st, step = ex.chunk_stepper(0)
+    else:
+        st = ex.init_state()
+        step = ex.stepper(st)
     for _ in range(warm_ticks):
         st = step(st)
     torch.cuda.synchronize()
@@ -991,8 +1024,12 @@ SCATTER_CASES = [
     ("wheel", 64 * 10_000, 10_000, "bucket"),
     # sparsetimer's beat tick: every lane pings the next one, all kept
     ("staging", 10_000, 10_000, "ring"),
+    # the 64-seed storm@10k sweep's folded call (the vmap rule, [33]):
+    # 64 scenarios' staging rows and their storm ticks, lane after lane
+    ("sweep", 64 * 10_000, 64 * 10_000, "storm_sweep"),
 ]
 STORM_KEPT = 470 / 10_000  # storm@10k's data lanes a tick
+SWEEP_SEEDS = 64  # bench --sweep's scenarios (testground_tpu_torch.bench)
 
 
 def scatter_case(np, rows, lanes, case, seed):
@@ -1009,6 +1046,16 @@ def scatter_case(np, rows, lanes, case, seed):
     ``rows`` is a wheel's W x lanes)."""
     rng = np.random.default_rng(seed)
     buf = (rng.standard_normal((rows, 2)) * 1e3).astype(np.float32)
+    if case == "storm_sweep":
+        # SWEEP_SEEDS storm ticks folded as the vmap rule folds them:
+        # scenario s's lanes and rows at s * R, its drops at rows
+        per = rows // SWEEP_SEEDS
+        b, i, u = zip(*(scatter_case(np, per, lanes // SWEEP_SEEDS, "storm",
+                                     seed * 1_000 + s)
+                        for s in range(SWEEP_SEEDS)))
+        idx = [np.where(x < per, x + s * per, rows) for s, x in enumerate(i)]
+        return (np.concatenate(b), np.concatenate(idx).astype(np.int32),
+                np.concatenate(u))
     if case == "storm":
         buf = rng.integers(0, 64, (rows, 2)).astype(np.float32) * [1, 4096]
         buf = buf.astype(np.float32)
@@ -1141,7 +1188,7 @@ def scatter_phase(torch, np, dev, report):
         row["vs_library"] = row["wrapper_ms"] / row["library_ms"]
         if row["plan"] == "small":
             row["phases_us"] = scatter_trace(torch, np, kern, buf, idx, upd)
-        elif case == "uniform":
+        elif case in ("uniform", "storm_sweep"):
             row["by_kernel"] = kernel_breakdown(
                 torch, lambda: csc.scatter_add(buf, idx, upd))
         log(f"  scatter {label:7s} {case:11s} rows={rows:>9,d} "
@@ -1791,8 +1838,7 @@ def drain_phase(torch, dev, report):
         for k in ("drain_off", "drain_on")}
     log(f"  captured loop iteration: {nodes}")
     assert nodes["drain_on"] == nodes["drain_off"], nodes
-    # one plain and one drained run (bench --drain takes two of each):
-    # a drained run's host demux takes ~45 s at this size
+    # one plain and one drained run (bench --drain takes two of each)
     line = bench.drain_leg(10_000, dev, runs=1)
     line["graph_nodes"] = nodes
     report["drain10k"] = line
@@ -1873,6 +1919,131 @@ def drain_parity_phase(torch, np, dev, report, n=300):
                                  "stats": stats["cpu"]}
     log(f"  drained sparsetimer@{n}: GPU vs CPU bit-equal over {leaves} "
         f"leaves, streamed files byte-equal {sizes}, {stats['cpu']}")
+
+
+# -------------------------------------------------------- sweep and search
+
+SWEEP_HELD = (0, 31, 63)  # the sweep's scenarios held against serial runs
+
+
+def sweep_phase(torch, dev, report, n=10_000):
+    """[33] bench --sweep's legs at ``n``: the SWEEP_SEEDS-seed storm
+    sweep as one batched, once-captured run (every scenario asserted,
+    the count scatter once a batched iteration: the folded call), the
+    serial sample, and the scenarios ``SWEEP_HELD`` held leaf for leaf
+    against their serial runs on the card. Returns (the report row, the
+    sweep executable)."""
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.sim.state_io import (
+        compare_leaves, flatten, state_to_numpy,
+    )
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    # sweep_leg sets every launch count to 0 just before the batched run
+    # and reads them just after it
+    assert bench.SWEEP_SEEDS == SWEEP_SEEDS, bench.SWEEP_SEEDS
+    line, res, serial = bench.sweep_leg(n, device=dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ex = res.executable
+    executed = max(res.scenario(s).ticks_executed for s in range(SWEEP_SEEDS))
+    assert launch_bounds(executed, ex.config.chunk_ticks,
+                         line["launches"]["count_scatter"]), (
+        line["launches"], executed)
+    assert (line["launches"]["deliver_front"],
+            line["launches"]["ring_merge"]) == (0, 0), line["launches"]
+    held = {}
+    for s in SWEEP_HELD:
+        ref = (serial[s] if s < len(serial)
+               else bench.storm_executable(n, dev, seed=s).run())
+        got = flatten(state_to_numpy(res.scenario(s).state))
+        got.pop("rng_key")
+        held[s] = compare_leaves(got, flatten(state_to_numpy(ref.state)),
+                                 f"sweep scenario {s} vs its serial run")
+        del ref
+    out = {**line, "executed_ticks_max": executed, "held_leaves": held,
+           "max_memory_allocated": peak,
+           "ms_per_batched_tick": res.wall_seconds / max(res.ticks, 1) * 1e3}
+    report["sweep10k"] = out
+    log(f"  {SWEEP_SEEDS}-seed storm@{n:,d} sweep: {line['value']:.3f} "
+        f"scenarios/s batched ({line['batched_run_seconds']:.2f} s run, "
+        f"{line['batched_wall_seconds']:.2f} s with the build and the "
+        f"capture of {line['capture_seconds']:.2f} s; captures "
+        f"{line['captures']}), serial {line['serial_scenarios_per_sec']:.4f}"
+        f" scenarios/s ({', '.join(f'{x:.2f}' for x in line['serial_sample_seconds'])} s), "
+        f"speedup {line['speedup_vs_serial']:.2f}x; {res.ticks} batched "
+        f"iterations at {out['ms_per_batched_tick']:.3f} ms; count "
+        f"scatter launches {line['launches']['count_scatter']}; peak "
+        f"{peak / 1e9:.2f} GB")
+    log(f"  scenarios {', '.join(map(str, SWEEP_HELD))} equal to their "
+        f"serial runs on {', '.join(str(v) for v in held.values())} leaves")
+    return out, ex
+
+
+def search_phase(torch, dev, report, n=10_000):
+    """[34] bench --search at ``n``: cliff's edge by bisection, one
+    capture for every round."""
+    from testground_tpu_torch import bench
+
+    out = bench.search_leg(n, dev)
+    report["search10k"] = out
+    log(f"  search @{n:,d}: edge {out['breaking_point']} (last passing "
+        f"{out['last_passing']}) in {out['rounds']} rounds (bound "
+        f"{out['round_bound']}), {out['value']} of "
+        f"{out['exhaustive_scenarios']} scenarios probed, captures "
+        f"{out['captures']}, {out['wall_seconds']:.2f} s")
+    return out
+
+
+def shaped_fault_sweep(n, device, seeds=4):
+    """storm with ``__graft_entry__``'s compressed shaped params (links,
+    loss, SYN retries, churn-tolerant rendezvous, 5% churn) under
+    bench.py's fault timeline compressed with the dial window, over
+    ``seeds`` seeds as one sweep, cut at 600 ticks (past the whole
+    timeline: its last event, the restart, is at tick 60)."""
+    from testground_tpu_torch import bench, graft
+    from testground_tpu_torch.plans import benchmarks
+    from testground_tpu_torch.sim import GroupSpec, SimConfig
+    from testground_tpu_torch.sim.sweep import compile_sweep
+
+    params = {**graft.STORM_PARAMS, **graft.SHAPED_PARAMS,
+              **bench.FAULT_PARAMS}
+    scale = graft.STORM_PARAMS["conn_delay_ms"] / bench.PARAMS["conn_delay_ms"]
+    groups = [GroupSpec("single", 0, n,
+                        {k: str(v) for k, v in params.items()})]
+    cfg = SimConfig(quantum_ms=10.0, max_ticks=600, chunk_ticks=32,
+                    phase_gating=True, churn_fraction=0.05,
+                    churn_start_ms=500.0, churn_end_ms=1_500.0)
+    return compile_sweep(benchmarks.storm, groups, cfg,
+                         [{"seed": s, "params": {}} for s in range(seeds)],
+                         test_case="storm", test_run="chip-smoke",
+                         faults=bench.fault_timeline(scale), device=device)
+
+
+def sweep_parity_phase(np, dev, report, n=300, seeds=4):
+    """[35] the shaped fault sweep at ``n`` x ``seeds`` on the card and on
+    the CPU: every scenario's every state leaf bit-equal."""
+    from testground_tpu_torch.sim.state_io import (
+        compare_leaves, flatten, state_to_numpy,
+    )
+
+    states, walls = {}, {}
+    for d in (dev, "cpu"):
+        ex = shaped_fault_sweep(n, d, seeds)
+        res = ex.run()
+        states[str(d)] = [flatten(state_to_numpy(res.scenario(s).state))
+                          for s in range(seeds)]
+        walls[str(d)] = (res.ticks, res.wall_seconds, ex.captures)
+    leaves = [compare_leaves(states[str(dev)][s], states["cpu"][s],
+                             f"sweep scenario {s}: GPU vs CPU")
+              for s in range(seeds)]
+    report["sweep300_parity"] = {
+        "leaves": leaves, "bit_equal": True,
+        "gpu": walls[str(dev)], "cpu": walls["cpu"],
+    }
+    log(f"  shaped fault sweep @{n} x {seeds}: GPU vs CPU bit-equal over "
+        f"{leaves[0]} leaves a scenario (iterations {walls[str(dev)][0]}, "
+        f"GPU {walls[str(dev)][1]:.2f} s with {walls[str(dev)][2]} "
+        f"capture, CPU {walls['cpu'][1]:.2f} s)")
 
 
 def main() -> int:
@@ -2118,7 +2289,7 @@ def main() -> int:
                  report["planes_off_graph_nodes"]["storm10k"])
     log("[30] bench --drain @ 10,000: sparsetimer traced and sampled, "
         "drained at every chunk")
-    drain = drain_phase(torch, dev, report)
+    drain_phase(torch, dev, report)
     log(f"[31] election quorum @ 5 and @ {ELECTION_BIG_N:,d} with its "
         "composition's [replay] and [faults]")
     for n in (5, ELECTION_BIG_N):
@@ -2139,13 +2310,27 @@ def main() -> int:
 
     parity_phase(np, dev, report, "election5_parity",
                  lambda n, d: telection.election_executable(n, d), n=5)
+    log(f"[33] bench --sweep: the {SWEEP_SEEDS}-seed storm @ 10,000 sweep, "
+        "batched and a serial sample; scenarios "
+        f"{', '.join(map(str, SWEEP_HELD))} against their serial runs")
+    sweep, sweep_ex = sweep_phase(torch, dev, report)
+    log("[33b] the batched storm@10k iteration under torch.profiler")
+    profile_phase(torch, report, "sweep10k_profile", sweep_ex,
+                  sweep["ms_per_batched_tick"])
+    del sweep_ex
+    log("[34] bench --search: cliff's edge @ 10,000 by bisection")
+    search_phase(torch, dev, report)
+    log("[35] shaped storm sweep @ 300 x 4 seeds under the fault timeline: "
+        "GPU vs CPU")
+    sweep_parity_phase(np, dev, report)
 
     front_row = next(r for r in rows if r["n"] == 10_000
                      and r["regime"] == "mixed")
     merge_row = merge_rows[0]  # dht@10k's shape
-    # the shape of the path whose launches the line reports: the drained
-    # sparsetimer's beat tick
-    scatter_row = next(r for r in scatter_rows if r["case"] == "ring")
+    # the shape of the path whose launches the line reports: the sweep's
+    # folded call
+    scatter_row = next(r for r in scatter_rows
+                       if r["case"] == "storm_sweep")
     kernels = {"kernels": [
         {
             "name": "deliver_front",
@@ -2179,8 +2364,8 @@ def main() -> int:
             "source": "testground_tpu_torch/csrc/count_scatter.cu",
             # no TPU kernel: XLA's scatter-add of count mode
             "replaces": "testground_tpu/sim/net.py:1313",
-            # this slice's path that runs it: the drained run of [30]
-            "launches": drain["launches"]["count_scatter"],
+            # this slice's path that runs it: the batched sweep of [33]
+            "launches": sweep["launches"]["count_scatter"],
             "max_abs_err": scatter_err,
             "ms": scatter_row["wrapper_ms"],
             "plain_ms": scatter_row["plain_ms"],

@@ -5,11 +5,12 @@ run of the sparse-timer plan; with ``--faults``, ``--trace`` or
 ``TG_BENCH_TELEM``'s runs of storm under the fault, trace and telemetry
 planes; with ``--replay`` and ``--drain``, ``TG_BENCH_REPLAY``'s and
 ``TG_BENCH_DRAIN``'s legs (``replay_main`` and ``drain_main`` of
-``bench.py``).
+``bench.py``); with ``--sweep`` and ``--search``, ``TG_BENCH_SWEEP=64``'s
+and ``TG_BENCH_SEARCH``'s (``sweep_main`` and ``search_main``).
 
     python -m testground_tpu_torch.bench [--shaped | --skip | --faults |
                                           --trace | --telem | --replay |
-                                          --drain]
+                                          --drain | --sweep | --search]
 
 Runs the storm plan (testground_tpu_torch/plans/benchmarks.py) with
 ``bench.py``'s ``PARAMS`` and ``SimConfig`` (10 ms quantum, max 100,000
@@ -68,6 +69,21 @@ events and their streamed samples its telemetry records, and they
 capture the loop iteration once a run. Prints the drain's overhead, its
 cost a batch and the count-scatter launches of a drained run.
 
+With ``--sweep``: storm at 10,000 with ``PARAMS`` over 64 seeds as one
+scenario-batched run (sim/sweep.py: the loop iteration vmapped over the
+scenario axis, captured once in a CUDA graph), every scenario asserted
+as ``sweep_main`` asserts (all ok, no inbox or metric drop), then a
+serial sample of 2 seeds, each its own executable and capture. Prints
+scenarios/s batched and serial, the speedup, the capture's seconds and
+the capture count (1).
+
+With ``--search``: bisects the cliff case's edge (``x_fail`` = 0.663) at
+10,000 over a 257-value grid of x in [0, 1], 8 scenarios a round,
+through one sweep executable rebound every round (sim/search.py); asserts
+one build and one capture, at most ceil(log2 grid) + 1 rounds and the
+edge at the first grid value above 0.663. Prints the rounds, the
+scenarios probed and the edge.
+
 The other builders here (``barrier_executable``, ``subtree_executable``)
 are those of ``testground_tpu_torch.tools.bench_barrier`` and
 ``bench_subtree``; ``splitbrain_executable`` builds the splitbrain
@@ -80,6 +96,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import torch
@@ -177,8 +194,26 @@ def _case_executable(case, n, params, cfg, device, plan=benchmarks,
                            **tables)
 
 
+def storm_config(shaped=False, chunk_ticks=CHUNK_TICKS, seed=0) -> SimConfig:
+    """bench.py's storm SimConfig (``shaped``: with TG_BENCH_SHAPED's
+    churn)."""
+    cfg = SimConfig(
+        quantum_ms=10.0,
+        chunk_ticks=chunk_ticks,
+        max_ticks=100_000,
+        metrics_capacity=16,
+        phase_gating=True,
+        seed=seed,
+    )
+    if shaped:
+        cfg.churn_fraction = 0.02
+        cfg.churn_start_ms = 5_000.0
+        cfg.churn_end_ms = 20_000.0
+    return cfg
+
+
 def storm_executable(n, device="cuda", shaped=False, chunk_ticks=CHUNK_TICKS,
-                     planes=(), off=False, fault_params=None):
+                     planes=(), off=False, fault_params=None, seed=0):
     """bench.py's storm executable at ``n`` instances on ``device``;
     ``planes`` (of "faults", "trace", "telem") add those planes' bench
     tables (``off``: their empty or disabled forms), and
@@ -192,17 +227,7 @@ def storm_executable(n, device="cuda", shaped=False, chunk_ticks=CHUNK_TICKS,
         fault_params = "faults" in planes and not off
     if fault_params:
         params.update(FAULT_PARAMS)
-    cfg = SimConfig(
-        quantum_ms=10.0,
-        chunk_ticks=chunk_ticks,
-        max_ticks=100_000,
-        metrics_capacity=16,
-        phase_gating=True,
-    )
-    if shaped:
-        cfg.churn_fraction = 0.02
-        cfg.churn_start_ms = 5_000.0
-        cfg.churn_end_ms = 20_000.0
+    cfg = storm_config(shaped, chunk_ticks, seed)
     ex = _case_executable("storm", n, params, cfg, device, **tables)
     if shaped:
         assert not ex.program.net_spec.fixed_next_tick, (
@@ -807,6 +832,192 @@ def drain_main(n=N) -> int:
     return 0
 
 
+# ------------------------------------------------------ sweep and search
+
+SWEEP_SEEDS = 64  # TG_BENCH_SWEEP=64, docs/sweeps.md's 64-seed churn study
+SWEEP_SERIAL = 2  # TG_BENCH_SWEEP_SERIAL's default: serial sample seeds
+SEARCH_GRID = 256  # TG_BENCH_SEARCH_GRID's default
+SEARCH_WIDTH = 8  # TG_BENCH_SEARCH_WIDTH's default
+CLIFF_AT = 0.663  # search_main's cliff: strictly between grid points
+
+
+def storm_sweep(n, seeds, device="cuda"):
+    """bench.py sweep_main's batched executable: storm at ``n`` with
+    ``PARAMS`` over seeds 0..seeds-1, one scenario each, chunked by the
+    memory pre-flight."""
+    from .sim.sweep import compile_sweep, sweep_preflight
+
+    groups = [GroupSpec("single", 0, n,
+                        {k: str(v) for k, v in PARAMS.items()})]
+    scenarios = [{"seed": s, "params": {}} for s in range(seeds)]
+
+    def make(cfg, chunk):
+        return compile_sweep(benchmarks.storm, groups, cfg, scenarios,
+                             test_case="storm", test_run="bench",
+                             chunk=chunk, device=device)
+
+    ex, report = sweep_preflight(make, storm_config(), seeds,
+                                 allow_shrink=False)
+    ex.preflight = report
+    return ex
+
+
+def assert_sweep_run(res, n):
+    """sweep_main's ``assert_run`` on one scenario: every instance ok,
+    no inbox drop and no metric drop."""
+    statuses = res.statuses()[:n]
+    ok = int((statuses == 1).sum())
+    assert ok == n, f"only {ok}/{n} instances ok"
+    assert res.net_dropped() == 0, f"{res.net_dropped()} messages dropped"
+    assert res.metrics_dropped() == 0, (
+        f"{res.metrics_dropped()} metric records dropped")
+
+
+def sweep_leg(n=N, device="cuda"):
+    """bench.py sweep_main at ``n`` on ``device``: the SWEEP_SEEDS-seed
+    storm sweep as one batched run (every scenario asserted), then a
+    serial sample of SWEEP_SERIAL seeds, each its own executable and
+    capture. Returns (its fields, the sweep result, the serial
+    results)."""
+    from .sim.sweep import chunk_compiles
+
+    seeds = SWEEP_SEEDS
+    builds0 = chunk_compiles()
+    t0 = time.monotonic()
+    ex = storm_sweep(n, seeds, device)
+    kernel_launches(reset=True)
+    res = ex.run()
+    batched_total = time.monotonic() - t0
+    launches = kernel_launches()
+    for s in range(seeds):
+        assert_sweep_run(res.scenario(s), n)
+    if ex.device.type == "cuda":
+        assert ex.captures == 1, f"{ex.captures} captures, not 1"
+    serial, serial_s = [], []
+    for s in range(SWEEP_SERIAL):
+        t1 = time.monotonic()
+        ex_s = storm_executable(n, device, seed=s)
+        r = ex_s.run()
+        serial_s.append(time.monotonic() - t1)
+        assert_sweep_run(r, n)
+        serial.append(r)
+    per_run = sum(serial_s) / len(serial_s)
+    sps_batched = seeds / batched_total
+    sps_serial = 1.0 / per_run
+    line = {
+        "metric": f"storm {seeds}-seed sweep scenarios/sec at {n} "
+                  "instances",
+        "value": sps_batched,
+        "unit": "scenarios/sec",
+        "vs_baseline": None,
+        "speedup_vs_serial": sps_batched / sps_serial,
+        "batched_wall_seconds": batched_total,
+        "batched_run_seconds": res.wall_seconds,
+        "capture_seconds": res.capture_seconds,
+        "captures": ex.captures,
+        "batched_tick_builds": chunk_compiles() - builds0,
+        "scenario_chunks": ex.n_chunks,
+        "state_model_bytes": ex.preflight["state_model_bytes"],
+        "ticks": res.ticks,
+        "launches": launches,
+        "serial_sample_seconds": serial_s,
+        "serial_scenarios_per_sec": sps_serial,
+        "serial_extrapolated_seconds": per_run * seeds,
+    }
+    return line, res, serial
+
+
+def sweep_main() -> int:
+    line, _, _ = sweep_leg()
+    line["device"] = device_line()
+    print(json.dumps(line))
+    return 0
+
+
+def search_leg(n=N, device="cuda", grid_n=SEARCH_GRID) -> dict:
+    """bench.py search_main at ``n`` on ``device``: bisect ``cliff``'s
+    edge (``x_fail`` = ``CLIFF_AT``) over a ``grid_n``-point grid of x in
+    [0, 1], SEARCH_WIDTH scenarios a round, through one batched executable
+    rebound every round. Asserts one build of the batched tick (and on
+    the card one capture), at most ceil(log2 grid) + 1 rounds, and the
+    edge at the first grid value above ``CLIFF_AT``."""
+    import math
+
+    from .sim.search import (
+        SearchRebinder, make_driver, probe_scenarios, run_search_loop,
+    )
+    from .sim.sweep import chunk_compiles, compile_sweep
+    from .sim.tables import Search
+
+    build_fn = benchmarks.cliff
+    groups = [GroupSpec("single", 0, n, {"x_fail": str(CLIFF_AT)})]
+    cfg = SimConfig(quantum_ms=10.0, max_ticks=10_000,
+                    chunk_ticks=CHUNK_TICKS, metrics_capacity=8)
+    spec = Search(param="x", lo=0.0, hi=1.0, step=1.0 / grid_n,
+                  width=SEARCH_WIDTH)
+    driver = make_driver(spec)
+    grid = driver.grid
+    t0 = time.monotonic()
+    builds0 = chunk_compiles()
+    batch0 = driver.next_batch()
+    ex = compile_sweep(build_fn, groups, cfg, probe_scenarios(batch0, "x"),
+                       test_case="cliff", test_run="bench-search",
+                       device=device)
+    rebinder = SearchRebinder(ex, None, build_fn, groups, ex.config,
+                              test_case="cliff")
+
+    def evaluate(r, batch):
+        if r > 0:
+            rebinder.rebind(probe_scenarios(batch, "x"))
+        res = ex.run()
+        for p in batch:
+            if p.pad:
+                continue
+            oc = res.scenario(p.scenario).outcomes()
+            ok = all(o[0] == o[1] for o in oc.values())
+            p.outcome = "success" if ok else "failure"
+            p.failed = not ok
+            p.objective = 0.0 if ok else 1.0
+
+    verdict = run_search_loop(driver, evaluate, first_batch=batch0)
+    wall = time.monotonic() - t0
+    builds = chunk_compiles() - builds0
+    assert builds == 1, f"search built the batched tick {builds} times"
+    if ex.device.type == "cuda":
+        assert ex.captures == 1, f"search captured {ex.captures} times"
+    bound = math.ceil(math.log2(len(grid))) + 1
+    assert len(driver.rounds) <= bound, (len(driver.rounds), bound)
+    want = min(v for v in grid if v > CLIFF_AT)
+    assert verdict["first_failing"] == want, (verdict, want)
+    assert verdict["last_passing"] == max(v for v in grid if v <= CLIFF_AT)
+    exhaustive = len(grid) * spec.seeds
+    return {
+        "metric": f"breaking-point search scenarios probed at {n} "
+                  f"instances (grid {len(grid)})",
+        "value": driver.scenarios_probed,
+        "unit": "scenarios",
+        "vs_baseline": None,
+        "exhaustive_scenarios": exhaustive,
+        "probe_savings_x": exhaustive / driver.scenarios_probed,
+        "rounds": len(driver.rounds),
+        "round_bound": bound,
+        "batched_tick_builds": builds,
+        "captures": ex.captures,
+        "one_capture": ex.captures == 1,
+        "breaking_point": verdict["first_failing"],
+        "last_passing": verdict["last_passing"],
+        "wall_seconds": wall,
+        "capture_seconds": ex.capture_seconds,
+    }
+
+
+def search_main() -> int:
+    line = search_leg()
+    line["device"] = device_line()
+    print(json.dumps(line))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -816,7 +1027,13 @@ def main(argv=None) -> int:
         mode.add_argument(f"--{plane}", action="store_true")
     mode.add_argument("--replay", action="store_true")
     mode.add_argument("--drain", action="store_true")
+    mode.add_argument("--sweep", action="store_true")
+    mode.add_argument("--search", action="store_true")
     args = ap.parse_args(argv)
+    if args.sweep:
+        return sweep_main()
+    if args.search:
+        return search_main()
     if args.skip:
         return skip_main()
     if args.replay:

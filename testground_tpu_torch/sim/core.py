@@ -43,8 +43,9 @@ event-horizon min. Each plane is a Python branch on its compiled spec,
 so without one a tick builds the same state and runs the same ops. At
 each chunk boundary ``SimExecutable.run`` hands the state to the drain
 plane (sim/drain.py), then to the caller's ``on_chunk`` and
-``should_stop``. Sweep raises ``NotImplementedError`` naming the
-ROADMAP.md module that ports it.
+``should_stop``. A sweep (sim/sweep.py) runs ``guarded_tick`` batched
+over a leading scenario axis with ``torch.func.vmap``, each scenario
+with its own key and params in the state (``rng_key``, ``params``).
 """
 
 from __future__ import annotations
@@ -221,8 +222,10 @@ def _ranked_scatter(ids: torch.Tensor, table_size: int,
     rank[order] = rank_sorted
     prev = prev_counts[torch.clamp(ids, 0, table_size - 1)]
     seq = torch.where(valid, prev + rank + 1, 0)
-    counts = torch.cat([prev_counts, prev_counts.new_zeros(1)])
-    counts.index_add_(0, safe, valid.to(prev_counts.dtype))
+    # integer adds (exact in any order); a scatter_add, not an
+    # index_add_, so that a sweep's vmap batches it in one op
+    counts = torch.cat([prev_counts, prev_counts.new_zeros(1)]).scatter_add(
+        0, safe.to(torch.int64), valid.to(prev_counts.dtype))
     return counts[:table_size], seq, valid
 
 
@@ -441,7 +444,38 @@ def _leaves(tree: dict):
 def _tree_where(go, new, old):
     if isinstance(new, dict):
         return {k: _tree_where(go, new[k], old[k]) for k in new}
-    return torch.where(go, new, old)
+    # a leaf the step passed through (a key, a schedule) is its own select
+    return old if new is old else torch.where(go, new, old)
+
+
+def capture_step(step, st: dict, device):
+    """``step`` (state -> state) captured once in a CUDA graph on
+    ``device``, after ``STEPPER_WARMUP`` eager calls (which leave ``st``
+    as it was: the step is pure), with a copy of its result back into
+    ``st``'s tensors. The returned function replays the graph: it
+    advances ``st`` itself by one step and returns it. The capture fails
+    if the step reads anything back to the host."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        for _ in range(STEPPER_WARMUP):
+            step(st)
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    ins = list(_leaves(st))
+    with torch.cuda.graph(graph):
+        out = step(st)
+        for dst, src in zip(ins, _leaves(out)):
+            if src is not dst:
+                dst.copy_(src)
+
+    def replay(state):
+        assert state is st, "a captured stepper advances its own state"
+        graph.replay()
+        return state
+
+    replay.graph = graph  # the graph lives as long as the stepper
+    return replay
 
 
 class SimExecutable:
@@ -1105,7 +1139,14 @@ class SimExecutable:
 
         def tick_fn(st: dict) -> dict:
             tick = st["tick"]
-            key = prng.fold_in(base_key, tick)
+            # a sweep's state (sim/sweep.py) carries each scenario's key
+            # and the param arrays that vary across its scenarios; a plain
+            # run keeps them as constants (the same bits either way)
+            key = prng.fold_in(
+                st["rng_key"].to(torch.int64) if "rng_key" in st
+                else base_key, tick)
+            prows = ({**params, **st["params"]} if "params" in st
+                     else params)
             st = dict(st)
             # this tick's observer helpers; a lane's records keep the JAX
             # site order: restart, kill, wheel drain, lane transitions,
@@ -1208,7 +1249,7 @@ class SimExecutable:
                               crashed_total, dead_signals, dead_pubs)
             res = vstep(
                 st["pc"], st["status"], st["blocked_until"], st["last_seq"],
-                st["mem"], instance_ids, group_ids, group_instance, params,
+                st["mem"], instance_ids, group_ids, group_instance, prows,
                 net_row, lane_keys, lane_extra,
             )
             pc, status, blocked = res["pc"], res["status"], res["blocked_until"]
@@ -1356,8 +1397,10 @@ class SimExecutable:
                                      lane_extra["arr_pending"])
                 out["replay"] = {**st["replay"],
                                  "cursor": st["replay"]["cursor"] + take}
-            # the fault plane's leaves carry this tick's rejoin updates
-            for k in ("faults", "restarts", "stale_sig"):
+            # the sweep's leaves ride through; the fault plane's carry
+            # this tick's rejoin updates
+            for k in ("rng_key", "params", "faults", "restarts",
+                      "stale_sig"):
                 if k in st:
                     out[k] = st[k]
             if em is not None:
@@ -1442,26 +1485,8 @@ class SimExecutable:
         tick's, bit for bit."""
         if self.device.type != "cuda":
             return self.guarded_tick
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(STEPPER_WARMUP):
-                self.guarded_tick(st)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        ins = list(_leaves(st))
-        with torch.cuda.graph(graph):
-            out = self.guarded_tick(st)
-            for dst, src in zip(ins, _leaves(out)):
-                dst.copy_(src)
+        replay = capture_step(self.guarded_tick, st, self.device)
         self.captures += 1
-
-        def replay(state):
-            assert state is st, "a captured stepper advances its own state"
-            graph.replay()
-            return state
-
-        replay.graph = graph  # the graph lives as long as the stepper
         return replay
 
     def run(self, on_chunk=None, drain=None, should_stop=None,

@@ -30,12 +30,12 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
 from . import telemetry as telemetrymod
 from . import trace as tracemod
-from .program import _not_ported
 
 # the streamed files: the trace events (the event file the daemon tails
 # for GET /events) and the telemetry records
@@ -115,12 +115,14 @@ def _host(tree: dict) -> dict:
 
 
 class ObserverDrain:
-    """The host side of the drain plane for one run. Construct it with
-    the executable and ``run_dir``; ``SimExecutable.run(drain=...)``
-    calls :meth:`drain` at every chunk boundary, and the caller calls
-    :meth:`finalize` with the final state. ``scenario_dir`` (the
-    batched runs' per-scenario directories) belongs to the sweep plane,
-    not ported yet."""
+    """The host side of the drain plane for one run (plain, a sweep, or
+    one round of a search). Construct it with the executable and either
+    ``run_dir`` (a plain run) or ``scenario_dir`` (a batched run: a
+    callable from the global scenario index to its directory);
+    ``run(drain=...)`` calls :meth:`drain` at every chunk boundary, and
+    the caller calls :meth:`finalize` (or :meth:`finalize_scenario` for
+    each scenario) with the final state. ``skip_scenarios`` are batched
+    rows never streamed (a search round's padding probes)."""
 
     def __init__(
         self,
@@ -130,22 +132,26 @@ class ObserverDrain:
         telem_drain: bool = False,
         run_dir=None,
         scenario_dir=None,
+        skip_scenarios=(),
     ) -> None:
-        if scenario_dir is not None:
-            raise _not_ported("ObserverDrain(scenario_dir=...)", 10,
-                              "sweep and search")
-        if run_dir is None:
+        if (run_dir is None) == (scenario_dir is None):
             raise ValueError(
                 "ObserverDrain needs exactly one of run_dir/scenario_dir"
             )
         self.ex = ex
+        self.skip_scenarios = frozenset(skip_scenarios)
         self.trace_spec = getattr(ex, "trace", None) if trace_drain else None
         self.telem_spec = (
             getattr(ex, "telemetry", None) if telem_drain else None
         )
+        self.batched = scenario_dir is not None
+        self._scenario_dir = scenario_dir
         self.batches = 0
-        self._stream = _Stream(run_dir)
-        # the lanes demux reads: real instances only
+        self._streams: dict[Optional[int], _Stream] = {}
+        if run_dir is not None:
+            self._streams[None] = _Stream(run_dir)
+        # the lanes demux reads: real instances only (a batched state's
+        # rows slice to this too)
         self.n = ex.ctx.n_instances
         self.quantum_ms = ex.config.quantum_ms
 
@@ -155,8 +161,13 @@ class ObserverDrain:
 
     # --------------------------------------------------------- host side
 
-    def _drain_trace_rows(self, buf, cnt, dropped) -> None:
-        stream = self._stream
+    def _stream(self, sid: Optional[int]) -> _Stream:
+        st = self._streams.get(sid)
+        if st is None:
+            st = self._streams[sid] = _Stream(self._scenario_dir(sid))
+        return st
+
+    def _drain_trace_rows(self, stream: _Stream, buf, cnt, dropped) -> None:
         stream.trace_dropped = int(np.asarray(dropped)[: self.n].sum())
         ev = tracemod.trace_events(
             {"trace_buf": buf, "trace_cnt": cnt}, self.n
@@ -174,8 +185,7 @@ class ObserverDrain:
         stream.trace_events += len(ev)
         stream.append_trace(rows)
 
-    def _drain_telem_rows(self, leaves: dict) -> None:
-        stream = self._stream
+    def _drain_telem_rows(self, stream: _Stream, leaves: dict) -> None:
         clipped_now = int(np.asarray(leaves["clipped"]))
         clip_delta = clipped_now - stream.telemetry_clipped
         stream.telemetry_clipped = clipped_now
@@ -197,35 +207,60 @@ class ObserverDrain:
             stream.append_results(lane + glob)
         stream.telemetry_boundaries += batch_cnt + clip_delta
 
-    def drain(self, st: dict) -> dict:
+    def drain(self, st: dict, chunk: int = 0) -> dict:
         """One chunk boundary: read the observer leaves to the host,
         demux and append the batch, and zero the device cursors in
         place. Returns ``st`` itself (a captured stepper advances its
-        own state's tensors)."""
+        own state's tensors). ``chunk`` is a batched run's scenario
+        chunk (global scenario = chunk x chunk_size + row)."""
         if not self.active:
             return st
         # one device-to-host read a boundary: the drain's whole cost
         # on the card
+        host = {}
         if self.trace_spec is not None:
-            tr = _host(st["trace"])
-            self._drain_trace_rows(tr["trace_buf"], tr["trace_cnt"],
-                                   tr["trace_dropped"])
+            host["trace"] = _host(st["trace"])
+        if self.telem_spec is not None:
+            host["telem"] = _host(st["telem"])
+        if self.batched:
+            C = self.ex.chunk_size
+            n_scen = self.ex.n_scenarios
+            for row in range(C):
+                sid = chunk * C + row
+                if sid >= n_scen:
+                    break  # padding rows repeat scenario 0: never demux
+                if sid in self.skip_scenarios:
+                    continue
+                self._drain_rows(self._stream(sid), host, row)
+        else:
+            self._drain_rows(self._streams[None], host, None)
+        if self.trace_spec is not None:
             st["trace"]["trace_cnt"].zero_()
         if self.telem_spec is not None:
-            self._drain_telem_rows(_host(st["telem"]))
             st["telem"]["cnt"].zero_()
         self.batches += 1
         return st
 
+    def _drain_rows(self, stream: _Stream, host: dict, row) -> None:
+        """Demux one stream's batch: ``row`` is its scenario's row of a
+        batched boundary (None: the plain run's leaves)."""
+        def at(v):
+            return v if row is None else v[row]
+
+        if "trace" in host:
+            tr = host["trace"]
+            self._drain_trace_rows(stream, at(tr["trace_buf"]),
+                                   at(tr["trace_cnt"]),
+                                   at(tr["trace_dropped"]))
+        if "telem" in host:
+            self._drain_telem_rows(
+                stream, {k: at(v) for k, v in host["telem"].items()})
+
     # -------------------------------------------------------- finalizing
 
-    def finalize(self, state: dict, fault_plan=None) -> None:
-        """After the run: the fault windows' track from the final
-        state's window leaves and, for an event-free run, the metadata
-        row, onto the trace stream; the cumulative histograms onto the
-        results stream; then ``trace.json`` assembled from
-        ``trace.jsonl``."""
-        stream = self._stream
+    def _finalize_stream(self, sid: Optional[int], state: dict,
+                         fault_plan) -> None:
+        stream = self._stream(sid) if self.batched else self._streams[None]
         if self.trace_spec is not None:
             tail: list[dict] = []
             if not stream._trace_open:
@@ -259,12 +294,22 @@ class ObserverDrain:
             )
             stream.append_results(lane + glob)
 
+    def finalize(self, state: dict, fault_plan=None) -> None:
+        """After a plain run: the fault windows' track from the final
+        state's window leaves and, for an event-free run, the metadata
+        row, onto the trace stream; the cumulative histograms onto the
+        results stream; then ``trace.json`` assembled from
+        ``trace.jsonl``."""
+        self._finalize_stream(None, state, fault_plan)
+
+    def finalize_scenario(self, s: int, state: dict, fault_plan=None) -> None:
+        """:meth:`finalize` for scenario ``s`` of a batched run, from its
+        own final state (its fault windows ride it)."""
+        self._finalize_stream(s, state, fault_plan)
+
     # -------------------------------------------------------- accounting
 
-    def stats(self) -> dict:
-        """The cumulative watermarks of the drained planes, and the
-        batch count."""
-        raw = self._stream.stats()
+    def _planes(self, raw: dict) -> dict:
         out: dict = {}
         if self.trace_spec is not None:
             out["trace_events"] = raw["trace_events"]
@@ -272,6 +317,32 @@ class ObserverDrain:
         if self.telem_spec is not None:
             out["telemetry_samples"] = raw["telemetry_samples"]
             out["telemetry_clipped"] = raw["telemetry_clipped"]
+        return out
+
+    def scenario_stats(self, s: Optional[int] = None) -> dict:
+        """The watermarks of one stream (the plain run's: ``s=None``),
+        of the drained planes."""
+        stream = self._streams.get(s)
+        raw = (
+            stream.stats()
+            if stream is not None
+            else {
+                "trace_events": 0,
+                "trace_dropped": 0,
+                "telemetry_samples": 0,
+                "telemetry_clipped": 0,
+            }
+        )
+        return self._planes(raw)
+
+    def stats(self) -> dict:
+        """The cumulative watermarks of the drained planes summed over
+        every stream, and the batch count."""
+        raws = [s.stats() for s in self._streams.values()]
+        total = {k: sum(r[k] for r in raws)
+                 for k in ("trace_events", "trace_dropped",
+                           "telemetry_samples", "telemetry_clipped")}
+        out = self._planes(total)
         out["drain_batches"] = self.batches
         return out
 
@@ -286,49 +357,54 @@ class ObserverDrain:
     # ------------------------------------------------- resume position
 
     def snapshot(self) -> dict:
-        """The drain's host-side position: the stream's watermarks and
+        """The drain's host-side position: each stream's watermarks and
         the byte sizes of its files at this boundary. :meth:`restore`
         truncates the files back to them, so a resumed stream equals an
         uninterrupted run's."""
-        stream = self._stream
-        rec = {
-            **stream.stats(),
-            "telemetry_boundaries": stream.telemetry_boundaries,
-            "seen_lanes": sorted(stream._seen_lanes),
-            "trace_open": stream._trace_open,
-            "results_open": stream._results_open,
-            "trace_bytes": _file_size(stream.dir / EVENTS_FILE),
-            "results_bytes": _file_size(stream.dir / RESULTS_FILE),
-        }
-        return {"batches": self.batches, "streams": {"root": rec}}
+        streams = {}
+        for sid, stream in self._streams.items():
+            streams["root" if sid is None else str(sid)] = {
+                **stream.stats(),
+                "telemetry_boundaries": stream.telemetry_boundaries,
+                "seen_lanes": sorted(stream._seen_lanes),
+                "trace_open": stream._trace_open,
+                "results_open": stream._results_open,
+                "trace_bytes": _file_size(stream.dir / EVENTS_FILE),
+                "results_bytes": _file_size(stream.dir / RESULTS_FILE),
+            }
+        return {"batches": self.batches, "streams": streams}
 
     def restore(self, snap: dict) -> None:
         """Re-enter the position :meth:`snapshot` recorded: the
         watermarks, and each streamed file truncated to its recorded
         size. Raises OSError when a file it names is gone."""
         self.batches = int(snap.get("batches", 0))
-        rec = (snap.get("streams") or {}).get("root")
-        if rec is None:
-            return
-        stream = self._stream
-        stream.trace_events = int(rec.get("trace_events", 0))
-        stream.trace_dropped = int(rec.get("trace_dropped", 0))
-        stream.telemetry_samples = int(rec.get("telemetry_samples", 0))
-        stream.telemetry_clipped = int(rec.get("telemetry_clipped", 0))
-        stream.telemetry_boundaries = int(
-            rec.get("telemetry_boundaries", 0)
-        )
-        stream._seen_lanes = set(int(x) for x in rec.get("seen_lanes", []))
-        stream._trace_open = bool(rec.get("trace_open", False))
-        stream._results_open = bool(rec.get("results_open", False))
-        for fname, size_key, open_flag in (
-            (EVENTS_FILE, "trace_bytes", stream._trace_open),
-            (RESULTS_FILE, "results_bytes", stream._results_open),
-        ):
-            if not open_flag:
-                continue  # the next append truncates anyway
-            with open(stream.dir / fname, "r+b") as f:
-                f.truncate(int(rec.get(size_key, 0)))
+        for key, rec in (snap.get("streams") or {}).items():
+            sid = None if key == "root" else int(key)
+            if sid is None and None not in self._streams:
+                continue
+            stream = (
+                self._streams[None] if sid is None else self._stream(sid)
+            )
+            stream.trace_events = int(rec.get("trace_events", 0))
+            stream.trace_dropped = int(rec.get("trace_dropped", 0))
+            stream.telemetry_samples = int(rec.get("telemetry_samples", 0))
+            stream.telemetry_clipped = int(rec.get("telemetry_clipped", 0))
+            stream.telemetry_boundaries = int(
+                rec.get("telemetry_boundaries", 0)
+            )
+            stream._seen_lanes = set(
+                int(x) for x in rec.get("seen_lanes", []))
+            stream._trace_open = bool(rec.get("trace_open", False))
+            stream._results_open = bool(rec.get("results_open", False))
+            for fname, size_key, open_flag in (
+                (EVENTS_FILE, "trace_bytes", stream._trace_open),
+                (RESULTS_FILE, "results_bytes", stream._results_open),
+            ):
+                if not open_flag:
+                    continue  # the next append truncates anyway
+                with open(stream.dir / fname, "r+b") as f:
+                    f.truncate(int(rec.get(size_key, 0)))
 
 
 def _file_size(path: Path) -> int:

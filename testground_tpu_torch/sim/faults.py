@@ -113,6 +113,14 @@ class FaultPlan:
         adds to exist even when the plan never shapes."""
         return dict(self.shaping)
 
+    def structure(self) -> tuple:
+        """Program-shaping identity: scenarios batched into one sweep
+        must agree on it (sim/sweep.py fingerprint)."""
+        return (
+            self.win_kind, self.win_src, self.win_dst,
+            self.kill_tick.shape, self.restart_events, self.shaping,
+        )
+
     def padded_to(self, n: int) -> "FaultPlan":
         """This plan with its [N] schedules -1-padded to ``n`` rows
         (padding rows belong to no group, so they are never victims)."""

@@ -278,7 +278,7 @@ def sort_rank(safe: torch.Tensor):
     n = safe.shape[0]
     sorted_ids, order = torch.sort(safe, stable=True)
     idx = torch.arange(n, dtype=torch.int32, device=safe.device)
-    is_start = torch.ones(n, dtype=torch.bool, device=safe.device)
+    is_start = torch.ones_like(sorted_ids, dtype=torch.bool)
     is_start[1:] = sorted_ids[1:] != sorted_ids[:-1]
     seg_start = torch.cummax(
         torch.where(is_start, idx, torch.zeros_like(idx)), dim=0
@@ -293,7 +293,7 @@ def nonzero_static(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     n = mask.shape[0]
     pos = torch.cumsum(mask.to(torch.int64), dim=0) - 1
     keep = mask & (pos < size)
-    out = torch.full((size + 1,), fill, dtype=torch.int64, device=mask.device)
+    out = mask.new_full((size + 1,), fill, dtype=torch.int64)
     lanes = torch.arange(n, dtype=torch.int64, device=mask.device)
     out[torch.where(keep, pos, size)] = lanes  # row `size` is the drop row
     return out[:size]
@@ -387,14 +387,13 @@ def _append_messages_bounded(net: dict, spec: NetSpec, dest, records,
     dc = torch.clamp(d, max=N - 1)
     ok_a = (d < N) & (rank < A)
     flat = torch.clamp(rank, max=A - 1) * N + dc
-    arr = torch.zeros((A * N + 1, spec.width), dtype=rec.dtype,
-                      device=rec.device)
+    arr = rec.new_zeros((A * N + 1, spec.width))
     arr[torch.where(ok_a, flat, A * N)] = rec  # row A*N is the drop row
     arr = arr[:A * N]
-    k_all = torch.zeros(N + 1, dtype=torch.int32, device=dest.device)
-    k_all.index_add_(
-        0, torch.where(d < N, dc, N), torch.ones_like(d, dtype=torch.int32)
-    )
+    # integer adds as scatter_add (a sweep's vmap batches it in one op)
+    k_all = dest.new_zeros(N + 1, dtype=torch.int32).scatter_add(
+        0, torch.where(d < N, dc, N).to(torch.int64),
+        torch.ones_like(d, dtype=torch.int32))
     k_all = k_all[:N]
 
     r = net["inbox_r"]
@@ -454,13 +453,13 @@ def _append_messages(net: dict, spec: NetSpec, dest, records, trace=None,
     net = dict(net)
     net["inbox"] = buf[:N * cap].reshape(N, cap, width)
     ones = torch.ones_like(safe)
-    wq = torch.cat([w, w.new_zeros(1)])
-    wq.index_add_(0, torch.where(lands, safe, N), ones)
+    wq = torch.cat([w, w.new_zeros(1)]).scatter_add(
+        0, torch.where(lands, safe, N).to(torch.int64), ones)
     net["inbox_w"] = wq[:N]
     lost = valid & ~in_cap & (safe < N)
     dropped = torch.cat([net["inbox_dropped"],
-                         net["inbox_dropped"].new_zeros(1)])
-    dropped.index_add_(0, torch.where(lost, safe, N), ones)
+                         net["inbox_dropped"].new_zeros(1)]).scatter_add(
+        0, torch.where(lost, safe, N).to(torch.int64), ones)
     net["inbox_dropped"] = dropped[:N]
     # rx-ring overflow on the SENDER lane (a duplicate copy's drop lands
     # on its original's lane)
@@ -588,6 +587,20 @@ def build_records(visible, send_tag, send_port, send_size, send_payload,
     return rec, torch.where(data_ok, send_dest, -1), sanitized
 
 
+@torch.library.custom_op("testground_tpu_torch::xor_f32_bits",
+                         mutates_args=())
+def xor_f32_bits(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """The float32 ``x`` with ``bits`` xor-ed into its bit pattern: a
+    custom op, so that a sweep's vmap can carry the dtype views (its
+    rule applies the op to the batched tensor as it is)."""
+    return (x.view(torch.int32) ^ bits).view(torch.float32)
+
+
+torch.library.register_vmap(
+    "testground_tpu_torch::xor_f32_bits",
+    lambda info, in_dims, x, bits: (xor_f32_bits(x, bits), in_dims[0]))
+
+
 def _corrupt(net, rng_key, n, transmits, data_ok, send_payload):
     """netem corrupt: bit 22 of ONE rng-chosen payload float flips on each
     corrupted data lane; a flip into the zero-exponent range becomes the
@@ -596,8 +609,7 @@ def _corrupt(net, rng_key, n, transmits, data_ok, send_payload):
         net, prng.fold_in(rng_key, 3), "corrupt", n, transmits,
         net["eg_corrupt"],
     ) & data_ok
-    flipped = (send_payload.view(torch.int32) ^ 0x00400000).view(
-        torch.float32)
+    flipped = xor_f32_bits(send_payload.contiguous(), 0x00400000)
     flipped = torch.where(torch.abs(flipped) < FLT_MIN_NORMAL, -3.0e38,
                           flipped)
     pay_w = send_payload.shape[-1]
@@ -874,10 +886,9 @@ def _entry_append(net, spec, rng_key, n, visible, transmits, data_ok, dup,
         # the arrivals at each receiver's NIC (the appends account for
         # their ring's own overflow)
         N_r = net["inbox_r"].shape[0]
-        arr_cnt = torch.zeros(N_r + 1, dtype=torch.int32,
-                              device=dest_app.device)
-        arr_cnt.index_add_(0, torch.where(dest_app >= 0, dest_app, N_r),
-                           torch.ones_like(dest_app))
+        arr_cnt = dest_app.new_zeros(N_r + 1, dtype=torch.int32).scatter_add(
+            0, torch.where(dest_app >= 0, dest_app, N_r).to(torch.int64),
+            torch.ones_like(dest_app, dtype=torch.int32))
         arr_cnt = arr_cnt[:N_r]
         if trace is not None:
             trace.emit(tracemod.CAT_NET, arr_cnt > 0, tracemod.EV_DELIVER,
@@ -956,9 +967,10 @@ def _count_add(net, spec, tick, visible, data_ok, dest_c, send_size, dup):
         wheel.reshape(W * rows, 2), idx, upd).reshape(W, rows, 2)
     if "wheel_occ" in net:
         # per-bucket message counts (integer adds: exact in any order)
-        occ = torch.cat([net["wheel_occ"], net["wheel_occ"].new_zeros(1)])
-        occ.index_add_(0, torch.where(data_ok, b, W),
-                       torch.ones_like(b))
+        occ = torch.cat([net["wheel_occ"],
+                         net["wheel_occ"].new_zeros(1)]).scatter_add(
+            0, torch.where(data_ok, b, W).to(torch.int64),
+            torch.ones_like(b, dtype=torch.int32))
         net["wheel_occ"] = occ[:W]
     # indexed by sender lane; only the total is read
     net["horizon_clamped"] = net["horizon_clamped"] + over.to(torch.int32)

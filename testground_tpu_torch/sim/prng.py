@@ -114,8 +114,10 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape=(), minval=0.0, maxval=1.0):
     """``jax.random.uniform`` in float32 over ``[minval, maxval)``."""
     bits = random_bits(key, shape)
-    float_bits = (bits >> 9) | 0x3F800000  # < 2**31: fits int32
-    floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
+    # jax takes the float with bits ``(bits >> 9) | 0x3f800000``, in
+    # [1, 2), minus 1.0: exactly the 23-bit mantissa times 2**-23, which
+    # is computed here without a dtype view (a sweep's vmap batches it)
+    floats = (bits >> 9).to(torch.float32) * 2.0**-23
     lo = np.float32(minval)
     span = np.float32(maxval) - lo
     return torch.clamp(floats * float(span) + float(lo), min=float(lo))

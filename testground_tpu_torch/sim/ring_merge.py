@@ -14,6 +14,14 @@ build and ctypes binding are ``testground_tpu_torch/kernels/ring_merge.py``.
   ``merge_plain``.
 
 Both write a new ring and leave the input as it was.
+
+The dispatch is one ``torch.library`` custom op,
+``testground_tpu_torch::ring_merge``, whose vmap rule (``_fold``) lets a
+sweep's batched tick (sim/sweep.py) carry it: the S scenarios' rings
+fold into one ``[S*N, CAP, W]`` ring (scenario *s*'s row *r* is row
+``s * N + r``), the staging into the matching rank-major ``[A*S*N, W]``,
+and one call merges them. Rows are independent, so each scenario's part
+is bit-equal to a serial merge.
 """
 
 from __future__ import annotations
@@ -40,9 +48,10 @@ def merge_plain(ring, w, k_eff, arr):
     return ring
 
 
-def merge(ring, w, k_eff, arr):
-    """``merge_plain``'s function: the kernel on CUDA tensors, the plain
-    version on CPU tensors."""
+@torch.library.custom_op("testground_tpu_torch::ring_merge",
+                         mutates_args=())
+def _ring_merge(ring: torch.Tensor, w: torch.Tensor, k_eff: torch.Tensor,
+                arr: torch.Tensor) -> torch.Tensor:
     if ring.is_cuda:
         from ..kernels import ring_merge as kern
 
@@ -50,6 +59,33 @@ def merge(ring, w, k_eff, arr):
         merge.launches.bump(ring.device)
         return out
     return merge_plain(ring, w, k_eff, arr)
+
+
+def _fold(info, in_dims, ring, w, k_eff, arr):
+    """The op's vmap rule: the S scenarios' rings as one ring of S*N
+    rows, their rank-major stagings interleaved to match, one call."""
+    S = info.batch_size
+    ring, w, k_eff, arr = (
+        x.movedim(d, 0) if d is not None else x.expand(S, *x.shape)
+        for x, d in zip((ring, w, k_eff, arr), in_dims)
+    )
+    _, N, cap, width = ring.shape
+    A = arr.shape[1] // N
+    farr = arr.reshape(S, A, N, width).transpose(0, 1).reshape(
+        A * S * N, width)
+    out = _ring_merge(ring.reshape(S * N, cap, width).contiguous(),
+                      w.reshape(-1).contiguous(),
+                      k_eff.reshape(-1).contiguous(), farr.contiguous())
+    return out.reshape(S, N, cap, width), 0
+
+
+torch.library.register_vmap("testground_tpu_torch::ring_merge", _fold)
+
+
+def merge(ring, w, k_eff, arr):
+    """``merge_plain``'s function: the kernel on CUDA tensors, the plain
+    version on CPU tensors, through the batchable custom op."""
+    return _ring_merge(ring, w, k_eff, arr)
 
 
 merge.launches = LaunchCount()

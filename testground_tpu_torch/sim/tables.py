@@ -1,5 +1,6 @@
-"""The composition tables of the fault, observer and replay planes:
-``[faults]``, ``[trace]``, ``[telemetry]`` and ``[replay]``.
+"""The composition tables of the fault, observer, replay, sweep and
+search planes: ``[faults]``, ``[trace]``, ``[telemetry]``, ``[replay]``,
+``[sweep]`` and ``[search]``.
 
 The port's own copy of those tables of ``testground_tpu/api/composition.py``
 (the port imports nothing of the JAX package, not even its jax-free
@@ -193,6 +194,17 @@ class FaultEvent:
             if self.count < 0:
                 raise CompositionError(f"{tag}: kill count must be >= 0")
 
+    def param_refs(self) -> set[str]:
+        """Names of test params referenced as ``"$name"`` values."""
+        out = set()
+        for v in (
+            self.at_ms, self.until_ms, self.latency_ms, self.jitter_ms,
+            self.loss_pct, self.fraction,
+        ):
+            if isinstance(v, str) and v.startswith("$"):
+                out.add(v[1:])
+        return out
+
     @classmethod
     def from_dict(cls, d: dict) -> "FaultEvent":
         known = {
@@ -285,6 +297,12 @@ class Faults:
                         "earlier kill event for that group"
                     )
                 restarted_groups.add(ev.group)
+
+    def param_refs(self) -> set[str]:
+        out: set[str] = set()
+        for ev in self.events:
+            out |= ev.param_refs()
+        return out
 
     @classmethod
     def from_dict(cls, d: dict) -> "Faults":
@@ -590,4 +608,440 @@ class Replay:
             time_scale=d.get("time_scale", 1.0),
             capacity=int(d.get("capacity", 0)),
             enabled=bool(d.get("enabled", True)),
+        )
+
+# ------------------------------------------------------------ sweep, search
+
+# hard bound on the seed-count × param-grid cross product: a sweep is one
+# batched program (plus memory-chunked dispatches)
+MAX_SWEEP_SCENARIOS = 4096
+
+
+@dataclass
+class Sweep:
+    """The sweep plane (``[sweep]`` table): one composition expands into
+    ``seeds × prod(len(grid))`` scenarios, run as ONE scenario-batched
+    program (sim/sweep.py).
+
+    - ``seeds``: scenario count on the seed axis; scenario *i* of a combo
+      runs with RNG/churn seed ``seed_base + i``.
+    - ``params``: per-test-param value grids (``[sweep.params]``); values
+      are stringified exactly like ``test_params``. Swept params must be
+      consumed via ``env.params`` — statics are rejected at build time.
+    - ``chunk``: optional scenarios-per-dispatch bound (0 = auto: all at
+      once, the memory pre-flight may chunk down).
+    - ``mesh``: optional ``[Ds, Di]`` device split for the 2-D
+      ``(scenario, instance)`` mesh — Ds devices data-parallel over
+      scenarios, Di sharding the instance data plane within each
+      scenario row (docs/sweeps.md "Mesh axes"). Absent = auto:
+      scenario axis first, leftover devices to the instance axis.
+    """
+
+    seeds: int = 1
+    seed_base: int = 0
+    params: dict[str, list] = field(default_factory=dict)
+    chunk: int = 0
+    mesh: Optional[list] = None
+
+    def validate(self) -> None:
+        if self.seeds < 1:
+            raise CompositionError("sweep.seeds must be >= 1")
+        if self.seed_base < 0:
+            raise CompositionError("sweep.seed_base must be >= 0")
+        if self.seed_base + self.seeds > 2**32:
+            raise CompositionError(
+                "sweep seeds must fit in uint32 (seed_base + seeds <= 2^32)"
+            )
+        if self.chunk < 0:
+            raise CompositionError("sweep.chunk must be >= 0")
+        if self.mesh is not None:
+            ok = (
+                isinstance(self.mesh, (list, tuple))
+                and len(self.mesh) == 2
+                and all(
+                    isinstance(v, int) and not isinstance(v, bool)
+                    and v >= 1
+                    for v in self.mesh
+                )
+            )
+            if not ok:
+                raise CompositionError(
+                    f"sweep.mesh must be a [Ds, Di] pair of positive "
+                    f"ints (scenario x instance devices), got "
+                    f"{self.mesh!r}"
+                )
+        total = self.seeds
+        for name, grid in self.params.items():
+            if not isinstance(grid, list) or not grid:
+                raise CompositionError(
+                    f"sweep.params.{name} must be a non-empty list of "
+                    f"values, got {grid!r}"
+                )
+            total *= len(grid)
+        if total > MAX_SWEEP_SCENARIOS:
+            raise CompositionError(
+                f"sweep expands to {total} scenarios, above the "
+                f"{MAX_SWEEP_SCENARIOS} bound (seeds x param-grid cross "
+                "product); split the sweep"
+            )
+
+    def total_scenarios(self) -> int:
+        total = self.seeds
+        for grid in self.params.values():
+            total *= max(1, len(grid))
+        return total
+
+    def expand(self) -> list[dict]:
+        """Scenario list ``[{"seed": int, "params": {name: str}}, ...]``:
+        param combos in declared grid order (outer), seeds inner — so
+        scenario index = combo_index * seeds + seed_index."""
+        import itertools
+
+        names = list(self.params.keys())
+        grids = [self.params[n] for n in names]
+        out = []
+        for combo in itertools.product(*grids) if names else [()]:
+            # str(), not json.dumps(): Run.from_dict stringifies
+            # test_params with str(v), and a sweep point must see the
+            # SAME spelling a serial run with that value would (e.g.
+            # True -> 'True', not 'true')
+            pvals = {
+                n: (v if isinstance(v, str) else str(v))
+                for n, v in zip(names, combo)
+            }
+            for i in range(self.seeds):
+                out.append({"seed": self.seed_base + i, "params": pvals})
+        return out
+
+    def to_dict(self) -> dict:
+        d: dict[str, Any] = {"seeds": self.seeds}
+        if self.seed_base:
+            d["seed_base"] = self.seed_base
+        if self.params:
+            d["params"] = {
+                k: list(v) if isinstance(v, (list, tuple)) else v
+                for k, v in self.params.items()
+            }
+        if self.chunk:
+            d["chunk"] = self.chunk
+        if self.mesh is not None:
+            d["mesh"] = list(self.mesh)
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Sweep":
+        _reject_unknown_keys(
+            d, {"seeds", "seed_base", "params", "chunk", "mesh"}, "[sweep]"
+        )
+        # scalars pass through UNTOUCHED so validate() can reject them
+        # with a CompositionError — list("fast") would silently explode a
+        # string into a per-character grid, and list(5) would raise a raw
+        # TypeError before validation ever ran
+        params = d.get("params", {})
+        if not isinstance(params, dict):
+            raise CompositionError(
+                f"sweep.params must be a table of value lists, got "
+                f"{params!r}"
+            )
+        return cls(
+            seeds=int(d.get("seeds", 1)),
+            seed_base=int(d.get("seed_base", 0)),
+            params={
+                k: list(v) if isinstance(v, (list, tuple)) else v
+                for k, v in params.items()
+            },
+            chunk=int(d.get("chunk", 0)),
+            # pass through untouched (like params) so validate() can
+            # reject a scalar/float mesh with a CompositionError
+            mesh=(
+                list(d["mesh"])
+                if isinstance(d.get("mesh"), (list, tuple))
+                else d.get("mesh")
+            ),
+        )
+
+
+# valid [search] strategies (sim/search.py drivers)
+SEARCH_STRATEGIES = ("bisect", "halving", "coverage")
+
+# per-scenario journal counters a [search] objective may read (the same
+# row fields run_sweep_composition writes into scenario sim_summary.json)
+SEARCH_COUNTERS = (
+    "outcome", "ticks", "ticks_executed", "skip_ratio", "virtual_seconds",
+    "crashed_count", "stalled_count", "restarted_count", "net_dropped",
+    "net_horizon_clamped", "stream_violations", "metrics_dropped",
+    "trace_dropped", "telemetry_clipped",
+)
+
+# telemetry roll-up statistics a "telemetry:<probe>:<stat>" objective
+# may request (computed per probed scenario from its demuxed series)
+SEARCH_TELEMETRY_STATS = ("mean", "min", "max", "p50", "p95", "p99")
+
+# hard bound on the candidate grid a search walks: the grid is VIRTUAL
+# (only probed points run), but the journal's frontier and the drivers'
+# bookkeeping are host-side lists over it
+MAX_SEARCH_GRID = 65_536
+
+
+@dataclass
+class Search:
+    """The closed-loop search plane (``[search]`` table): instead of
+    enumerating a ``[sweep]`` cross-product, the search runs ROUNDS of fixed-width scenario batches through ONE compiled program
+    (sim/search.py + SweepExecutable.rebind), reads each round's
+    per-scenario outcomes/telemetry, and chooses the next batch — the
+    breaking point of a fault-severity axis costs a handful of rounds,
+    not thousands of scenarios (docs/search.md).
+
+    - ``param``: the severity axis — a test param consumed through
+      ``env.params`` or referenced as ``"$param"`` from ``[faults]``
+      magnitudes/timings (compile-time checked, like sweep grids).
+    - ``strategy``: ``bisect`` (first failing value on a sorted grid,
+      assuming monotone severity), ``halving`` (successive halving over
+      a candidate grid by objective), or ``coverage`` (seed-deterministic
+      sampling of the grid — replayable bit-for-bit).
+    - grid: either an explicit ``values`` list, or ``lo``/``hi`` with a
+      ``step`` (falling back to ``tolerance`` as the step).
+    - ``objective``: ``outcome`` (default; 1.0 = scenario failed), a
+      per-scenario journal counter (``SEARCH_COUNTERS``), or
+      ``telemetry:<probe>:<stat>`` over the scenario's sampled series.
+      A probe FAILS when its objective exceeds ``threshold``.
+    - ``width``: scenarios per round — every round is padded to this
+      shape so one compile (one executor-cache entry) serves all rounds.
+    - ``seeds``/``seed_base``: RNG seeds probed per value (a value fails
+      when any seed fails; halving averages the objective over them).
+    - ``max_rounds``/``budget``: hard caps on rounds / scenarios probed
+      (0 = the strategy's own bound).
+    """
+
+    param: str = ""
+    strategy: str = "bisect"
+    enabled: bool = True
+    lo: Optional[float] = None
+    hi: Optional[float] = None
+    step: float = 0.0
+    values: list = field(default_factory=list)
+    tolerance: float = 0.0
+    objective: str = "outcome"
+    threshold: float = 0.5
+    goal: str = "min"
+    width: int = 8
+    seeds: int = 1
+    seed_base: int = 0
+    max_rounds: int = 0
+    budget: int = 0
+
+    def validate(self) -> None:
+        import difflib
+
+        if not self.param:
+            raise CompositionError(
+                "search.param is required (the severity axis to probe)"
+            )
+        if self.strategy not in SEARCH_STRATEGIES:
+            close = difflib.get_close_matches(
+                str(self.strategy), SEARCH_STRATEGIES, n=1
+            )
+            raise CompositionError(
+                f"search.strategy: unknown strategy {self.strategy!r}"
+                + (f" (did you mean {close[0]!r}?)" if close else "")
+                + f"; known: {sorted(SEARCH_STRATEGIES)}"
+            )
+        self._validate_objective()
+        if self.goal not in ("min", "max"):
+            raise CompositionError(
+                f"search.goal must be 'min' or 'max', got {self.goal!r}"
+            )
+        if self.width < 1:
+            raise CompositionError("search.width must be >= 1")
+        if self.width > MAX_SWEEP_SCENARIOS:
+            raise CompositionError(
+                f"search.width {self.width} exceeds the "
+                f"{MAX_SWEEP_SCENARIOS} one-batch bound"
+            )
+        if self.seeds < 1:
+            raise CompositionError("search.seeds must be >= 1")
+        if self.seeds > self.width:
+            raise CompositionError(
+                f"search.seeds ({self.seeds}) must fit one round "
+                f"(width {self.width}): a round must probe at least one "
+                "whole value"
+            )
+        if self.seed_base < 0:
+            raise CompositionError("search.seed_base must be >= 0")
+        for name in ("tolerance", "step"):
+            if getattr(self, name) < 0:
+                raise CompositionError(f"search.{name} must be >= 0")
+        for name in ("max_rounds", "budget"):
+            if getattr(self, name) < 0:
+                raise CompositionError(f"search.{name} must be >= 0")
+        grid = self.grid_values()  # raises on an unbuildable grid
+        if len(grid) < 2:
+            raise CompositionError(
+                f"search grid has {len(grid)} distinct value(s); a "
+                "search needs at least 2 (nothing to locate otherwise)"
+            )
+        if len(grid) > MAX_SEARCH_GRID:
+            raise CompositionError(
+                f"search grid has {len(grid)} values, above the "
+                f"{MAX_SEARCH_GRID} bound; coarsen the step"
+            )
+
+    def _validate_objective(self) -> None:
+        import difflib
+
+        obj = self.objective
+        if obj.startswith("telemetry:"):
+            parts = obj.split(":")
+            if len(parts) != 3:
+                raise CompositionError(
+                    f"search.objective {obj!r}: telemetry objectives are "
+                    "'telemetry:<probe>:<stat>'"
+                )
+            _, probe, stat = parts
+            if probe not in TELEMETRY_PROBES:
+                close = difflib.get_close_matches(
+                    probe, TELEMETRY_PROBES, n=1
+                )
+                raise CompositionError(
+                    f"search.objective: unknown telemetry probe {probe!r}"
+                    + (f" (did you mean {close[0]!r}?)" if close else "")
+                    + f"; known: {sorted(TELEMETRY_PROBES)}"
+                )
+            if stat not in SEARCH_TELEMETRY_STATS:
+                raise CompositionError(
+                    f"search.objective: unknown stat {stat!r}; known: "
+                    f"{sorted(SEARCH_TELEMETRY_STATS)}"
+                )
+            return
+        if obj not in SEARCH_COUNTERS:
+            close = difflib.get_close_matches(obj, SEARCH_COUNTERS, n=1)
+            raise CompositionError(
+                f"search.objective: unknown objective {obj!r}"
+                + (f" (did you mean {close[0]!r}?)" if close else "")
+                + f"; known: {sorted(SEARCH_COUNTERS)} or "
+                "'telemetry:<probe>:<stat>'"
+            )
+
+    def grid_values(self) -> list:
+        """The sorted, deduplicated candidate grid. Values keep their
+        declared type (int grids stay ints) so a probed scenario's
+        stringified param matches what the same value in ``test_params``
+        or a ``[sweep.params]`` grid would produce — the serial-oracle
+        bit-identity contract."""
+        if self.values:
+            seen: dict[float, Any] = {}
+            for v in self.values:
+                if isinstance(v, bool) or not isinstance(v, (int, float)):
+                    raise CompositionError(
+                        f"search.values must be numbers, got {v!r}"
+                    )
+                seen.setdefault(float(v), v)
+            return [seen[k] for k in sorted(seen)]
+        if self.lo is None or self.hi is None:
+            raise CompositionError(
+                "search needs a grid: either 'values', or 'lo'/'hi' "
+                "with a 'step' (or a 'tolerance' used as the step)"
+            )
+        lo, hi = self.lo, self.hi
+        for name, v in (("lo", lo), ("hi", hi)):
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                raise CompositionError(
+                    f"search.{name} must be a number, got {v!r}"
+                )
+        if not float(lo) < float(hi):
+            raise CompositionError(
+                f"search range is empty or inverted (lo={lo} >= hi={hi})"
+            )
+        step = float(self.step or self.tolerance)
+        if step <= 0:
+            raise CompositionError(
+                "search over lo/hi needs a positive 'step' (or a "
+                "positive 'tolerance' used as the step)"
+            )
+        n = int((float(hi) - float(lo)) / step + 1e-9) + 1
+        if n > MAX_SEARCH_GRID:  # bound BEFORE materializing the list
+            raise CompositionError(
+                f"search grid has {n} values, above the "
+                f"{MAX_SEARCH_GRID} bound; coarsen the step"
+            )
+        out = [float(lo) + i * step for i in range(n)]
+        if out[-1] < float(hi) - 1e-9 * step:
+            out.append(float(hi))
+        else:
+            out[-1] = float(hi)
+        ints = (
+            all(
+                isinstance(v, int) and not isinstance(v, bool)
+                for v in (self.lo, self.hi)
+            )
+            and step.is_integer()
+        )
+        if ints:
+            return [int(round(v)) for v in out]
+        return out
+
+    def to_dict(self) -> dict:
+        d: dict[str, Any] = {
+            "param": self.param, "strategy": self.strategy,
+        }
+        if not self.enabled:
+            d["enabled"] = False
+        if self.lo is not None:
+            d["lo"] = self.lo
+        if self.hi is not None:
+            d["hi"] = self.hi
+        if self.step:
+            d["step"] = self.step
+        if self.values:
+            d["values"] = list(self.values)
+        if self.tolerance:
+            d["tolerance"] = self.tolerance
+        if self.objective != "outcome":
+            d["objective"] = self.objective
+        if self.threshold != 0.5:
+            d["threshold"] = self.threshold
+        if self.goal != "min":
+            d["goal"] = self.goal
+        if self.width != 8:
+            d["width"] = self.width
+        if self.seeds != 1:
+            d["seeds"] = self.seeds
+        if self.seed_base:
+            d["seed_base"] = self.seed_base
+        if self.max_rounds:
+            d["max_rounds"] = self.max_rounds
+        if self.budget:
+            d["budget"] = self.budget
+        return d
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "Search":
+        known = {
+            "param", "strategy", "enabled", "lo", "hi", "step", "values",
+            "tolerance", "objective", "threshold", "goal", "width",
+            "seeds", "seed_base", "max_rounds", "budget",
+        }
+        _reject_unknown_keys(d, known, "[search]")
+        values = d.get("values", [])
+        if not isinstance(values, list):
+            raise CompositionError(
+                f"search.values must be a list of numbers, got {values!r}"
+            )
+        return cls(
+            param=str(d.get("param", "")),
+            strategy=str(d.get("strategy", "bisect")),
+            enabled=bool(d.get("enabled", True)),
+            lo=d.get("lo"),
+            hi=d.get("hi"),
+            step=float(d.get("step", 0.0)),
+            values=list(values),
+            tolerance=float(d.get("tolerance", 0.0)),
+            objective=str(d.get("objective", "outcome")),
+            threshold=float(d.get("threshold", 0.5)),
+            goal=str(d.get("goal", "min")),
+            width=int(d.get("width", 8)),
+            seeds=int(d.get("seeds", 1)),
+            seed_base=int(d.get("seed_base", 0)),
+            max_rounds=int(d.get("max_rounds", 0)),
+            budget=int(d.get("budget", 0)),
         )

@@ -130,6 +130,14 @@ class TelemetrySpec:
             return self.hist_buckets
         return (self.n_buckets,) * self.n_hist
 
+    def structure(self) -> tuple:
+        """Program-shaping identity (sim/sweep.py fingerprint)."""
+        return (
+            self.interval, self.s_cap, self.counters, self.gauges,
+            self.glob, self.hist_names, self.n_buckets,
+            self.hist_buckets,
+        )
+
 
 def compile_telemetry(
     telem, ctx, net_spec, cfg, has_fault_windows: bool = False,

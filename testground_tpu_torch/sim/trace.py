@@ -104,6 +104,10 @@ class TraceSpec:
     def wants(self, cat: int) -> bool:
         return not self.categories or cat in self.categories
 
+    def structure(self) -> tuple:
+        """Program-shaping identity (sim/sweep.py fingerprint)."""
+        return (self.capacity, self.categories, self.group_mask)
+
 
 def compile_trace(trace, ctx) -> Optional[TraceSpec]:
     """Compile a ``[trace]`` table (sim/tables.py ``Trace`` or its dict

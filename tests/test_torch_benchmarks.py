@@ -7,6 +7,7 @@ bit for bit, and ``SimResult.ticks`` equal. Storm has its own files
 checks (testground_tpu_torch/bench.py, tools/bench_barrier.py,
 tools/bench_subtree.py) at a small size on the CPU."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import numpy as np
 import pytest
 import torch

@@ -3,6 +3,7 @@ subkernels.py) against the JAX package's: the signal ranking, the
 stable same-id ranks, the metrics ring append and the churn schedule.
 Exact equality."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

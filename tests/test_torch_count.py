@@ -10,6 +10,7 @@ jitted, as in the tick. Exact equality on every leaf, floats by their
 bits. The scatter-add kernel itself runs only on the card
 (tests/test_torch_cuda.py)."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,16 +7,19 @@ and shaped with churn) and the entry-mode plans with filter rules and
 dials (network's rate-shaped ping-pong and DROP-filtered dial,
 splitbrain reject-sampled, a class-rule dialing program behind the
 egress queue), the fault and observer planes, the replay plane (the
-echo workload dense and skipped, election at 5) and a drained run (the
+echo workload dense and skipped, election at 5), a drained run (the
 in-place cursor reset under the captured stepper, its streamed files
-byte-equal) on the card against the port's CPU path (on the card
-``run`` replays a CUDA graph of the tick). This file imports no
-jax, so it runs on the GPU machine:
+byte-equal), a shaped fault sweep and sweeps through the planes and
+entry mode on the card against the port's CPU path (on the card ``run``
+replays a CUDA graph of the tick); the count scatter's and the ring merge's vmap rules through the kernels (one
+launch for S scenarios, bit-equal to S serial calls); and a search's
+one capture. This file imports no jax, so it runs on the GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py
 """
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import sys
 from pathlib import Path
 
@@ -377,3 +380,149 @@ def test_replay_gpu_matches_cpu(make, tmp_path):
     a = flatten(state_to_numpy(mk(dev).run().state))
     b = flatten(state_to_numpy(mk("cpu").run().state))
     compare_leaves(a, b, make)
+
+
+# ------------------------------------------------------- sweep and search
+
+
+@pytest.mark.parametrize("S,R,L", [(4, 1_000, 1_000), (64, 10_000, 10_000),
+                                   (3, 100, 20_011)])
+def test_count_scatter_vmap_rule_through_the_kernel(S, R, L):
+    """The vmap rule folds S scenarios into ONE kernel launch (the small
+    plan at 4 x 1,000, the large plan past it), bit-equal to S serial
+    kernel calls and to the plain version, dropped lanes included."""
+    dev = _cuda()
+    rng = np.random.default_rng(S)
+    buf = torch.as_tensor((rng.standard_normal((S, R, 2)) * 1e3)
+                          .astype(np.float32), device=dev)
+    idx = torch.as_tensor(np.where(
+        rng.random((S, L)) < 0.3, R + rng.integers(0, 3, (S, L)),
+        rng.integers(0, R, (S, L))).astype(np.int32), device=dev)
+    upd = torch.as_tensor((rng.standard_normal((S, L, 2)) * 1e3)
+                          .astype(np.float32), device=dev)
+    launches = int(csc.scatter_add.launches)
+    got = torch.func.vmap(csc.scatter_add)(buf, idx, upd)
+    assert int(csc.scatter_add.launches) == launches + 1
+    serial = torch.stack([csc.scatter_add(buf[s], idx[s], upd[s])
+                          for s in range(S)])
+    plain = torch.stack([csc.scatter_add_plain(buf[s].cpu(), idx[s].cpu(),
+                                               upd[s].cpu())
+                         for s in range(S)])
+    for other in (serial.cpu(), plain):
+        assert torch.equal(got.cpu().view(torch.int32),
+                           other.view(torch.int32))
+
+
+def test_ring_merge_vmap_rule_through_the_kernel():
+    dev = _cuda()
+    rng = np.random.default_rng(5)
+    S, N, cap, W, A = 4, 1_000, 32, 7, 8
+    ring = torch.as_tensor(rng.standard_normal((S, N, cap, W))
+                           .astype(np.float32), device=dev)
+    w = torch.as_tensor(rng.integers(0, 1 << 20, (S, N)).astype(np.int32),
+                        device=dev)
+    k = torch.as_tensor(rng.integers(0, A + 1, (S, N)).astype(np.int32),
+                        device=dev)
+    arr = torch.as_tensor(rng.standard_normal((S, A * N, W))
+                          .astype(np.float32), device=dev)
+    launches = int(rm.merge.launches)
+    got = torch.func.vmap(rm.merge)(ring, w, k, arr)
+    assert int(rm.merge.launches) == launches + 1
+    serial = torch.stack([rm.merge(ring[s], w[s], k[s], arr[s])
+                          for s in range(S)])
+    assert torch.equal(got.cpu().view(torch.int32),
+                       serial.cpu().view(torch.int32))
+
+
+def test_sweep_gpu_matches_cpu():
+    """The shaped storm sweep under the fault timeline (chip_smoke [35])
+    at 32 x 2 seeds: every scenario's every leaf, the card's one capture
+    against the CPU."""
+    dev = _cuda()
+    states = {}
+    for d in (dev, "cpu"):
+        ex = cs.shaped_fault_sweep(32, d, seeds=2)
+        res = ex.run()
+        assert ex.captures == (1 if d == dev else 0)
+        states[str(d)] = [flatten(state_to_numpy(res.scenario(s).state))
+                          for s in range(2)]
+    for s in range(2):
+        compare_leaves(states[str(dev)][s], states["cpu"][s], f"sweep {s}")
+
+
+def _plane_sweep(make, d, tmp_path):
+    """A small sweep through one plane, on device ``d``: faultsdemo's
+    chaos case over a ``$chaos_loss`` grid under its composition's
+    tables, traced and sampled (dense or skipped); the echo over a replay
+    ``$scale`` grid; dht's find-providers on the default lowering (entry
+    mode: the ring merge's vmap rule behind the egress queue)."""
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.plans import dht, faultsdemo
+    from testground_tpu_torch.sim import GroupSpec, SimConfig
+    from testground_tpu_torch.sim.sweep import compile_sweep
+    from testground_tpu_torch.sim.tables import Replay
+
+    if make.startswith("faultsdemo"):
+        c = faultsdemo.COMPOSITION
+        groups = [GroupSpec(g, i, 12, dict(c["test_params"]))
+                  for i, g in enumerate(c["groups"])]
+        scen = [{"seed": s, "params": {"chaos_loss": str(v)}}
+                for v in (10, 90) for s in (0, 7)]
+        cfg = SimConfig(chunk_ticks=32, max_ticks=2_000,
+                        event_skip=make == "faultsdemo-skip")
+        return compile_sweep(faultsdemo.chaos, groups, cfg, scen,
+                             test_case="chaos", test_run="faultsdemo",
+                             faults=c["faults"], trace=c["trace"],
+                             telemetry=c["telemetry"], device=d)
+    if make == "echo-scale":
+        trace = bench.write_echo_trace(tmp_path / "echo.jsonl", 48, K=6)
+        scen = [{"seed": s, "params": {"load": str(v)}}
+                for v in (1, 2) for s in (0, 3)]
+        cfg = SimConfig(quantum_ms=1.0, chunk_ticks=32, max_ticks=2_000,
+                        metrics_capacity=8)
+        return compile_sweep(bench.echo_replayed,
+                             [GroupSpec("single", 0, 48, {})], cfg, scen,
+                             test_case="echo", test_run="bench-replay",
+                             replay=Replay(trace=trace, scale="$load",
+                                           capacity=16), device=d)
+    # 160 lanes behind dht's 128 send slots: the bounded append
+    groups = [GroupSpec("single", 0, 160,
+                        {k: str(v) for k, v in cs.DHT_PARAMS.items()})]
+    cfg = SimConfig(quantum_ms=10.0, max_ticks=60_000, chunk_ticks=32,
+                    metrics_capacity=8, churn_fraction=0.05,
+                    churn_start_ms=100.0, churn_end_ms=5_000.0)
+    return compile_sweep(dht.find_providers, groups, cfg,
+                         [{"seed": s, "params": {}} for s in (0, 5)],
+                         test_case="find-providers", test_run="t", device=d)
+
+
+@pytest.mark.parametrize("make", ["faultsdemo-dense", "faultsdemo-skip",
+                                  "echo-scale", "dht-entry"])
+def test_plane_sweeps_gpu_match_cpu(make, tmp_path):
+    """The sweeps through the fault, trace, telemetry and replay planes
+    and through entry mode, captured once on the card with vmap's loop
+    fallback off (torch on the card may lack a batching rule that the
+    CPU's torch has: the capture then raises): every scenario's every
+    leaf against the CPU."""
+    dev = _cuda()
+    states = {}
+    for d in (dev, "cpu"):
+        ex = _plane_sweep(make, d, tmp_path)
+        merges = int(rm.merge.launches)
+        res = ex.run()
+        assert ex.captures == (1 if d == dev else 0)
+        if make == "dht-entry" and d == dev:
+            assert int(rm.merge.launches) > merges
+        states[str(d)] = [flatten(state_to_numpy(res.scenario(s).state))
+                          for s in range(ex.n_scenarios)]
+    for s, a in enumerate(states[str(dev)]):
+        compare_leaves(a, states["cpu"][s], f"{make} {s}")
+
+
+def test_search_captures_once_on_the_card():
+    from testground_tpu_torch.bench import search_leg
+
+    _cuda()
+    line = search_leg(n=64, device="cuda", grid_n=64)
+    assert line["captures"] == 1 and line["batched_tick_builds"] == 1
+    assert line["breaking_point"] == 0.671875

@@ -6,6 +6,7 @@ and its two pieces alone, the unbounded ranked-scatter append and the
 toxic event. The JAX side runs jitted, as in the tick. Exact equality
 on every returned leaf, floats by their bits."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -7,6 +7,7 @@ run mid-way must tick identically in the port. The default lowering
 (default deliver front and event skip) is held to the JAX run and to the
 port's fused-front run alike."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import importlib.util
 from pathlib import Path
 

@@ -10,6 +10,7 @@ order drain -> on_chunk -> stop at a boundary, the in-place cursor reset,
 the drain's resume position, and a drain knob that changes no state
 leaf and no tick op."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import json
 from pathlib import Path
 
@@ -424,8 +425,13 @@ def test_drain_flags_match_jax():
 
 def test_unported_hooks_name_their_module(tmp_path):
     ex = _chaos("port", trace={"capacity": 16, "drain": True})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        TDrain(ex, trace_drain=True, scenario_dir=lambda s: tmp_path)
+    # the per-scenario streams are ported (the sweep plane): only one
+    # of run_dir/scenario_dir may be given, as in JAX
+    assert TDrain(ex, trace_drain=True,
+                  scenario_dir=lambda s: tmp_path).batched
+    with pytest.raises(ValueError, match="exactly one"):
+        TDrain(ex, trace_drain=True, run_dir=tmp_path,
+               scenario_dir=lambda s: tmp_path)
     for kw in ("watchdog", "checkpoint", "resume_state"):
         with pytest.raises(NotImplementedError, match="item 11"):
             ex.run(**{kw: object()})

@@ -4,6 +4,7 @@ brought in (testground_tpu_torch/sim/program.py ``elapsed_point``,
 against the JAX package on the CPU: every state leaf equal, bit for
 bit, with the same ticks."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ jumps over dead ticks in both packages and leaves every state leaf equal;
 the dense loop (``event_skip=False``) does too; and forcing event skip
 with the fused deliver front is refused alike."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

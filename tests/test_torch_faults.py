@@ -11,6 +11,7 @@ TestChurnWindowValidation, each program run through both packages with
 every state leaf bit-equal. An empty or disabled [faults] table builds
 the plain program: the same leaves and the same ops a tick."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ twin, a class-rule program with dials behind the egress queue, the DSL
 checks, and ``pallas_front=True`` on a filtering program. Numpy inputs
 from a seed; exact equality on every leaf, floats by their bits."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -8,6 +8,7 @@ branch-edge states of chip_smoke.STARVATION, the plain version against
 Exact equality on every output, floats by their bits. (The CUDA kernel
 against its plain version is tests/test_torch_cuda.py, on a card.)"""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import itertools
 import sys
 from pathlib import Path

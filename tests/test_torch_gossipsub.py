@@ -6,6 +6,7 @@ links and with 20 ms / 10% loss. Every state leaf (ticks_executed
 included), ticks, statuses and metric records must be equal, floats by
 their bits."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import importlib.util
 from pathlib import Path
 

@@ -4,6 +4,7 @@ its entry points refuse to run without CUDA unless the caller asks for
 the CPU, and chip_smoke.py fails without a card or without the port
 beside it."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import json
 import shutil
 import subprocess

@@ -4,6 +4,7 @@ admitter, the bounded two-level append, the record sanitizer, the head
 cache / visible prefix / consume reads and the ConfigureNetwork writes.
 The JAX side runs jitted, as in the tick. Exact equality."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

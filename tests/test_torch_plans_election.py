@@ -7,6 +7,7 @@ timeout and run length. Every state leaf equal, the case grades PASS,
 and the port's copies of the composition and of the recorded trace
 match the originals."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import importlib.util
 import tomllib
 from pathlib import Path

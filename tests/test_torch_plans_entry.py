@@ -6,6 +6,7 @@ equal; with the outcomes the plans assert (ping-pong's RTT windows,
 splitbrain's partition matrix and its errors per instance). Also the
 splitbrain builder ``bench.splitbrain_executable`` and its check."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import pytest
 import torch
 from _storm_parity import assert_leaves_equal, case_pair

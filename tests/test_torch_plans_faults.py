@@ -9,6 +9,7 @@ slots a lane) and sampled together, dense and with event skip. Every
 state leaf, the trace events, the Chrome trace JSON text and the
 telemetry records equal."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import tomllib
 
 import pytest

@@ -3,6 +3,7 @@ jax.random, value for value: keys, chained fold_in, uniform and randint,
 per lane under vmap as the tick does it. Exact equality (floats by their
 bits)."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

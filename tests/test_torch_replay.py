@@ -10,6 +10,7 @@ and at static depths past the head cache; and a disabled [replay]
 table, which builds the replay-free program (the same leaves and ops a
 tick)."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import dataclasses
 import importlib.util
 import json

@@ -7,6 +7,7 @@ the edge cases the card check covers, at small N. Exact equality, floats
 by their bits. (The CUDA kernel against ``merge_plain`` is
 tests/test_torch_cuda.py, on a card.)"""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import importlib.util
 import sys
 from pathlib import Path

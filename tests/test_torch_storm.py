@@ -9,6 +9,7 @@ storm tick at 64 instances, against ``__graft_entry__.entry``. The
 storm legs at n = 64 and 200 are tests/test_torch_storm_legs.py and
 tests/test_torch_storm_200.py."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax
 import jax.numpy as jnp
 import pytest

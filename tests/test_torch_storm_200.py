@@ -4,6 +4,7 @@ shaped with churn, with event skip on (the default) and off, and
 ``phase_gating=True`` as bench.py runs it. Every state leaf bit-equal,
 ticks and ticks executed equal."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import numpy as np
 import pytest
 

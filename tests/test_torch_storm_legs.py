@@ -6,6 +6,7 @@ event skip on and off, under ``phase_gating=True`` (which the JAX
 package runs as its gated step). Every state leaf must be bit-equal by
 name, and so must ticks and ticks executed."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import numpy as np
 import pytest
 

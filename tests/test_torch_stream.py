@@ -8,6 +8,7 @@ keep their assertions; the others cover a -0.0 payload (which the JAX
 package's masked sum stores as +0.0), ticks with no publisher, and two
 stream topics published on the same tick."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import torch

@@ -9,6 +9,7 @@ observations on them; the compile errors and the table's errors,
 message for message; and a disabled [telemetry] table, which builds
 the plain program (the same leaves and ops a tick)."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -11,6 +11,7 @@ fault overlay), with the telemetry accumulator beside the emitter; the
 table's errors; and a disabled [trace] table, which builds the plain
 program (the same leaves and ops a tick)."""
 
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import importlib
 import importlib.util
 from pathlib import Path
