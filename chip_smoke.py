@@ -149,8 +149,8 @@ Phases, in order (any failure raises and the exit code is not 0):
    replayed, and a sparse trace (every 1,000 ticks) that consumes all
    320,000 arrivals under half its ticks; ms per executed tick,
    arrivals/s, and no kernel launched (the echo has no data plane);
-30. ``bench --drain``'s legs at n = 10,000: sparsetimer (40 rounds of
-   50 ms, dense, 100-tick chunks) traced
+30. ``bench --drain``'s legs at n = 10,000: sparsetimer (24 of its 40
+   rounds of 50 ms, dense, 100-tick chunks) traced
    and sampled; the drain flag
    changes no leaf, no tick op and no captured graph node; the drained
    runs (16 slots a lane, 3 sample rows) drop and clip nothing, stream
@@ -181,7 +181,33 @@ Phases, in order (any failure raises and the exit code is not 0):
    first grid value above x_fail = 0.663;
 35. storm at n = 300 shaped with churn under the compressed fault
    timeline, swept over 4 seeds (600 ticks), on the card and on the CPU:
-   every scenario's every state leaf bit-equal.
+   every scenario's every state leaf bit-equal;
+36. bench.py's storm at n = 10,000 as a composition through the runner
+   (``run_composition``, its chunk the watchdog tier of 8,192 ticks):
+   success, phase 11's ticks and count-scatter launches, the combined
+   results.out and every summary key; its host spans, and its dispatch
+   wall within 10% of phase 11's;
+37. phase 4's dht at n = 10,000 with the fused front through the runner:
+   phase 4's ticks, outcomes and front and merge launches;
+38. prewarm, then the storm composition: memory_hit, compiles 0, no
+   capture, [36]'s summary; storm in 512-tick chunks checkpointed at
+   every boundary, preempted at boundary 3 and resumed with no capture:
+   summary, run.out and results.out equal to the uninterrupted run's; a
+   terminated run;
+39. the memory model: the peak above the memory allocated before the run
+   against the state model, of the runner's storm and dht at 10,000
+   ([36], [37]), sampled storm at 10,000 ([26]) and gossipsub at
+   1,048,576 ([9]), the worst ratio at least the runner's fraction; a
+   traced storm (400 ticks) through the runner under a forced
+   ``TESTGROUND_HBM_BYTES`` that shrinks its ring, its peak under the
+   forced budget;
+40. storm (compressed params) and faultsdemo's composition (traced and
+   sampled) at n = 300 through the runner on the card and on the CPU:
+   every deterministic summary key, run.out, output file and progress
+   row equal;
+41. ``python -m testground_tpu_torch healthcheck --fix`` and ``run
+   composition plans/faultsdemo/composition.toml`` as subprocesses: exit
+   0, PASS.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernel measurements, and ``{"ok": true, "device": {...}}``. Everything
@@ -834,6 +860,7 @@ def case_run(torch, dev, report, key, ex, check):
     ex.tick_fn()
     build_s = time.monotonic() - t0
     torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
     reset_launch_counts()
     res = ex.run()
     launches = other_launches()
@@ -846,6 +873,8 @@ def case_run(torch, dev, report, key, ex, check):
                                  / max(res.ticks_executed, 1) * 1e3),
         "build_seconds": build_s, "launches": launches,
         "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+        # the run's own peak ([39]'s memory model): state and capture
+        "peak_bytes": torch.cuda.max_memory_allocated(dev) - base,
         **check(res),
     }
     report[key] = out
@@ -919,7 +948,10 @@ def gossipsub_phase(torch, dev, report, key, n, chunk_ticks=32):
             "metrics_dropped": res.metrics_dropped(),
         }
 
+    from testground_tpu_torch.sim.sweep import state_bytes
+
     out, res = case_run(torch, dev, report, key, ex, check)
+    out["state_model_bytes"] = state_bytes(ex)  # for [39]
     merges = out["launches"]["ring_merge"]
     log(f"  gossipsub@{n:,d}: {out['covered']:,d}/{n:,d} covered in "
         f"{out['ticks']} ticks ({out['ticks_executed']} executed), "
@@ -1639,8 +1671,11 @@ def plane_phase(torch, dev, report, plane, n=10_000, chunk_ticks=32):
 
     ex = bench.storm_executable(n, dev, chunk_ticks=chunk_ticks,
                                 planes=(plane,))
+    from testground_tpu_torch.sim.sweep import state_bytes
+
     key = PLANE_KEYS[plane]
     out, _ = case_run(torch, dev, report, key, ex, check)
+    out["state_model_bytes"] = state_bytes(ex)  # for [39]
     out["wheel"] = not ex.program.net_spec.fixed_next_tick
     launches = out["launches"]["count_scatter"]
     log(f"  storm@{n:,d} {PLANE_TITLES[plane]}: {out['ok']:,d} ok in "
@@ -1827,6 +1862,10 @@ def replay_phase(torch, dev, report, storm_nodes):
     return line
 
 
+# [30]'s depth: bench --drain's 40 rounds
+DRAIN_SMOKE_ROUNDS = 40
+
+
 def drain_phase(torch, dev, report):
     """[30] bench --drain's legs at 10k, the drain flag's captured graph,
     and the count scatter's launches in the drained run."""
@@ -1838,8 +1877,9 @@ def drain_phase(torch, dev, report):
         for k in ("drain_off", "drain_on")}
     log(f"  captured loop iteration: {nodes}")
     assert nodes["drain_on"] == nodes["drain_off"], nodes
-    # one plain and one drained run (bench --drain takes two of each)
-    line = bench.drain_leg(10_000, dev, runs=1)
+    # one plain and one drained run (bench --drain takes two of each),
+    # of DRAIN_SMOKE_ROUNDS rounds
+    line = bench.drain_leg(10_000, dev, runs=1, rounds=DRAIN_SMOKE_ROUNDS)
     line["graph_nodes"] = nodes
     report["drain10k"] = line
     launches = line["launches"]
@@ -2044,6 +2084,443 @@ def sweep_parity_phase(np, dev, report, n=300, seeds=4):
         f"{leaves[0]} leaves a scenario (iterations {walls[str(dev)][0]}, "
         f"GPU {walls[str(dev)][1]:.2f} s with {walls[str(dev)][2]} "
         f"capture, CPU {walls['cpu'][1]:.2f} s)")
+
+
+
+# ------------------------------------------------------- the runner ([36]-[41])
+
+RUNNER_KEYS = (
+    "outcome", "outcomes", "ticks", "ticks_simulated", "ticks_executed",
+    "skip_ratio", "event_skip", "virtual_seconds", "wall_seconds",
+    "compile_seconds", "compile_breakdown", "compiles", "timed_out",
+    "metrics_dropped", "mesh", "hbm_preflight", "device_profile",
+    "checkpoint", "host_spans", "live")
+# the journal keys a resumed run adds or changes
+RESUME_KEYS = ("checkpoint", "resume", "resumed_from_chunk",
+               "resumed_from_tick", "compiles", "live")
+STORM_RUN_CONFIG = {"quantum_ms": 10.0, "max_ticks": 100_000,
+                    "metrics_capacity": 16, "phase_gating": True}
+DHT_RUN_CONFIG = {"quantum_ms": 10.0, "max_ticks": 60_000,
+                  "metrics_capacity": 8, "churn_fraction": 0.05,
+                  "churn_start_ms": 100.0, "churn_end_ms": 5_000.0,
+                  "pallas_front": True}
+GOSSIP_RUN_CONFIG = {"quantum_ms": 10.0, "max_ticks": 20_000,
+                     "metrics_capacity": 8}
+RESUME_CHUNK = 512
+RESUME_STOP_AT = 3
+
+
+def runner_input(plan, case, n, params, run_dir, run_id, run_config,
+                 groups=("single",), **tables):
+    """A RunInput of ``n`` instances of ``plan``'s ``case`` split evenly
+    over ``groups``, its artifact the repo's plans/<plan>."""
+    from testground_tpu_torch.api.contracts import RunGroup, RunInput
+
+    return RunInput(
+        run_id=run_id, env_config=None, run_dir=str(run_dir),
+        test_plan=plan, test_case=case, total_instances=n,
+        groups=[RunGroup(id=g, instances=n // len(groups),
+                         artifact_path=os.path.join(ROOT, "plans", plan),
+                         parameters={k: str(v) for k, v in params.items()})
+                for g in groups],
+        run_config=dict(run_config), **tables)
+
+
+def storm_input(run_dir, run_id="storm", n=10_000, run_config=None,
+                **tables):
+    """bench.py's storm @ n as a composition (its params and SimConfig,
+    chunk_ticks left to the runner)."""
+    from testground_tpu_torch import bench
+
+    return runner_input("benchmarks", "storm", n, bench.PARAMS, run_dir,
+                        run_id, dict(STORM_RUN_CONFIG, **(run_config or {})),
+                        **tables)
+
+
+def runner_run(torch, dev, rinput):
+    """``run_composition`` on the card with the launch counts reset just
+    before and read just after; (output, summary, launches)."""
+    from testground_tpu_torch.runner.outputs import summary
+    from testground_tpu_torch.sim import runner
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    out = runner.run_composition(rinput, device=dev)
+    launches = other_launches()
+    out.peak_bytes = torch.cuda.max_memory_allocated(dev) - base
+    return out, summary(rinput.run_dir), launches
+
+
+class preempt_at:
+    """The runner's should_stop hook preempting its run at boundary
+    ``k`` (1-based), as a SIGTERM during that chunk would."""
+
+    def __init__(self, k):
+        from testground_tpu_torch.sim import runner
+
+        self.runner, self.k, self.real = runner, k, runner._make_should_stop
+
+    def __enter__(self):
+        runner, k = self.runner, self.k
+
+        def make(rinput):
+            rid, calls = rinput.run_id, [0]
+            ev = runner._term_event(rid)
+
+            def should_stop():
+                calls[0] += 1
+                if calls[0] == k:
+                    runner.request_preempt(rid)
+                return ev.is_set()
+
+            return should_stop
+
+        runner._make_should_stop = make
+
+    def __exit__(self, *exc):
+        self.runner._make_should_stop = self.real
+
+
+def pooled_captures():
+    from testground_tpu_torch.sim import runner
+
+    return {k: ex.captures for k, (ex, _) in runner._EX_CACHE.items()}
+
+
+def runner_storm_phase(torch, dev, report, tmp, storm):
+    """[36] bench.py's storm @ 10,000 as a composition through the
+    runner: success, phase 11's ticks and count-scatter launches, the
+    combined results.out, every summary key; the host spans, and the
+    dispatch wall against phase 11's."""
+    from testground_tpu_torch.sim import runner
+
+    runner.clear_executor_pool()
+    ri = storm_input(os.path.join(tmp, "storm"))
+    out, s, launches = runner_run(torch, dev, ri)
+    spans = {r["name"]: r["seconds"] for r in s["host_spans"]}
+    ratio = s["wall_seconds"] / storm["wall_seconds"]
+    row = {"outcome": s["outcome"], "ticks": s["ticks"],
+           "ticks_executed": s["ticks_executed"], "launches": launches,
+           "wall_seconds": s["wall_seconds"],
+           "direct_wall_seconds": storm["wall_seconds"],
+           "wall_ratio": ratio, "compile_seconds": s["compile_seconds"],
+           "compile_breakdown": s["compile_breakdown"],
+           "host_spans": s["host_spans"],
+           "device_profile": s["device_profile"],
+           "state_model_bytes": s["hbm_preflight"][
+               "state_model_bytes_per_device"],
+           "peak_bytes": out.peak_bytes,
+           "chunk_ticks": runner.watchdog_chunk_ticks(10_000)}
+    report["runner_storm10k"] = row
+    log(f"  runner storm@10k: {s['outcome']}, {s['ticks']} ticks "
+        f"({s['ticks_executed']} executed), dispatch {s['wall_seconds']:.3f}"
+        f" s against phase 11's {storm['wall_seconds']:.3f} s "
+        f"(x{ratio:.3f}); host spans "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in spans.items())
+        + f"; count-scatter launches {launches['count_scatter']} "
+        f"(phase 11: {storm['launches']['count_scatter']})")
+    assert out.result.outcome == s["outcome"] == "success", s["outcome"]
+    assert s["ticks"] == storm["ticks"], (s["ticks"], storm["ticks"])
+    assert launches == storm["launches"], (launches, storm["launches"])
+    missing = [k for k in RUNNER_KEYS if k not in s]
+    assert not missing, missing
+    assert os.path.exists(os.path.join(ri.run_dir, "results.out"))
+    assert not os.path.exists(os.path.join(ri.run_dir, "single"))
+    assert ratio <= 1.10, f"runner dispatch wall x{ratio:.3f} of phase 11's"
+    return row
+
+
+def runner_dht_phase(torch, dev, report, tmp, dht):
+    """[37] dht @ 10,000 with the fused front as a composition through
+    the runner: phase 4's ticks, outcome and front and merge launches."""
+    ri = runner_input("dht", "find-providers", 10_000, DHT_PARAMS,
+                      os.path.join(tmp, "dht"), "dht", DHT_RUN_CONFIG)
+    out, s, launches = runner_run(torch, dev, ri)
+    row = {"outcome": s["outcome"], "ticks": s["ticks"],
+           "launches": launches, "wall_seconds": s["wall_seconds"],
+           "direct_wall_seconds": dht["wall_seconds"],
+           "ok": s["outcomes"]["single"]["ok"],
+           "crashed_count": s.get("crashed_count", 0),
+           "host_spans": s["host_spans"],
+           "state_model_bytes": s["hbm_preflight"][
+               "state_model_bytes_per_device"],
+           "peak_bytes": out.peak_bytes}
+    report["runner_dht10k"] = row
+    log(f"  runner dht@10k (fused front): {s['outcome']}, {s['ticks']} "
+        f"ticks, {row['ok']} ok, {row['crashed_count']} churned; "
+        f"dispatch {s['wall_seconds']:.3f} s (phase 4: "
+        f"{dht['wall_seconds']:.3f} s); launches {launches} (phase 4: "
+        f"{dht['launches']})")
+    assert s["ticks"] == dht["ticks"], (s["ticks"], dht["ticks"])
+    assert row["ok"] == dht["ok"] and row["crashed_count"] == dht["crashed"]
+    assert launches == dht["launches"], (launches, dht["launches"])
+    assert launches["deliver_front"] == launches["ring_merge"] > 0
+    return row
+
+
+def _without(s, keys):
+    return {k: v for k, v in s.items() if k not in keys}
+
+
+def runner_pool_resume_phase(torch, dev, report, tmp, first):
+    """[38] prewarm then run: memory_hit, compiles 0, no capture, the
+    same summary as [36]; storm @ 10,000 in 512-tick chunks checkpointed
+    at every boundary, preempted at boundary 3 and resumed: the same
+    summary and results.out as [36]'s uninterrupted run, with no
+    capture; a terminated run."""
+    from testground_tpu_torch.runner.outputs import (
+        deterministic, output_files, run_out_lines)
+    from testground_tpu_torch.sim import runner
+
+    runner.clear_executor_pool()
+    pre = runner.prewarm_composition(storm_input(os.path.join(tmp, "p0")),
+                                     device=dev)
+    assert pre.result.journal["executor_cache"] == "miss"
+    caps = pooled_captures()
+    ri = storm_input(os.path.join(tmp, "p1"))
+    _, s, launches = runner_run(torch, dev, ri)
+    assert s["hbm_preflight"]["executor_cache"] == "memory_hit"
+    assert s["compiles"] == 0 and s["compile_breakdown"] is None
+    assert pooled_captures() == caps, "the pool hit captured again"
+    a = deterministic(s, ri.run_dir)
+    b = deterministic(first, os.path.join(tmp, "storm"))
+    for d in (a, b):
+        d.pop("compiles")
+        d["hbm_preflight"].pop("executor_cache")
+    assert a == b, ("the prewarmed run's summary differs from [36]'s",
+                    {k: (a.get(k), b.get(k)) for k in set(a) | set(b)
+                     if a.get(k) != b.get(k)})
+    row = {"prewarm_compile_seconds": pre.result.journal["compile_seconds"],
+           "hit_compile_seconds": s["compile_seconds"],
+           "hit_wall_seconds": s["wall_seconds"],
+           "hit_launches": launches}
+    log(f"  prewarm {row['prewarm_compile_seconds']:.2f} s, then a "
+        f"memory_hit run: compile {s['compile_seconds']:.3f} s, dispatch "
+        f"{s['wall_seconds']:.3f} s, no capture, summary equal to [36]'s")
+
+    # the uninterrupted run to hold the resumed one against is [36]'s
+    # (its chunks are the watchdog tier's: chunking changes no state)
+    ck = {"checkpoint": {"interval": 0.0}}
+    rc = {"chunk_ticks": RESUME_CHUNK}
+    full_dir = os.path.join(tmp, "storm")
+    cut = storm_input(os.path.join(tmp, "cut"), "cut", run_config=rc, **ck)
+    with preempt_at(RESUME_STOP_AT):
+        out_b, s_b, _ = runner_run(torch, dev, cut)
+    assert out_b.result.outcome == "preempted" and s_b["preempted"]
+    assert s_b["ticks"] == RESUME_CHUNK * RESUME_STOP_AT, s_b["ticks"]
+    caps = pooled_captures()
+    resumed = storm_input(os.path.join(tmp, "cut"), "cut", run_config=rc,
+                          resume=True, **ck)
+    out_c, s_c, _ = runner_run(torch, dev, resumed)
+    assert pooled_captures() == caps, "the resume captured again"
+    assert s_c["resumed_from_tick"] == RESUME_CHUNK * RESUME_STOP_AT
+    a = _without(deterministic(first, full_dir), RESUME_KEYS)
+    c = _without(deterministic(s_c, resumed.run_dir), RESUME_KEYS)
+    for d in (a, c):
+        d["hbm_preflight"].pop("executor_cache")
+    assert c == a, ("the resumed summary differs from the uninterrupted "
+                    "one", {k: (a.get(k), c.get(k)) for k in set(a) | set(c)
+                            if a.get(k) != c.get(k)})
+    assert run_out_lines(resumed.run_dir) == run_out_lines(full_dir)
+    files = output_files(full_dir)
+    assert files and output_files(resumed.run_dir) == files
+    row.update({"resume_chunk_ticks": RESUME_CHUNK,
+                "preempted_at_tick": s_b["ticks"],
+                "snapshots_before_preempt": s_b["checkpoint"]["snapshots"],
+                "resumed_outcome": s_c["outcome"],
+                "resumed_wall_seconds": s_c["wall_seconds"]})
+    log(f"  preempted at tick {s_b['ticks']} ({s_b['checkpoint']['snapshots']}"
+        f" snapshots), resumed to tick {s_c['ticks']}: summary, run.out "
+        "and results.out equal to the uninterrupted run's, no capture")
+
+    runner.request_terminate("killed")
+    _, s_t, _ = runner_run(torch, dev, storm_input(
+        os.path.join(tmp, "killed"), "killed", run_config=rc))
+    assert s_t["outcome"] == "terminated" and s_t["terminated"]
+    assert s_t["ticks"] == RESUME_CHUNK, s_t["ticks"]
+    row["terminated_at_tick"] = s_t["ticks"]
+    log(f"  terminated run: outcome terminated at tick {s_t['ticks']}")
+    report["runner_pool_resume"] = row
+    return row
+
+
+def memory_model_phase(torch, dev, report, tmp):
+    """[39] the pre-flight's memory model on the card: each run's peak
+    above what was allocated before it (its state and the capture's
+    private pool) against its state model, at storm and dht @ 10,000
+    through the runner ([36], [37]), sampled storm @ 10,000 ([26]) and
+    gossipsub @ 1,048,576 ([9]), and the fraction they give. Then a
+    traced storm (400 ticks) through the runner under a forced
+    ``TESTGROUND_HBM_BYTES`` that shrinks its trace ring, its peak under
+    the forced budget. The kernels' scratch, allocated once a process at
+    a kernel's first launch (the front's: ~17 MB at 10k, in phase 4), is
+    not in these peaks."""
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.sim import runner
+    from testground_tpu_torch.sim.tables import Trace
+
+    rows = {}
+    for key, src in (("storm10k", "runner_storm10k"),
+                     ("dht10k", "runner_dht10k"),
+                     ("gossipsub1m", "gossipsub_big"),
+                     ("storm10k_sampled", PLANE_KEYS["telem"])):
+        model, peak = (report[src][k]
+                       for k in ("state_model_bytes", "peak_bytes"))
+        rows[key] = {"run": src, "state_model_bytes": model,
+                     "peak_bytes": peak, "ratio": model / peak}
+        log(f"  {key} ({src}): state model {model / 1e6:.1f} MB, peak "
+            f"{peak / 1e6:.1f} MB, state/peak {model / peak:.3f}")
+    worst = min(r["ratio"] for r in rows.values())
+    runner.clear_executor_pool()
+    # the forced budget admits the trace ring at half the requested
+    # capacity (metrics_capacity left to the pre-flight: its ladder is
+    # the outer one, its first rung the default 64)
+    rc = {k: v for k, v in STORM_RUN_CONFIG.items()
+          if k != "metrics_capacity"}
+    rc["max_ticks"] = 400
+
+    def traced(tag, cap=256):
+        return runner_input("benchmarks", "storm", 10_000, bench.PARAMS,
+                            os.path.join(tmp, tag), tag, rc,
+                            trace=Trace(capacity=cap))
+
+    probe_ri = traced("probe", 128)
+    _, build_fn, cfg, ctx = runner._build(probe_ri, dev, log)
+    _, probe = runner._preflight(probe_ri, build_fn, ctx, cfg, dev, log)
+    budget = int(probe["state_model_bytes_per_device"]
+                 / runner._HBM_FRACTION) + 1
+    os.environ["TESTGROUND_HBM_BYTES"] = str(budget)
+    try:
+        out, s, _ = runner_run(torch, dev, traced("forced"))
+    finally:
+        del os.environ["TESTGROUND_HBM_BYTES"]
+    hp = s["hbm_preflight"]
+    forced = {"budget_bytes": budget, "peak_bytes": out.peak_bytes,
+              "trace_capacity_requested": hp["trace_capacity_requested"],
+              "trace_capacity": hp["trace_capacity"],
+              "state_model_bytes": hp["state_model_bytes_per_device"],
+              "ticks": s["ticks"]}
+    report["memory_model"] = {"cases": rows, "worst_ratio": worst,
+                              "fraction": runner._HBM_FRACTION,
+                              "forced": forced}
+    log(f"  worst state/peak {worst:.3f}; the runner admits "
+        f"{runner._HBM_FRACTION} of the budget; forced budget "
+        f"{budget / 1e6:.1f} MB: trace capacity "
+        f"{hp['trace_capacity_requested']} -> {hp['trace_capacity']}, peak "
+        f"{out.peak_bytes / 1e6:.1f} MB over {s['ticks']} ticks")
+    assert runner._HBM_FRACTION <= worst, (runner._HBM_FRACTION, worst)
+    assert hp["trace_capacity"] < hp["trace_capacity_requested"]
+    assert s["ticks"] == rc["max_ticks"] and s["trace_events"] > 0
+    assert out.peak_bytes <= budget, (out.peak_bytes, budget)
+    runner.clear_executor_pool()
+    return report["memory_model"]
+
+
+def runner_parity_phase(torch, dev, report, tmp, n=300):
+    """[40] the card against the CPU through the runner at n = 300:
+    storm with ``__graft_entry__``'s compressed params, and faultsdemo's
+    composition traced and sampled (its [faults], [trace], [telemetry]);
+    every deterministic summary key, run.out, every output file and the
+    progress rows equal."""
+    import tomllib
+
+    from testground_tpu_torch import graft
+    from testground_tpu_torch.runner.outputs import assert_runs_equal
+    from testground_tpu_torch.sim import runner
+    from testground_tpu_torch.sim.tables import Faults, Telemetry, Trace
+
+    with open(os.path.join(ROOT, "plans", "faultsdemo", "composition.toml"),
+              "rb") as f:
+        comp = tomllib.load(f)
+    params = dict(comp["global"]["run"]["test_params"], min_pings="0")
+
+    def storm(d, side):
+        return runner_input("benchmarks", "storm", n, graft.STORM_PARAMS,
+                            os.path.join(tmp, f"par_storm_{side}"),
+                            "par", STORM_RUN_CONFIG)
+
+    def demo(d, side):
+        return runner_input(
+            "faultsdemo", "chaos", n, params,
+            os.path.join(tmp, f"par_demo_{side}"), "par",
+            {"max_ticks": 2_000}, groups=("left", "right"),
+            faults=Faults.from_dict(comp["faults"]),
+            trace=Trace.from_dict(comp["trace"]),
+            telemetry=Telemetry.from_dict(comp["telemetry"]))
+
+    out = {}
+    hb = os.environ.get("TG_DISPATCH_HEARTBEAT_S")
+    # heartbeat rows count wall time: none in a parity pair
+    os.environ["TG_DISPATCH_HEARTBEAT_S"] = "86400"
+    try:
+        for key, make in (("storm300", storm), ("faultsdemo300", demo)):
+            walls = {}
+            for d, side in ((dev, "gpu"), ("cpu", "cpu")):
+                runner.clear_executor_pool()
+                ri = make(d, side)
+                t0 = time.monotonic()
+                runner.run_composition(ri, device=d)
+                walls[side] = time.monotonic() - t0
+            s = assert_runs_equal(make(dev, "gpu").run_dir,
+                                  make("cpu", "cpu").run_dir)
+            out[key] = {"outcome": s["outcome"], "ticks": s["ticks"],
+                        "gpu_seconds": walls["gpu"],
+                        "cpu_seconds": walls["cpu"]}
+            log(f"  {key}: GPU vs CPU through the runner equal (summary, "
+                f"run.out, outputs, progress rows): {s['outcome']}, "
+                f"{s['ticks']} ticks; GPU {walls['gpu']:.2f} s, CPU "
+                f"{walls['cpu']:.2f} s")
+            assert s["outcome"] == "success"
+    finally:
+        if hb is None:
+            os.environ.pop("TG_DISPATCH_HEARTBEAT_S", None)
+        else:
+            os.environ["TG_DISPATCH_HEARTBEAT_S"] = hb
+    report["runner_parity"] = out
+    return out
+
+
+def cli_phase(report, tmp):
+    """[41] ``python -m testground_tpu_torch healthcheck`` and ``run
+    composition plans/faultsdemo/composition.toml``, each a subprocess
+    on the card: exit 0, and the run grades PASS."""
+    env = dict(os.environ, TESTGROUND_HOME=os.path.join(tmp, "home"))
+    out = {}
+    for key, args in (
+        ("healthcheck", ["healthcheck", "--fix"]),
+        ("run", ["run", "composition", "plans/faultsdemo/composition.toml",
+                 "--run-id", "smoke"]),
+    ):
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "testground_tpu_torch", *args],
+            capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
+        lines = proc.stdout.strip().splitlines()
+        out[key] = {"returncode": proc.returncode,
+                    "seconds": time.monotonic() - t0, "tail": lines[-3:]}
+        if key == "healthcheck":
+            # the card is visible and the three kernels built and loaded
+            out[key]["cuda_backend_ok"] = any(
+                line.startswith("- cuda-backend: ok") for line in lines)
+        for line in proc.stdout.strip().splitlines()[-6:]:
+            log(f"    {line}")
+        assert proc.returncode == 0, (key, proc.stdout[-3000:],
+                                      proc.stderr[-3000:])
+    summary_path = os.path.join(tmp, "home", "data", "outputs", "faultsdemo",
+                                "smoke", "sim_summary.json")
+    with open(summary_path) as f:
+        s = json.load(f)
+    assert s["outcome"] == "success", s["outcome"]
+    assert out["healthcheck"]["cuda_backend_ok"], out["healthcheck"]
+    out["run"]["outcome"] = s["outcome"]
+    report["cli"] = out
+    log(f"  healthcheck exit 0 ({out['healthcheck']['seconds']:.1f} s); run "
+        f"composition faultsdemo: {s['outcome']} (PASS) in "
+        f"{out['run']['seconds']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -2324,20 +2801,51 @@ def main() -> int:
         "GPU vs CPU")
     sweep_parity_phase(np, dev, report)
 
+    import tempfile
+
+    t_runner = time.monotonic()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-runner-") as tmp:
+        log("[36] storm @ 10,000 as a composition through the runner "
+            "(run_composition)")
+        runner_storm = runner_storm_phase(torch, dev, report, tmp, storm)
+        log("[37] dht @ 10,000 with the fused front through the runner")
+        runner_dht = runner_dht_phase(torch, dev, report, tmp, dht)
+        log("[38] prewarm then run; storm @ 10,000 preempted at boundary "
+            f"{RESUME_STOP_AT} and resumed; a terminated run")
+        from testground_tpu_torch.runner.outputs import summary
+
+        runner_pool_resume_phase(torch, dev, report, tmp,
+                                 summary(os.path.join(tmp, "storm")))
+        log("[39] the memory model: peak against state model, and a run "
+            "under a forced budget")
+        memory_model_phase(torch, dev, report, tmp)
+        log("[40] storm and faultsdemo @ 300 through the runner: GPU vs "
+            "CPU")
+        runner_parity_phase(torch, dev, report, tmp)
+        log("[41] python -m testground_tpu_torch healthcheck and run "
+            "composition plans/faultsdemo/composition.toml")
+        cli_phase(report, tmp)
+        from testground_tpu_torch.sim import runner as trunner
+
+        trunner.clear_executor_pool()
+    report["runner_phases_seconds"] = time.monotonic() - t_runner
+    log(f"  [36]-[41]: {report['runner_phases_seconds']:.1f} s")
+
     front_row = next(r for r in rows if r["n"] == 10_000
                      and r["regime"] == "mixed")
     merge_row = merge_rows[0]  # dht@10k's shape
-    # the shape of the path whose launches the line reports: the sweep's
-    # folded call
+    # the shape of the path whose launches the line reports: a storm@10k
+    # tick on the staging row (the runner's storm of [36])
     scatter_row = next(r for r in scatter_rows
-                       if r["case"] == "storm_sweep")
+                       if (r["shape"], r["case"]) == ("staging", "storm"))
     kernels = {"kernels": [
         {
             "name": "deliver_front",
             "route": "cuda",
             "source": "testground_tpu_torch/csrc/deliver_front.cu",
             "replaces": "testground_tpu/sim/pallas_front.py:214",
-            "launches": dht["launches"]["deliver_front"],
+            # this slice's path that runs it: the runner's dht of [37]
+            "launches": runner_dht["launches"]["deliver_front"],
             "max_abs_err": max_err,
             "ms": front_row["kernel_ms"],
             "plain_ms": front_row["plain_ms"],
@@ -2350,7 +2858,7 @@ def main() -> int:
             "route": "cuda",
             "source": "testground_tpu_torch/csrc/ring_merge.cu",
             "replaces": "tools/microbench_pallas_append.py:76",
-            "launches": dht_default["launches"]["ring_merge"],
+            "launches": runner_dht["launches"]["ring_merge"],
             "max_abs_err": merge_err,
             "ms": merge_row["kernel_ms"],
             "plain_ms": merge_row["plain_ms"],
@@ -2364,8 +2872,8 @@ def main() -> int:
             "source": "testground_tpu_torch/csrc/count_scatter.cu",
             # no TPU kernel: XLA's scatter-add of count mode
             "replaces": "testground_tpu/sim/net.py:1313",
-            # this slice's path that runs it: the batched sweep of [33]
-            "launches": sweep["launches"]["count_scatter"],
+            # this slice's path that runs it: the runner's storm of [36]
+            "launches": runner_storm["launches"]["count_scatter"],
             "max_abs_err": scatter_err,
             "ms": scatter_row["wrapper_ms"],
             "plain_ms": scatter_row["plain_ms"],

@@ -21,9 +21,10 @@ Counterpart of ``testground_tpu/sim/core.py``. Per tick:
 The state is a ``dict`` of tensors whose leaves keep the JAX state's
 names, shapes and dtypes, so the two compare leaf by leaf
 (sim/state_io.py). The loop stays on the device: termination is read
-back every ``chunk_ticks`` ticks, and a tick past the point where the
-JAX loop would have stopped is an identity (every leaf is selected back
-to its old value), so ``SimResult.ticks`` equals the JAX run's.
+back every ``POLL_TICKS`` iterations and the state at chunk boundaries,
+every ``chunk_ticks`` ticks, and a tick past the point where the JAX
+loop would have stopped is an identity (every leaf is selected back to
+its old value), so ``SimResult.ticks`` equals the JAX run's.
 
 Under event skip (on by default unless ``pallas_front=True``) each
 executed tick is followed by a jump of ``tick`` to the next event
@@ -42,8 +43,8 @@ cursors by what the phases consumed and adds its next arrival to the
 event-horizon min. Each plane is a Python branch on its compiled spec,
 so without one a tick builds the same state and runs the same ops. At
 each chunk boundary ``SimExecutable.run`` hands the state to the drain
-plane (sim/drain.py), then to the caller's ``on_chunk`` and
-``should_stop``. A sweep (sim/sweep.py) runs ``guarded_tick`` batched
+plane (sim/drain.py), then to the caller's ``on_chunk``,
+``should_stop`` and the durability plane (sim/checkpoint.py). A sweep (sim/sweep.py) runs ``guarded_tick`` batched
 over a leading scenario axis with ``torch.func.vmap``, each scenario
 with its own key and params in the state (``rng_key``, ``params``).
 """
@@ -51,6 +52,7 @@ with its own key and params in the state (``rng_key``, ``params``).
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -104,6 +106,28 @@ class SimConfig:
     # keeps the per-cause emits (the same records and counts)
     fused_observers: bool = True
     slices: int = 1
+
+
+def watchdog_chunk_ticks(n: int, cost_scale: float = 1.0) -> int:
+    """The JAX package's per-dispatch tick budget at ``n`` instances,
+    which the runner gives ``SimConfig.chunk_ticks`` when the run config
+    leaves it unset: chunk boundaries (drain, live rows, checkpoints)
+    then fall on the JAX runner's ticks. 8,192 up to 100k instances,
+    1,536 to 300k, 512 to 3M, 64 above; ``cost_scale`` > 1 divides it,
+    rounded down to a power of two and floored at 64. The port reads
+    termination every ``POLL_TICKS`` iterations inside a chunk, so a
+    long chunk costs no identity iterations past the end of a run."""
+    if n <= 100_000:
+        base = 8192
+    elif n <= 300_000:
+        base = 1536
+    elif n <= 3_000_000:
+        base = 512
+    else:
+        base = 64
+    if cost_scale > 1.0:
+        base = max(64, 2 ** int(math.floor(math.log2(base / cost_scale))))
+    return base
 
 
 def churn_kill_tick(cfg: SimConfig, group_ids: np.ndarray) -> np.ndarray:
@@ -429,6 +453,10 @@ def _stream_push(buf, head, mask, pos0, payloads, pay):
 # capture: they make what a tick caches on first use (kernel scratch,
 # constants) outside the graph
 STEPPER_WARMUP = 2
+# loop iterations between two host reads of the termination condition
+# inside a chunk: a run ends within this many identity iterations of its
+# last tick, whatever ``chunk_ticks`` is
+POLL_TICKS = 32
 
 
 def _leaves(tree: dict):
@@ -619,8 +647,14 @@ class SimExecutable:
         self.has_restarts = faults is not None and faults.has_restarts
         self._tick_fn = None
         # CUDA-graph captures of the loop iteration made so far: one a
-        # run on the card (a drain at a chunk boundary captures nothing)
+        # run on the card (a drain at a chunk boundary captures nothing),
+        # or one for every run after ``warmup``
         self.captures = 0
+        # (state, stepper) captured by ``warmup`` and reused by every
+        # later run; ``_held_fresh``: the state is still the initial one
+        self._held = None
+        self._held_fresh = False
+        self.compile_breakdown = None
 
     # ------------------------------------------------------ initial state
 
@@ -1489,14 +1523,74 @@ class SimExecutable:
         self.captures += 1
         return replay
 
+    def warmup(self) -> float:
+        """Build the tick function and, on the card, capture the loop
+        iteration on an initial state that the executor keeps: every
+        later ``run`` replays that capture, copying its start state
+        (initial or resumed) into the captured tensors, so a repeat run
+        builds and captures nothing. The JAX package's ``warmup``
+        compiles its dispatcher in the same place. Returns its seconds
+        (0 for a second call)."""
+        t0 = time.monotonic()
+        built = self._tick_fn is None
+        self.tick_fn()
+        t1 = time.monotonic()
+        captured = self.device.type == "cuda" and self._held is None
+        if captured:
+            st = self.init_state()
+            self._held = (st, self.stepper(st))
+            self._held_fresh = True
+            torch.cuda.synchronize(self.device)
+        t2 = time.monotonic()
+        # the port's split of the JAX package's compile_breakdown: None
+        # when nothing was built or captured
+        self.compile_breakdown = (
+            {"build_seconds": round(t1 - t0, 6),
+             "capture_seconds": round(t2 - t1, 6)}
+            if built or captured else None)
+        return t2 - t0
+
+    def release_capture(self) -> None:
+        """Drop the capture ``warmup`` kept (and the memory it holds)."""
+        self._held = None
+        self._held_fresh = False
+
+    def _start_state(self, resume_state):
+        """The loop's state and stepper for one run, and the capture's
+        seconds. After ``warmup`` on the card: the kept capture, its
+        tensors overwritten in place with the initial state or with
+        ``resume_state`` (host numpy leaves, sim/state_io.py). Otherwise
+        a fresh state (on the card, with its own capture)."""
+        if self._held is not None:
+            st, step = self._held
+            if resume_state is not None:
+                _copy_into(st, resume_state)
+            elif not self._held_fresh:
+                _copy_into(st, self.init_state())
+            self._held_fresh = False
+            return st, step, 0.0
+        if resume_state is not None:
+            from .state_io import state_from_numpy
+
+            st = state_from_numpy(resume_state, self.device)
+        else:
+            st = self.init_state()
+        t0 = time.monotonic()
+        step = self.stepper(st)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return st, step, time.monotonic() - t0
+
     def run(self, on_chunk=None, drain=None, should_stop=None,
             watchdog=None, checkpoint=None,
             resume_state=None) -> "SimResult":
-        """Run the loop to completion: ``chunk_ticks`` loop iterations
-        (``stepper``) between two host reads of the termination
-        condition, which gives the JAX package's chunk boundaries (dense:
-        every ``chunk_ticks`` ticks up to ``max_ticks``; event skip:
-        every ``chunk_ticks`` executed iterations).
+        """Run the loop to completion in chunks of ``chunk_ticks`` loop
+        iterations (``stepper``), which gives the JAX package's chunk
+        boundaries (dense: every ``chunk_ticks`` ticks up to
+        ``max_ticks``; event skip: every ``chunk_ticks`` executed
+        iterations). Inside a chunk the termination condition is read
+        every ``POLL_TICKS`` iterations and the chunk ends with the run:
+        the iterations it leaves out are identities.
 
         At each boundary, in the JAX package's order: ``drain`` (a
         sim/drain.py ``ObserverDrain``) streams the observer rings and
@@ -1504,33 +1598,45 @@ class SimExecutable:
         ``on_chunk(tick, running, info)`` is called (``info`` holds the
         boundary state, and the drain's watermarks under
         ``"observer"``), then ``should_stop()`` is polled, at the last
-        boundary too: True ends the run there with the drained prefix kept and
-        ``SimResult.terminated`` set. ``wall_seconds`` starts after the
-        stepper's capture (``capture_seconds``). ``watchdog``,
-        ``checkpoint`` and
-        ``resume_state`` belong to the durability plane, not ported
-        yet."""
-        for what, v in (("watchdog", watchdog), ("checkpoint", checkpoint),
-                        ("resume_state", resume_state)):
-            if v is not None:
-                raise _not_ported(f"SimExecutable.run({what}=...)", 11,
-                                  "runner and serving integration")
+        boundary too: True ends the run there with the drained prefix
+        kept and ``SimResult.terminated`` set. Before the last
+        boundary, ``checkpoint`` (a sim/checkpoint.py ``Checkpointer``)
+        snapshots the boundary state (forced when stopping) and
+        ``watchdog`` (a ``DispatchWatchdog``) judges the chunk's wall
+        time, armed around the chunk by ``begin``/``end``.
+        ``resume_state`` (a checkpoint's host leaves) replaces the
+        initial state. ``wall_seconds`` starts after the stepper's
+        capture (``capture_seconds``). After ``warmup`` on the card the
+        result's state is the executor's own: the next run overwrites
+        it."""
         cfg = self.config
         self.tick_fn()  # built before the clock starts
-        st = self.init_state()
-        t0 = time.monotonic()
-        step = self.stepper(st)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        st, step, capture_s = self._start_state(resume_state)
+        chunk = max(1, cfg.chunk_ticks)
+        poll = min(POLL_TICKS, chunk)
         # the capture is set-up, as the JAX package's warmup is: the
         # clock starts after it
         wall0 = time.monotonic()
         terminated = False
         while True:
-            for _ in range(max(1, cfg.chunk_ticks)):
-                st = step(st)
-            tick = int(st["tick"])
-            running = int(torch.sum(live_lanes(st, self.has_restarts)))
+            d0 = time.monotonic()
+            if watchdog is not None:
+                watchdog.begin()
+            left = chunk
+            while left:
+                k = min(poll, left)
+                for _ in range(k):
+                    st = step(st)
+                left -= k
+                tick = int(st["tick"])
+                running = int(torch.sum(live_lanes(st, self.has_restarts)))
+                if running == 0 or tick >= cfg.max_ticks:
+                    break
+            # the watchdog's unit is the chunk (device work + the host
+            # reads), before the boundary's host work below
+            dispatch_s = time.monotonic() - d0
+            if watchdog is not None:
+                watchdog.end()
             if drain is not None:
                 # before the callback, so it reads the post-drain
                 # cumulative watermarks
@@ -1542,6 +1648,10 @@ class SimExecutable:
                 on_chunk(tick, running, info)
             done = running == 0 or tick >= cfg.max_ticks
             stopping = should_stop is not None and should_stop()
+            if checkpoint is not None and not done:
+                checkpoint.boundary(st, force=stopping)
+            if watchdog is not None and not done:
+                watchdog.observe(dispatch_s)
             if done:
                 break
             if stopping:
@@ -1551,7 +1661,17 @@ class SimExecutable:
             torch.cuda.synchronize(self.device)
         wall = time.monotonic() - wall0
         return SimResult(self, st, wall_seconds=wall, terminated=terminated,
-                         capture_seconds=wall0 - t0)
+                         capture_seconds=capture_s)
+
+
+def _copy_into(dst: dict, src: dict) -> None:
+    """Copy every leaf of ``src`` (tensors or numpy arrays) into
+    ``dst``'s tensor in place."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_into(dst[k], v)
+        else:
+            dst[k].copy_(torch.as_tensor(v))
 
 
 def _np(x) -> np.ndarray:
@@ -1588,6 +1708,12 @@ class SimResult:
         """ticks_executed / ticks simulated (1.0 = every tick executed)."""
         t = self.ticks
         return (self.ticks_executed / t) if t else 1.0
+
+    @property
+    def virtual_seconds(self) -> float:
+        """Simulated seconds: ``ticks * quantum_ms / 1e3`` in Python
+        floats, as the JAX package computes it."""
+        return self.ticks * self.executable.config.quantum_ms / 1e3
 
     def statuses(self) -> np.ndarray:
         return _np(self.state["status"])

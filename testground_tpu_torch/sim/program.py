@@ -20,7 +20,7 @@ plans use, with the trace and telemetry hooks (``trace``, ``observe``,
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -385,6 +385,9 @@ class Program:
     topics: TopicRegistry
     metrics: MetricRegistry
     mem_spec: dict[str, tuple[tuple, Any, Any]]  # name -> (shape, dtype, init)
+    # the plan's static ``log`` and ``fail_if`` strings, in build order
+    # (the runner writes them to run.out)
+    messages: list[str] = field(default_factory=list)
     net_spec: Any = None  # net.NetSpec when the program uses the data plane
     # state / topic ids watched by churn-tolerant barriers: the core keeps
     # per-instance signal / publish counts for exactly these
@@ -430,6 +433,7 @@ class ProgramBuilder:
         self.metrics = MetricRegistry()
         self._phases: list[Phase] = []
         self._mem: dict[str, tuple[tuple, Any, Any]] = {}
+        self._messages: list[str] = []
         self._auto = 0
         self._net_spec = None  # net.NetSpec once the data plane is enabled
         self._churn_sids: list[int] = []  # states watched by churn barriers
@@ -485,8 +489,9 @@ class ProgramBuilder:
         return pc
 
     def log(self, message: str) -> None:
-        """A static plan message: a phase that only advances (the JAX
-        package keeps the strings; nothing in the port reads them)."""
+        """A static plan message (kept in ``Program.messages``): a phase
+        that only advances."""
+        self._messages.append(message)
 
         def fn(env, mem):
             return mem, PhaseCtrl(advance=1)
@@ -739,6 +744,7 @@ class ProgramBuilder:
 
     def fail_if(self, cond_fn, message: str = "") -> None:
         """Fail instances where cond_fn(env, mem) is True; others advance."""
+        self._messages.append(f"fail_if: {message}")
 
         def fn(env, mem):
             bad = cond_fn(env, mem)
@@ -1216,6 +1222,7 @@ class ProgramBuilder:
             topics=self.topics,
             metrics=self.metrics,
             mem_spec=dict(self._mem),
+            messages=list(self._messages),
             net_spec=self._net_spec,
             churn_sids=tuple(self._churn_sids),
             churn_tids=tuple(self._churn_tids),

@@ -1,11 +1,13 @@
 """The composition tables of the fault, observer, replay, sweep and
 search planes: ``[faults]``, ``[trace]``, ``[telemetry]``, ``[replay]``,
-``[sweep]`` and ``[search]``.
+``[sweep]`` and ``[search]`` (the rest of a composition is
+api/composition.py).
 
 The port's own copy of those tables of ``testground_tpu/api/composition.py``
 (the port imports nothing of the JAX package, not even its jax-free
-modules): the same fields and defaults, ``from_dict``, validation,
-``$param`` references and did-you-mean errors, message for message.
+modules): the same fields and defaults, ``from_dict``/``to_dict``,
+validation, ``$param`` references and did-you-mean errors, message for
+message.
 """
 
 from __future__ import annotations
@@ -205,6 +207,21 @@ class FaultEvent:
                 out.add(v[1:])
         return out
 
+    def to_dict(self) -> dict:
+        d: dict[str, Any] = {"kind": self.kind, "at_ms": self.at_ms}
+        if self.until_ms is not None:
+            d["until_ms"] = self.until_ms
+        for k in ("a", "b", "group"):
+            if getattr(self, k):
+                d[k] = getattr(self, k)
+        for k in ("latency_ms", "jitter_ms", "loss_pct", "fraction"):
+            v = getattr(self, k)
+            if isinstance(v, str) or v:
+                d[k] = v
+        if self.count:
+            d["count"] = self.count
+        return d
+
     @classmethod
     def from_dict(cls, d: dict) -> "FaultEvent":
         known = {
@@ -304,6 +321,12 @@ class Faults:
             out |= ev.param_refs()
         return out
 
+    def to_dict(self) -> dict:
+        d = {"events": [ev.to_dict() for ev in self.events]}
+        if self.disabled:
+            d["disabled"] = True
+        return d
+
     @classmethod
     def from_dict(cls, d: dict) -> "Faults":
         _reject_unknown_keys(d, {"events", "disabled"}, "[faults]")
@@ -369,6 +392,18 @@ class Trace:
                         f"composition groups: {sorted(group_ids)}"
                     )
 
+    def to_dict(self) -> dict:
+        d: dict[str, Any] = {"enabled": self.enabled}
+        if self.capacity != 256:
+            d["capacity"] = self.capacity
+        if self.categories:
+            d["categories"] = list(self.categories)
+        if self.groups:
+            d["groups"] = list(self.groups)
+        if self.drain:
+            d["drain"] = True
+        return d
+
     @classmethod
     def from_dict(cls, d: dict) -> "Trace":
         _reject_unknown_keys(
@@ -430,6 +465,12 @@ class TelemetryHistogram:
                 f"got {self.buckets}"
             )
 
+    def to_dict(self) -> dict:
+        d: dict[str, Any] = {"name": self.name}
+        if self.buckets != 24:
+            d["buckets"] = self.buckets
+        return d
+
     @classmethod
     def from_dict(cls, d: dict) -> "TelemetryHistogram":
         _reject_unknown_keys(
@@ -489,6 +530,20 @@ class Telemetry:
                     f"telemetry.histograms[{i}]: duplicate name {h.name!r}"
                 )
             seen.add(h.name)
+
+    def to_dict(self) -> dict:
+        d: dict[str, Any] = {"enabled": self.enabled}
+        if self.interval != 1000:
+            d["interval"] = self.interval
+        if self.probes:
+            d["probes"] = list(self.probes)
+        if self.histograms:
+            d["histograms"] = [h.to_dict() for h in self.histograms]
+        if self.drain:
+            d["drain"] = True
+        if self.samples:
+            d["samples"] = self.samples
+        return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "Telemetry":
@@ -594,6 +649,18 @@ class Replay:
             for v in (self.scale, self.time_scale)
             if isinstance(v, str) and v.startswith("$")
         }
+
+    def to_dict(self) -> dict:
+        d: dict[str, Any] = {"trace": self.trace}
+        if isinstance(self.scale, str) or self.scale != 1.0:
+            d["scale"] = self.scale
+        if isinstance(self.time_scale, str) or self.time_scale != 1.0:
+            d["time_scale"] = self.time_scale
+        if self.capacity:
+            d["capacity"] = self.capacity
+        if not self.enabled:
+            d["enabled"] = False
+        return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "Replay":

@@ -1,0 +1,270 @@
+"""The port's entry point, ``python -m testground_tpu_torch`` (cli.py), and
+its composition loading (api/composition.py, api/manifest.py), on the
+CPU: every ``composition.toml`` under ``plans/`` yields, field by field,
+the RunInput the JAX engine builds for it (engine/engine.py's run path:
+``prepare_for_run`` against the plan's manifest, the groups' RunGroups,
+the coalesced run config and every table); the run flags shape a
+composition as the JAX command's do; ``run composition
+plans/faultsdemo/composition.toml --device cpu`` exits 0 with grade PASS
+and writes what the JAX runner writes for the same RunInput; SIGTERM
+preempts the command's run and ``--resume`` finishes it; the
+healthcheck reports each check."""
+
+import _torch_threads  # noqa: F401  (caps torch's CPU threads)
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+from types import SimpleNamespace
+
+import pytest
+from _runner_parity import (
+    NO_HEARTBEAT,
+    REPO,
+    assert_runs_equal,
+    output_files,
+    run_jax,
+)
+
+from testground_tpu.api import Composition as JComposition
+from testground_tpu.api import TestPlanManifest as JManifest
+from testground_tpu.api.contracts import RunGroup as JRunGroup
+from testground_tpu.api.contracts import RunInput as JRunInput
+from testground_tpu.cmd.root import _apply_overrides
+from testground_tpu.config.coalescing import CoalescedConfig as JCoalesced
+from testground_tpu_torch import cli
+from testground_tpu_torch.api.composition import Composition
+from testground_tpu_torch.sim.tables import CompositionError
+
+COMPOSITIONS = sorted(REPO.glob("plans/*/composition.toml"))
+
+
+def jax_engine_rinput(path, run_id, home):
+    """What the JAX engine's run path builds for a composition file whose
+    groups are built by the sim:module builder (artifact: the plan's
+    directory)."""
+    plan_dir = Path(path).parent
+    comp = JComposition.load(path)
+    for g in comp.groups:
+        g.run.artifact = g.run.artifact or str(plan_dir)
+    manifest = JManifest.load(plan_dir / "manifest.toml")
+    prepared = comp.prepare_for_run(manifest)
+    run_dir = Path(home) / "data" / "outputs" / prepared.global_.plan / run_id
+    return JRunInput(
+        run_id=run_id, env_config=None, run_dir=str(run_dir),
+        test_plan=prepared.global_.plan, test_case=prepared.global_.case,
+        total_instances=prepared.global_.total_instances,
+        groups=[JRunGroup(id=g.id, instances=g.calculated_instance_count,
+                          artifact_path=g.run.artifact,
+                          parameters=dict(g.run.test_params),
+                          resources=g.resources,
+                          profiles=dict(g.run.profiles))
+                for g in prepared.groups],
+        composition=prepared, manifest=manifest, plan_dir=str(plan_dir),
+        disable_metrics=prepared.global_.disable_metrics,
+        run_config=JCoalesced().append({}).append(
+            prepared.global_.run_config).coalesce(),
+        sweep=prepared.sweep, faults=prepared.faults, trace=prepared.trace,
+        telemetry=prepared.telemetry, search=prepared.search,
+        live=prepared.live, checkpoint=prepared.checkpoint,
+        replay=prepared.replay)
+
+
+def _as_dict(v):
+    if hasattr(v, "to_dict"):
+        return v.to_dict()
+    if hasattr(v, "__dataclass_fields__"):
+        return {k: _as_dict(getattr(v, k)) for k in v.__dataclass_fields__}
+    if isinstance(v, list):
+        return [_as_dict(x) for x in v]
+    if isinstance(v, dict):
+        return {k: _as_dict(x) for k, x in v.items()}
+    return v
+
+
+def assert_rinputs_equal(t, j):
+    names = set(j.__dataclass_fields__)
+    assert set(t.__dataclass_fields__) == names
+    for name in sorted(names - {"env_config", "on_progress"}):
+        assert _as_dict(getattr(t, name)) == _as_dict(getattr(j, name)), name
+
+
+@pytest.mark.parametrize("path", COMPOSITIONS,
+                         ids=[p.parent.name for p in COMPOSITIONS])
+def test_composition_loads_as_the_jax_engine_loads_it(path, tmp_path):
+    assert len(COMPOSITIONS) >= 2
+    comp = Composition.load(path)
+    assert comp.to_dict() == JComposition.load(path).to_dict()
+    mine = cli.prepare_run(comp, path.parent, "r1", tmp_path)
+    assert_rinputs_equal(mine, jax_engine_rinput(path, "r1", tmp_path))
+    assert mine.composition.groups[0].calculated_instance_count > 0
+
+
+def _args(**kw):
+    base = dict(test_param=None, run_cfg=None, runner_override=None)
+    base.update(kw)
+    return SimpleNamespace(**base)
+
+
+@pytest.mark.parametrize("flags", [
+    {"test_param": ["chaos_loss=40", "pump_ms=100"]},
+    {"run_cfg": ["max_ticks=900", "event_skip=false", "seed=3"]},
+    {"no_faults": True, "no_telemetry": True},
+    {"no_live": True, "no_checkpoint": True},
+    {"live_interval": 0.5, "checkpoint_interval": 0.0},
+    {"telemetry_interval": 20, "trace_on": True},
+])
+def test_run_flags_shape_the_composition_as_jax_does(flags, tmp_path):
+    path = REPO / "plans" / "faultsdemo" / "composition.toml"
+    mine, theirs = Composition.load(path), JComposition.load(path)
+    cli.apply_overrides(mine, _args(**flags))
+    _apply_overrides(theirs, _args(**flags))
+    assert mine.to_dict() == theirs.to_dict()
+
+
+def test_composition_errors_match_jax(tmp_path):
+    path = REPO / "plans" / "faultsdemo" / "composition.toml"
+    man = JManifest.load(path.parent / "manifest.toml")
+    from testground_tpu_torch.api.manifest import TestPlanManifest
+
+    tman = TestPlanManifest.load(path.parent / "manifest.toml")
+    for edit in (
+        lambda d: d["global"].update(total_instances=5),
+        lambda d: d["groups"][0]["instances"].update(count=2000),
+        lambda d: d["global"].update(case="nosuch"),
+        lambda d: d["global"].update(runner="local:exec"),
+        lambda d: d["groups"][1].update(id="left"),
+    ):
+        d = JComposition.load(path).to_dict()
+        edit(d)
+        with pytest.raises(Exception) as jerr:
+            JComposition.from_dict(d).prepare_for_run(man)
+        with pytest.raises(CompositionError) as terr:
+            Composition.from_dict(d).prepare_for_run(tman)
+        assert str(terr.value) == str(jerr.value)
+
+
+def _cli(*args, home):
+    env = dict(os.environ, TESTGROUND_HOME=str(home), **NO_HEARTBEAT)
+    return subprocess.run(
+        [sys.executable, "-m", "testground_tpu_torch", *args],
+        capture_output=True, text=True, timeout=600, cwd=REPO, env=env)
+
+
+def test_cli_runs_faultsdemo_as_the_jax_runner_does(tmp_path):
+    path = "plans/faultsdemo/composition.toml"
+    proc = _cli("run", "composition", path, "--device", "cpu",
+                "--run-id", "cli1", home=tmp_path / "home")
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "run cli1: outcome success" in proc.stdout
+    port_dir = tmp_path / "home" / "data" / "outputs" / "faultsdemo" / "cli1"
+    s = json.loads((port_dir / "sim_summary.json").read_text())
+    assert s["outcome"] == "success"
+    assert s["outcomes"] == {"left": {"ok": 2, "total": 2},
+                             "right": {"ok": 2, "total": 2}}
+    ri = jax_engine_rinput(REPO / path, "cli1", tmp_path / "jaxhome")
+    run_jax(ri)
+    assert_runs_equal(ri.run_dir, port_dir)
+
+
+def test_cli_refuses_a_plan_the_port_lacks_and_needs_a_card(tmp_path):
+    plan = tmp_path / "plans" / "myplan"
+    plan.mkdir(parents=True)
+    (plan / "manifest.toml").write_text(
+        'name = "myplan"\n[runners."sim:jax"]\nenabled = true\n'
+        '[[testcases]]\nname = "ok"\ninstances = { min = 1, max = 4 }\n')
+    (plan / "sim.py").write_text("import testground_tpu\n")
+    comp = tmp_path / "c.toml"
+    comp.write_text(
+        '[global]\nplan = "myplan"\ncase = "ok"\nrunner = "sim:jax"\n'
+        'total_instances = 1\n[[groups]]\nid = "g"\n'
+        'instances = { count = 1 }\n')
+    proc = _cli("run", "composition", str(comp), "--device", "cpu",
+                home=tmp_path)
+    assert proc.returncode == 2
+    assert "'myplan' has no port" in proc.stderr
+    import torch
+
+    if not torch.cuda.is_available():
+        # the card is the default device: without one the run raises
+        proc = _cli("run", "composition", "plans/faultsdemo/composition.toml",
+                    home=tmp_path)
+        assert proc.returncode != 0
+        assert "torch.cuda.is_available() is False" in proc.stderr
+
+
+def test_sigterm_preempts_the_cli_run_and_resume_finishes_it(tmp_path,
+                                                          monkeypatch):
+    """SIGTERM, as a scheduler stops a job with, preempts the command's
+    run at its next chunk boundary (outcome preempted, a resume token and
+    a final checkpoint); ``--resume RUN_ID`` then finishes it with the
+    outputs of an uninterrupted run."""
+    import signal
+    import threading
+
+    from testground_tpu_torch.sim import runner as trunner
+
+    monkeypatch.setenv("TESTGROUND_HOME", str(tmp_path))
+    for k, v in NO_HEARTBEAT.items():
+        monkeypatch.setenv(k, v)
+    flags = ["run", "composition",
+             str(REPO / "plans/faultsdemo/composition.toml"), "--device",
+             "cpu", "--run-cfg", "chunk_ticks=25",
+             "--checkpoint-interval", "0"]
+    outputs = tmp_path / "data" / "outputs" / "faultsdemo"
+    assert cli.main(flags + ["--run-id", "whole"]) == 0
+
+    def send_when_running():
+        while "stopped" not in trunner._TERM_FLAGS:
+            time.sleep(0.005)
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    unhandled = []
+    prev = signal.signal(signal.SIGTERM, lambda *a: unhandled.append(a))
+    try:
+        sender = threading.Thread(target=send_when_running, daemon=True)
+        sender.start()
+        assert cli.main(flags + ["--run-id", "stopped"]) == 1
+        sender.join(timeout=60)
+        assert signal.getsignal(signal.SIGTERM) is not cli._preempt_on_sigterm
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+    assert not unhandled
+    s = json.loads((outputs / "stopped" / "sim_summary.json").read_text())
+    assert s["outcome"] == "preempted" and s["resume_token"] == "stopped"
+    whole = json.loads((outputs / "whole" / "sim_summary.json").read_text())
+    assert 0 < s["ticks"] < whole["ticks"] and s["ticks"] % 25 == 0
+    assert s["checkpoint"]["snapshots"] >= 1
+    assert cli.main(flags + ["--resume", "stopped"]) == 0
+    s = json.loads((outputs / "stopped" / "sim_summary.json").read_text())
+    assert s["outcome"] == "success" and s["resumed_from_tick"] > 0
+    assert output_files(outputs / "stopped") == output_files(
+        outputs / "whole")
+    trunner.clear_executor_pool()
+
+
+def test_healthcheck_reports_each_check(tmp_path):
+    from testground_tpu_torch.healthcheck import run_checks
+    from testground_tpu_torch.healthcheck.checks import default_checks
+
+    checks = default_checks(str(tmp_path))
+    assert [c.name for c in checks] == [
+        "home-directory-layout", "cuda-backend", "device-memory",
+        "plans-loadable"]
+    report = run_checks(checks)
+    by = {c.name: c for c in report.checks}
+    assert by["home-directory-layout"].status == "failed"
+    assert by["plans-loadable"].status == "ok"
+    assert "faultsdemo" in by["plans-loadable"].message
+    import torch
+
+    if not torch.cuda.is_available():
+        assert by["cuda-backend"].status == "failed" and not report.ok
+    report = run_checks(checks, fix=True)
+    assert report.checks[0].status == "fixed"
+    assert run_checks(checks[:1]).ok
+    proc = _cli("healthcheck", home=tmp_path)
+    assert "plans-loadable: ok" in proc.stdout
+    assert proc.returncode == (0 if report.ok else 1)

@@ -12,8 +12,9 @@ in-place cursor reset under the captured stepper, its streamed files
 byte-equal), a shaped fault sweep and sweeps through the planes and
 entry mode on the card against the port's CPU path (on the card ``run``
 replays a CUDA graph of the tick); the count scatter's and the ring merge's vmap rules through the kernels (one
-launch for S scenarios, bit-equal to S serial calls); and a search's
-one capture. This file imports no jax, so it runs on the GPU machine:
+launch for S scenarios, bit-equal to S serial calls); a search's one
+capture; and the runner (sim/runner.py) on the card against the CPU,
+and a resume that copies its checkpoint into the pooled capture. This file imports no jax, so it runs on the GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py
@@ -526,3 +527,81 @@ def test_search_captures_once_on_the_card():
     line = search_leg(n=64, device="cuda", grid_n=64)
     assert line["captures"] == 1 and line["batched_tick_builds"] == 1
     assert line["breaking_point"] == 0.671875
+
+
+@pytest.mark.parametrize("make", ["storm", "faultsdemo-drained"])
+def test_runner_gpu_matches_cpu(make, tmp_path, monkeypatch):
+    """The runner (sim/runner.py) on the card against the CPU: storm with
+    the compressed params at 48, and faultsdemo at 24 under its
+    composition's tables, drained; every deterministic summary key,
+    run.out, output file and progress row equal, one capture on the
+    card."""
+    import tomllib
+
+    from testground_tpu_torch import graft
+    from testground_tpu_torch.runner.outputs import assert_runs_equal
+    from testground_tpu_torch.sim import runner
+    from testground_tpu_torch.sim.tables import Faults, Telemetry, Trace
+
+    dev = _cuda()
+    monkeypatch.setenv("TG_DISPATCH_HEARTBEAT_S", "86400")
+    with open(REPO / "plans" / "faultsdemo" / "composition.toml", "rb") as f:
+        comp = tomllib.load(f)
+
+    def rinput(side):
+        if make == "storm":
+            return cs.runner_input(
+                "benchmarks", "storm", 48, graft.STORM_PARAMS,
+                tmp_path / side, "r", cs.STORM_RUN_CONFIG)
+        return cs.runner_input(
+            "faultsdemo", "chaos", 24,
+            dict(comp["global"]["run"]["test_params"], min_pings="0"),
+            tmp_path / side, "r", {"max_ticks": 2_000, "chunk_ticks": 40},
+            groups=("left", "right"),
+            faults=Faults.from_dict(comp["faults"]),
+            trace=Trace.from_dict(dict(comp["trace"], drain=True)),
+            telemetry=Telemetry.from_dict(dict(comp["telemetry"],
+                                               drain=True)))
+
+    for d, side in ((dev, "gpu"), ("cpu", "cpu")):
+        runner.clear_executor_pool()
+        runner.run_composition(rinput(side), device=d)
+        if side == "gpu":
+            (ex, _), = runner._EX_CACHE.values()
+            assert ex.captures == 1
+    s = assert_runs_equal(tmp_path / "gpu", tmp_path / "cpu")
+    assert s["outcome"] == "success"
+    runner.clear_executor_pool()
+
+
+def test_runner_resume_copies_into_the_capture(tmp_path, monkeypatch):
+    """A run preempted at its second boundary on the card and resumed in
+    the same process: the resumed leg reuses the pooled capture (the
+    checkpoint is copied into the captured tensors, no capture) and ends
+    with the uninterrupted run's results."""
+    from testground_tpu_torch import graft
+    from testground_tpu_torch.runner.outputs import output_files, summary
+    from testground_tpu_torch.sim import runner
+
+    dev = _cuda()
+    monkeypatch.setattr(cs, "RESUME_CHUNK", 64)
+
+    def rinput(name, run_id, resume=False):
+        return cs.runner_input(
+            "benchmarks", "storm", 48, graft.STORM_PARAMS, tmp_path / name,
+            run_id, dict(cs.STORM_RUN_CONFIG, chunk_ticks=64),
+            checkpoint={"interval": 0.0}, resume=resume)
+
+    runner.clear_executor_pool()
+    runner.run_composition(rinput("full", "full"), device=dev)
+    with cs.preempt_at(2):
+        out = runner.run_composition(rinput("cut", "cut"), device=dev)
+    assert out.result.outcome == "preempted"
+    caps = cs.pooled_captures()
+    out = runner.run_composition(rinput("cut", "cut", resume=True),
+                                 device=dev)
+    assert out.result.outcome == "success"
+    assert cs.pooled_captures() == caps
+    assert summary(tmp_path / "cut")["resumed_from_tick"] == 128
+    assert output_files(tmp_path / "cut") == output_files(tmp_path / "full")
+    runner.clear_executor_pool()

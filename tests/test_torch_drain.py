@@ -423,8 +423,9 @@ def test_drain_flags_match_jax():
                               tables.Telemetry(drain=True))) == (True, True)
 
 
-def test_unported_hooks_name_their_module(tmp_path):
-    ex = _chaos("port", trace={"capacity": 16, "drain": True})
+def test_run_hooks_watchdog_checkpoint_and_resume(tmp_path):
+    ex = _chaos("port", trace={"capacity": 16, "drain": True},
+                chunk_ticks=20, event_skip=False)
     # the per-scenario streams are ported (the sweep plane): only one
     # of run_dir/scenario_dir may be given, as in JAX
     assert TDrain(ex, trace_drain=True,
@@ -432,9 +433,35 @@ def test_unported_hooks_name_their_module(tmp_path):
     with pytest.raises(ValueError, match="exactly one"):
         TDrain(ex, trace_drain=True, run_dir=tmp_path,
                scenario_dir=lambda s: tmp_path)
-    for kw in ("watchdog", "checkpoint", "resume_state"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            ex.run(**{kw: object()})
+    # the durability hooks (sim/checkpoint.py): the watchdog judges each
+    # chunk but the last, the checkpointer snapshots each boundary but
+    # the last, and a run resumed from a snapshot ends in the
+    # uninterrupted run's state, leaf for leaf
+    from testground_tpu_torch.sim.checkpoint import (
+        Checkpointer, DispatchWatchdog, load_checkpoint)
+    from testground_tpu_torch.sim.state_io import (
+        compare_leaves, flatten, state_to_numpy)
+
+    def assert_leaves_equal(a, b):
+        compare_leaves(flatten(state_to_numpy(a)), flatten(state_to_numpy(b)))
+
+    full = ex.run()
+    chunks = full.ticks // 20 + 1
+    wd = DispatchWatchdog(floor_s=600.0)
+    ck = Checkpointer(tmp_path / "ck", key_hash="k", interval_s=0.0)
+    res = ex.run(watchdog=wd, checkpoint=ck)
+    assert wd.boundaries == ck.snapshots == chunks - 1 > 1
+    assert_leaves_equal(res.state, full.state)
+    rp = load_checkpoint(tmp_path / "ck")
+    assert rp.tick == 20 * (chunks - 1)
+    # resume from the one before the last (the last two are kept)
+    import pickle
+
+    older = pickle.loads((rp.dir / f"state-{rp.seq - 1}.pkl").read_bytes())
+    assert int(older["tick"]) == 20 * (chunks - 2)
+    resumed = ex.run(resume_state=older)
+    assert_leaves_equal(resumed.state, full.state)
+    assert resumed.ticks == full.ticks
     with pytest.raises(ValueError, match="run_dir"):
         TDrain(ex, trace_drain=True)
     # a drain of no plane is a no-op

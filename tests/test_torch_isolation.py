@@ -55,6 +55,20 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "testground_tpu_torch.sim.replay",
         "testground_tpu_torch.sim.drain",
         "testground_tpu_torch.plans.election",
+        "testground_tpu_torch.sim.runner",
+        "testground_tpu_torch.sim.live",
+        "testground_tpu_torch.sim.profile",
+        "testground_tpu_torch.sim.checkpoint",
+        "testground_tpu_torch.runner.sim_torch",
+        "testground_tpu_torch.runner.outputs",
+        "testground_tpu_torch.api.composition",
+        "testground_tpu_torch.api.contracts",
+        "testground_tpu_torch.api.manifest",
+        "testground_tpu_torch.config.coalescing",
+        "testground_tpu_torch.utils.timing",
+        "testground_tpu_torch.healthcheck.checks",
+        "testground_tpu_torch.cli",
+        "testground_tpu_torch.__main__",
     ):
         assert mod in out["modules"]
     assert out["bad"] == []
