@@ -170,9 +170,10 @@ Phases, in order (any failure raises and the exit code is not 0):
    over the scenario axis, captured once in a CUDA graph): every
    scenario all ok with no drop, one capture, the count scatter once a
    batched iteration (its vmap rule folds the 64 scenarios into one
-   launch of 640,000 rows and lanes); a serial sample of 2 seeds, each
-   its own executable and capture; scenarios/s batched and serial; and
-   scenarios 0, 31 and 63 equal to their serial runs on every leaf;
+   launch of 640,000 rows and lanes); a serial sample of 1 seed (bench
+   --sweep takes 2), its own executable and capture; scenarios/s
+   batched and serial; and scenarios 0, 31 and 63 equal to their serial
+   runs on every leaf;
    33b. a profiler window over the batched iteration;
 34. ``bench --search``: cliff's edge at n = 10,000 by bisection over a
    257-value grid, 8 scenarios a round through one sweep executable
@@ -207,7 +208,36 @@ Phases, in order (any failure raises and the exit code is not 0):
    row equal;
 41. ``python -m testground_tpu_torch healthcheck --fix`` and ``run
    composition plans/faultsdemo/composition.toml`` as subprocesses: exit
-   0, PASS.
+   0, PASS;
+42. storm at n = 10,000 (phase 11's) swept over 16 seeds as a [sweep]
+   composition through the runner, its chunk left to it: every scenario
+   ok, one capture, one folded count-scatter launch a batched
+   iteration, scenario 0's results.out and row equal to [36]'s run of
+   seed 0; scenarios/s, its dispatch wall against the direct batched
+   run of the same 16 seeds, the host spans and the demux seconds a
+   scenario;
+43. the same sweep under a forced ``TESTGROUND_HBM_BYTES`` that holds 8
+   of its scenarios: 2 scenario chunks, preempted inside chunk 1 and
+   resumed with no capture; every scenario's files and row equal to
+   [42]'s;
+44. phase 7's dht at n = 10,000 (default lowering) swept over 8 seeds
+   through the runner: one capture, the ring merge's folded launch once
+   a batched iteration, every scenario's ticks and outcome equal to
+   phase 7's executable built with its seed;
+45. searches through the runner: phase 34's cliff bisect as a [search]
+   composition (its rounds and edge, one capture); faultsdemo's
+   composition at 1,024 with its own [search] enabled (rounds,
+   breaking_point, one capture); that search preempted after round 0
+   and resumed, its roll-up, run.out and probe files equal to the
+   uninterrupted one's;
+46. device leases: two runner runs on threads (storm@10k cut at 300
+   ticks), granted together under the card's budget, one at a time
+   under a forced lease budget that holds one; both journals carry
+   ``lease``;
+47. a storm sweep at n = 300 over 4 seeds in chunks of 2, and a cliff
+   bisect at 64, through the runner on the card and on the CPU: every
+   deterministic key, run.out, scenario and probe file and progress row
+   equal.
 
 The last lines are the card's nvidia-smi line, one JSON object with the
 kernel measurements, and ``{"ok": true, "device": {...}}``. Everything
@@ -768,7 +798,7 @@ def microbench_phase(report):
 
 # ------------------------------------------------------------------ dht
 
-def dht_exec(n, device, chunk_ticks=32, pallas_front=True):
+def dht_exec(n, device, chunk_ticks=32, pallas_front=True, seed=0):
     """dht find-providers with the bench's parameters; ``pallas_front``
     True runs the fused deliver front, None the default lowering."""
     from testground_tpu_torch.plans import dht
@@ -784,7 +814,7 @@ def dht_exec(n, device, chunk_ticks=32, pallas_front=True):
     cfg = SimConfig(
         quantum_ms=10.0, max_ticks=60_000, chunk_ticks=chunk_ticks,
         metrics_capacity=8, churn_fraction=0.05, churn_start_ms=100.0,
-        churn_end_ms=5_000.0, pallas_front=pallas_front,
+        churn_end_ms=5_000.0, pallas_front=pallas_front, seed=seed,
     )
     return compile_program(dht.find_providers, ctx, cfg, device=device)
 
@@ -1862,8 +1892,9 @@ def replay_phase(torch, dev, report, storm_nodes):
     return line
 
 
-# [30]'s depth: bench --drain's 40 rounds
-DRAIN_SMOKE_ROUNDS = 40
+# [30]'s depth: 24 of bench --drain's 40 rounds (PERF.md §4: the cut
+# that pays for [42]-[47])
+DRAIN_SMOKE_ROUNDS = 24
 
 
 def drain_phase(torch, dev, report):
@@ -1964,6 +1995,9 @@ def drain_parity_phase(torch, np, dev, report, n=300):
 # -------------------------------------------------------- sweep and search
 
 SWEEP_HELD = (0, 31, 63)  # the sweep's scenarios held against serial runs
+# [33]'s serial sample: 1 of bench --sweep's 2 seeds (PERF.md §4: the cut
+# that pays for [42]-[47])
+SWEEP_SERIAL_SMOKE = 1
 
 
 def sweep_phase(torch, dev, report, n=10_000):
@@ -1982,7 +2016,8 @@ def sweep_phase(torch, dev, report, n=10_000):
     # sweep_leg sets every launch count to 0 just before the batched run
     # and reads them just after it
     assert bench.SWEEP_SEEDS == SWEEP_SEEDS, bench.SWEEP_SEEDS
-    line, res, serial = bench.sweep_leg(n, device=dev)
+    line, res, serial = bench.sweep_leg(n, device=dev,
+                                        serial_seeds=SWEEP_SERIAL_SMOKE)
     peak = torch.cuda.max_memory_allocated(dev)
     ex = res.executable
     executed = max(res.scenario(s).ticks_executed for s in range(SWEEP_SEEDS))
@@ -2523,6 +2558,497 @@ def cli_phase(report, tmp):
     return out
 
 
+# ------------------------------------ the batched runner paths ([42]-[47])
+
+SWEEP_RUNNER_SEEDS = 16  # [42]'s storm@10k sweep through the runner
+# [43]: 1,024-tick chunks (a stop lands inside a scenario chunk), stopped
+# at chunk 1's second boundary (chunk 0 ends at its fourth: storm's
+# ~3,400 ticks)
+SWEEP_RESUME_CHUNK = 1024
+SWEEP_RESUME_STOP_AT = 6
+DHT_SWEEP_SEEDS = 8  # [44]
+CLIFF_AT = "0.663"  # bench.CLIFF_AT: cliff's x_fail in [34]
+# [45]: faultsdemo's search at 1,024 in 50-tick chunks (a stop lands
+# inside a round)
+DEMO_SEARCH_RUN_CONFIG = {"max_ticks": 10_000, "chunk_ticks": 50}
+LEASE_RUN_CONFIG = {"max_ticks": 300}  # [46]'s storm@10k, cut short
+# the journal keys a resumed sweep or search adds or changes
+BATCHED_RESUME_KEYS = ("checkpoint", "resume", "resumed_from_chunk",
+                       "resumed_from_tick", "resumed_from_round", "compiles",
+                       "live", "hbm_preflight", "scenario_chunk")
+
+
+def sweep_input(run_dir, run_id, seeds=SWEEP_RUNNER_SEEDS, n=10_000,
+                run_config=None, **tables):
+    """bench.py's storm @ n swept over ``seeds`` seeds as a composition."""
+    from testground_tpu_torch.sim.tables import Sweep
+
+    return storm_input(run_dir, run_id, n=n, run_config=run_config,
+                       sweep=Sweep(seeds=seeds), **tables)
+
+
+def scenario_rows(run_dir):
+    """Every scenario's own sim_summary.json, by scenario."""
+    root = os.path.join(run_dir, "scenario")
+    rows = []
+    for s in sorted(int(d) for d in os.listdir(root)):
+        with open(os.path.join(root, str(s), "sim_summary.json")) as f:
+            rows.append(json.load(f))
+    return rows
+
+
+def pooled(runner):
+    """The only executor in the runner's pool."""
+    (ex, _), = runner._EX_CACHE.values()
+    return ex
+
+
+def span_seconds(s, name):
+    """(seconds, count) of the summary's host span ``name``."""
+    for r in s["host_spans"]:
+        if r["name"] == name:
+            return r["seconds"], r.get("count", 1)
+    return 0.0, 0
+
+
+def runner_sweep_phase(torch, dev, report, tmp, plain):
+    """[42] storm@10k over SWEEP_RUNNER_SEEDS seeds through the runner,
+    chunk_ticks left to it: one capture, one folded count-scatter launch
+    a batched iteration, every scenario ok, scenario 0's results.out and
+    row equal to [36]'s plain run of seed 0; scenarios/s and the dispatch
+    wall against the direct batched run of the same seeds (phase 33's
+    executable), the host spans and the demux seconds a scenario."""
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.sim import runner
+
+    runner.clear_executor_pool()
+    ri = sweep_input(os.path.join(tmp, "sweep"), "sweep")
+    out, s, launches = runner_run(torch, dev, ri)
+    ex = pooled(runner)
+    rows = s["scenarios"]
+    executed = max(r["ticks_executed"] for r in rows)
+    assert out.result.outcome == s["outcome"] == "success", s["outcome"]
+    assert all(r["outcome"] == "success" for r in rows)
+    assert rows == scenario_rows(ri.run_dir)
+    assert ex.captures == 1 and s["compiles"] == 1, (ex.captures,
+                                                      s["compiles"])
+    assert launch_bounds(executed, ex.config.chunk_ticks,
+                         launches["count_scatter"]), (launches, executed)
+    assert (launches["deliver_front"], launches["ring_merge"]) == (0, 0)
+    # scenario 0 is [36]'s run of seed 0
+    plain_dir = os.path.join(tmp, "storm")
+    for k in ("ticks", "ticks_executed", "outcomes", "virtual_seconds",
+              "metrics_dropped", "timed_out"):
+        assert rows[0][k] == plain[k], (k, rows[0][k], plain[k])
+    with open(os.path.join(ri.run_dir, "scenario", "0", "results.out"),
+              "rb") as a, open(os.path.join(plain_dir, "results.out"),
+                               "rb") as b:
+        assert a.read() == b.read(), "scenario 0's results.out differs"
+    # the direct batched run of the same seeds
+    direct = bench.storm_sweep(10_000, SWEEP_RUNNER_SEEDS, dev)
+    res = direct.run()
+    d_wall = res.wall_seconds
+    del direct, res
+    demux_s, demux_n = span_seconds(s, "demux")
+    row = {"seeds": SWEEP_RUNNER_SEEDS, "outcome": s["outcome"],
+           "ticks": s["ticks"], "ticks_executed": executed,
+           "chunk_ticks": ex.config.chunk_ticks,
+           "scenario_chunk": s["scenario_chunk"], "launches": launches,
+           "captures": ex.captures, "wall_seconds": s["wall_seconds"],
+           "scenarios_per_sec": s["scenarios_per_sec"],
+           "direct_wall_seconds": d_wall,
+           "direct_scenarios_per_sec": SWEEP_RUNNER_SEEDS / d_wall,
+           "wall_ratio": s["wall_seconds"] / d_wall,
+           "compile_seconds": s["compile_seconds"],
+           "compile_breakdown": s["compile_breakdown"],
+           "host_spans": s["host_spans"],
+           "demux_seconds_per_scenario": demux_s / max(demux_n, 1),
+           "state_model_bytes": s["hbm_preflight"][
+               "state_model_bytes_per_device"],
+           "peak_bytes": out.peak_bytes}
+    report["runner_sweep10k"] = row
+    log(f"  {SWEEP_RUNNER_SEEDS}-seed storm@10k through the runner: "
+        f"{s['outcome']}, {s['ticks']} batched iterations (chunk "
+        f"{ex.config.chunk_ticks}), {s['scenarios_per_sec']} scenarios/s, "
+        f"dispatch {s['wall_seconds']:.3f} s against the direct batched "
+        f"run's {d_wall:.3f} s (x{row['wall_ratio']:.3f}); captures "
+        f"{ex.captures}; count-scatter launches {launches['count_scatter']}"
+        f" (folded, {executed} executed); demux "
+        f"{row['demux_seconds_per_scenario']:.3f} s a scenario; host spans "
+        + ", ".join(f"{r['name']} {r['seconds']:.3f} s"
+                    for r in s["host_spans"])
+        + "; scenario 0 equal to [36]'s run")
+    return row
+
+
+def runner_sweep_resume_phase(torch, dev, report, tmp, full_dir, first):
+    """[43] [42]'s sweep under a forced budget that holds half its
+    scenarios: the pre-flight splits it into 2 scenario chunks; preempted
+    inside chunk 1 and resumed with no capture: every scenario's files
+    and row equal to [42]'s."""
+    from testground_tpu_torch.runner.outputs import (
+        deterministic, output_files, run_out_lines)
+    from testground_tpu_torch.sim import runner
+    from testground_tpu_torch.sim.sweep import SWEEP_MEMORY_FRACTION
+
+    runner.clear_executor_pool()
+    # 0.75 of the whole sweep's state: 8 scenarios fit, 16 do not
+    budget = int(0.75 * first["state_model_bytes"] / SWEEP_MEMORY_FRACTION)
+    ck = {"checkpoint": {"interval": 0.0}}
+    rc = {"chunk_ticks": SWEEP_RESUME_CHUNK}
+    cut_dir = os.path.join(tmp, "sweep_cut")
+    os.environ["TESTGROUND_HBM_BYTES"] = str(budget)
+    try:
+        with preempt_at(SWEEP_RESUME_STOP_AT):
+            out_b, s_b, _ = runner_run(torch, dev, sweep_input(
+                cut_dir, "sweep_cut", run_config=rc, **ck))
+        caps = pooled_captures()
+        out_c, s_c, launches = runner_run(torch, dev, sweep_input(
+            cut_dir, "sweep_cut", run_config=rc, resume=True, **ck))
+    finally:
+        del os.environ["TESTGROUND_HBM_BYTES"]
+    assert out_b.result.outcome == "preempted" and s_b["preempted"]
+    assert s_b["scenario_chunk"] == SWEEP_RUNNER_SEEDS // 2, s_b[
+        "scenario_chunk"]
+    assert out_c.result.outcome == "success"
+    assert pooled_captures() == caps, "the resume captured again"
+    assert s_c["resumed_from_chunk"] == 1, s_c["resume"]
+    assert s_c["compiles"] == 0
+    assert scenario_rows(cut_dir) == scenario_rows(full_dir)
+    assert run_out_lines(cut_dir) == run_out_lines(full_dir)
+    files = output_files(full_dir)
+    assert len(files) == SWEEP_RUNNER_SEEDS and output_files(cut_dir) == files
+    a = _without(deterministic(s_c, cut_dir), BATCHED_RESUME_KEYS)
+    b = _without(deterministic(first["summary"], full_dir),
+                 BATCHED_RESUME_KEYS)
+    assert a == b, {k: (a.get(k), b.get(k)) for k in set(a) | set(b)
+                    if a.get(k) != b.get(k)}
+    row = {"budget_bytes": budget, "scenario_chunk": s_b["scenario_chunk"],
+           "chunk_ticks": SWEEP_RESUME_CHUNK,
+           "preempted_at_tick": s_c["resumed_from_tick"],
+           "snapshots_before_preempt": s_b["checkpoint"]["snapshots"],
+           "resumed_from_chunk": s_c["resumed_from_chunk"],
+           "resumed_from_tick": s_c["resumed_from_tick"],
+           "resumed_wall_seconds": s_c["wall_seconds"],
+           "resume_launches": launches}
+    report["runner_sweep_resume"] = row
+    log(f"  forced budget {budget / 1e6:.1f} MB: 2 chunks of "
+        f"{s_b['scenario_chunk']}; preempted in chunk 1 "
+        f"({s_b['checkpoint']['snapshots']} snapshots), resumed from chunk "
+        f"{s_c['resumed_from_chunk']} at tick {s_c['resumed_from_tick']} "
+        f"with no capture (dispatch {s_c['wall_seconds']:.3f} s): every "
+        "scenario's files and row equal to [42]'s")
+    return row
+
+
+def runner_dht_sweep_phase(torch, dev, report, tmp, phase7):
+    """[44] dht@10k on the default lowering swept over DHT_SWEEP_SEEDS
+    seeds through the runner: one capture, the ring merge's folded
+    launch once a batched iteration, and every scenario's outcome and
+    ticks equal to phase 7's executable built with its seed (a plain
+    build bakes its seed's key into the tick)."""
+    from testground_tpu_torch.sim import runner
+    from testground_tpu_torch.sim.program import CRASHED
+    from testground_tpu_torch.sim.tables import Sweep
+
+    runner.clear_executor_pool()
+    rc = {k: v for k, v in DHT_RUN_CONFIG.items() if k != "pallas_front"}
+    ri = runner_input("dht", "find-providers", 10_000, DHT_PARAMS,
+                      os.path.join(tmp, "dht_sweep"), "dht_sweep", rc,
+                      sweep=Sweep(seeds=DHT_SWEEP_SEEDS))
+    out, s, launches = runner_run(torch, dev, ri)
+    ex = pooled(runner)
+    rows = s["scenarios"]
+    executed = max(r["ticks_executed"] for r in rows)
+    assert ex.captures == 1, ex.captures
+    assert launch_bounds(executed, ex.config.chunk_ticks,
+                         launches["ring_merge"]), (launches, executed)
+    assert (launches["deliver_front"], launches["count_scatter"]) == (0, 0)
+    runner.clear_executor_pool()
+    # phase 7's run for seed 0, phase 7's executable for the others
+    got = [(phase7["ticks"], phase7["ok"], 10_000, phase7["crashed"])]
+    for r in rows[1:]:
+        res = dht_exec(10_000, dev, pallas_front=None, seed=r["seed"]).run()
+        ok, total = res.outcomes()["single"]
+        got.append((res.ticks, ok, total,
+                    int((res.statuses()[:10_000] == CRASHED).sum())))
+        del res
+    for r, want in zip(rows, got):
+        assert (r["ticks"], r["outcomes"]["single"]["ok"],
+                r["outcomes"]["single"]["total"],
+                r.get("crashed_count", 0)) == want, (r, want)
+    row = {"seeds": DHT_SWEEP_SEEDS, "outcome": s["outcome"],
+           "ticks": s["ticks"], "ticks_executed": executed,
+           "chunk_ticks": ex.config.chunk_ticks, "launches": launches,
+           "captures": 1, "wall_seconds": s["wall_seconds"],
+           "scenarios_per_sec": s["scenarios_per_sec"],
+           "host_spans": s["host_spans"],
+           "ok": [r["outcomes"]["single"]["ok"] for r in rows],
+           "peak_bytes": out.peak_bytes}
+    report["runner_dht_sweep10k"] = row
+    log(f"  dht@10k (default lowering) over {DHT_SWEEP_SEEDS} seeds through "
+        f"the runner: {s['ticks']} batched iterations, dispatch "
+        f"{s['wall_seconds']:.3f} s ({s['scenarios_per_sec']} scenarios/s),"
+        f" captures 1, ring-merge launches {launches['ring_merge']} "
+        f"(folded, {executed} executed); ok {row['ok']}, each equal to "
+        "phase 7's executable run with its seed")
+    return row
+
+
+class preempt_after_round:
+    """The runner's should_stop hook preempting a search at its first
+    boundary after the driver's first checkpoint (round 0 digested)."""
+
+    def __init__(self):
+        from testground_tpu_torch.sim import runner
+
+        self.runner, self.real = runner, runner._make_should_stop
+
+    def __enter__(self):
+        runner = self.runner
+
+        def make(rinput):
+            rid = rinput.run_id
+            ev = runner._term_event(rid)
+            drv = os.path.join(rinput.run_dir, "checkpoint", "driver.pkl")
+
+            def should_stop():
+                if os.path.exists(drv):
+                    runner.request_preempt(rid)
+                return ev.is_set()
+
+            return should_stop
+
+        runner._make_should_stop = make
+
+    def __exit__(self, *exc):
+        self.runner._make_should_stop = self.real
+
+
+def _without_compiles(lines):
+    """A search's run.out without the last line's build count (a resumed
+    search reuses the pooled build)."""
+    return lines[:-1] + [lines[-1].split(" compiles=")[0]]
+
+
+def demo_search_input(tmp, name, run_id, n=FAULTSDEMO_BIG_N, **kw):
+    """plans/faultsdemo/composition.toml at ``n`` instances with its own
+    [search] table enabled, prepared as the command line prepares it."""
+    from testground_tpu_torch import cli
+    from testground_tpu_torch.api.composition import Composition
+
+    comp = Composition.load(os.path.join(ROOT, "plans", "faultsdemo",
+                                         "composition.toml"))
+    comp.global_.total_instances = n
+    for g in comp.groups:
+        g.instances.count = n // len(comp.groups)
+    comp.search.enabled = True
+    comp.global_.run_config.update(DEMO_SEARCH_RUN_CONFIG)
+    comp.checkpoint = None
+    ri = cli.prepare_run(comp, os.path.join(ROOT, "plans", "faultsdemo"),
+                         run_id, os.path.join(tmp, name))
+    for k, v in kw.items():
+        setattr(ri, k, v)
+    return ri
+
+
+def runner_search_phase(torch, dev, report, tmp, phase34):
+    """[45] searches through the runner: phase 34's cliff@10k bisect as a
+    composition (its rounds and edge, one capture); faultsdemo's
+    composition at 1,024 with its own [search] (rounds, breaking_point,
+    one capture); that search preempted after a round and resumed, its
+    roll-up equal to the uninterrupted one."""
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.runner.outputs import (
+        deterministic, output_files, run_out_lines)
+    from testground_tpu_torch.api.composition import Checkpoint
+    from testground_tpu_torch.sim import runner
+    from testground_tpu_torch.sim.tables import Search
+
+    runner.clear_executor_pool()
+    ri = runner_input(
+        "benchmarks", "cliff", 10_000, {"x_fail": CLIFF_AT},
+        os.path.join(tmp, "cliff"), "cliff",
+        {"quantum_ms": 10.0, "max_ticks": 10_000, "metrics_capacity": 8},
+        search=Search(param="x", lo=0.0, hi=1.0,
+                      step=1.0 / bench.SEARCH_GRID,
+                      width=bench.SEARCH_WIDTH))
+    _, s, _ = runner_run(torch, dev, ri)
+    caps = pooled(runner).captures
+    bp = s["breaking_point"]
+    assert s["outcome"] == "success" and bp["resolved"], bp
+    assert (s["rounds"], bp["first_failing"]) == (
+        phase34["rounds"], phase34["breaking_point"]), (s["rounds"], bp)
+    assert s["compiles"] == 1 and caps == 1, (s["compiles"], caps)
+    cliff = {"rounds": s["rounds"], "breaking_point": bp["first_failing"],
+             "scenarios_probed": s["scenarios_probed"],
+             "wall_seconds": s["wall_seconds"], "captures": caps,
+             "host_spans": s["host_spans"]}
+    log(f"  cliff@10k through the runner: edge {bp['first_failing']} in "
+        f"{s['rounds']} rounds (phase 34: {phase34['rounds']}), "
+        f"{s['scenarios_probed']} probed, captures {caps}, dispatch "
+        f"{s['wall_seconds']:.3f} s")
+    runner.clear_executor_pool()
+    full = demo_search_input(tmp, "demo", "demo")
+    _, s_full, launches = runner_run(torch, dev, full)
+    caps = pooled(runner).captures
+    bp = s_full["breaking_point"]
+    assert s_full["outcome"] == "success" and bp["resolved"], bp
+    assert s_full["compiles"] == 1 and caps == 1, (s_full["compiles"], caps)
+    assert launches["count_scatter"] > 0, launches
+    runner.clear_executor_pool()
+    ck = {"checkpoint": Checkpoint(interval=0.0)}
+    with preempt_after_round():
+        out_b, s_b, _ = runner_run(torch, dev, demo_search_input(
+            tmp, "demo_cut", "demo_cut", **ck))
+    caps = pooled_captures()
+    resumed = demo_search_input(tmp, "demo_cut", "demo_cut", resume=True,
+                                **ck)
+    out_c, s_c, _ = runner_run(torch, dev, resumed)
+    assert out_b.result.outcome == "preempted", out_b.result.outcome
+    assert len(s_b["search_rounds"]) == 1
+    assert out_c.result.outcome == "success"
+    assert s_c["resumed_from_round"] == 1 and s_c["compiles"] == 0
+    assert pooled_captures() == caps, "the resumed search captured again"
+    a = _without(deterministic(s_c, resumed.run_dir), BATCHED_RESUME_KEYS)
+    b = _without(deterministic(s_full, full.run_dir), BATCHED_RESUME_KEYS)
+    assert a == b, {k: (a.get(k), b.get(k)) for k in set(a) | set(b)
+                    if a.get(k) != b.get(k)}
+    assert (_without_compiles(run_out_lines(resumed.run_dir))
+            == _without_compiles(run_out_lines(full.run_dir)))
+    assert output_files(resumed.run_dir) == output_files(full.run_dir)
+    demo = {"n": FAULTSDEMO_BIG_N, "rounds": s_full["rounds"],
+            "breaking_point": bp, "scenarios_probed":
+            s_full["scenarios_probed"], "wall_seconds": s_full["wall_seconds"],
+            "captures": 1, "launches": launches,
+            "host_spans": s_full["host_spans"],
+            "resumed_wall_seconds": s_c["wall_seconds"]}
+    report["runner_search"] = {"cliff10k": cliff, "faultsdemo": demo}
+    log(f"  faultsdemo@{FAULTSDEMO_BIG_N:,d} search: chaos_loss edge "
+        f"{bp.get('first_failing')} (last passing {bp.get('last_passing')})"
+        f" in {s_full['rounds']} rounds, {s_full['scenarios_probed']} "
+        f"probed, captures 1, dispatch {s_full['wall_seconds']:.3f} s; "
+        "preempted after round 0 and resumed from round 1 with no capture:"
+        " roll-up, run.out and probe files equal to the uninterrupted one")
+    runner.clear_executor_pool()
+    return report["runner_search"]
+
+
+def leases_phase(torch, dev, report, tmp):
+    """[46] two runner runs on threads at once (storm@10k cut at 300
+    ticks): under the card's budget they are granted together; under a
+    forced lease budget that holds one, the second waits for the first's
+    release. Both journals carry ``lease``."""
+    import threading
+
+    from testground_tpu_torch.sim import runner
+    from testground_tpu_torch.sim.leases import LEASES
+
+    def pair(tag):
+        runner.clear_executor_pool()
+        outs = {}
+
+        def go(k):
+            ri = storm_input(os.path.join(tmp, f"{tag}{k}"), f"{tag}{k}",
+                             run_config=LEASE_RUN_CONFIG)
+            outs[k] = runner.run_composition(ri, device=dev)
+
+        threads = [threading.Thread(target=go, args=(k,)) for k in (0, 1)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        assert set(outs) == {0, 1}, "a concurrent run failed"
+        for o in outs.values():
+            assert o.result.journal["ticks"] == LEASE_RUN_CONFIG[
+                "max_ticks"], o.result.journal["ticks"]
+        return [outs[k].result.journal["lease"] for k in (0, 1)]
+
+    together = pair("lease_a")
+    assert max(r["concurrent_runs"] for r in together) == 1, together
+    assert all(r["waited_s"] < 0.5 and "overcommitted" not in r
+               for r in together), together
+    need = together[0]["bytes_per_device"]
+    LEASES._budget_fn = lambda: int(1.5 * need)
+    try:
+        serial = pair("lease_b")
+    finally:
+        LEASES._budget_fn = None
+    waited = max(r["waited_s"] for r in serial)
+    assert all(r["concurrent_runs"] == 0 for r in serial), serial
+    assert waited > 0.5 and all("overcommitted" not in r for r in serial)
+    row = {"bytes_per_device": need, "together": together,
+           "forced_budget": int(1.5 * need), "one_at_a_time": serial}
+    report["leases"] = row
+    log(f"  two runs of {need / 1e6:.1f} MB: granted together under the "
+        f"card's budget ({together}); under a forced budget of "
+        f"{1.5 * need / 1e6:.1f} MB one at a time, the second waited "
+        f"{waited:.3f} s for the first's release")
+    runner.clear_executor_pool()
+    return row
+
+
+def batched_parity_phase(torch, dev, report, tmp, n=300):
+    """[47] the card against the CPU through the batched runner paths:
+    storm (compressed params, the dial window and data cut further, to
+    600 ms and 8 KiB, as the CPU tests cut them) at ``n`` over 4 seeds
+    in chunks of 2, and a cliff bisect at 64 over a 17-value grid; every
+    deterministic key, run.out, scenario or probe file and progress row
+    equal."""
+    from testground_tpu_torch import graft
+    from testground_tpu_torch.runner.outputs import assert_runs_equal
+    from testground_tpu_torch.sim import runner
+    from testground_tpu_torch.sim.tables import Search, Sweep
+
+    params = dict(graft.STORM_PARAMS, conn_delay_ms=600, data_size_kb=8)
+
+    def storm(side):
+        return runner_input("benchmarks", "storm", n, params,
+                            os.path.join(tmp, f"bpar_storm_{side}"), "bpar",
+                            STORM_RUN_CONFIG, sweep=Sweep(seeds=4, chunk=2))
+
+    def cliff(side):
+        return runner_input("benchmarks", "cliff", 64, {"x_fail": CLIFF_AT},
+                            os.path.join(tmp, f"bpar_cliff_{side}"), "bpar",
+                            {"quantum_ms": 10.0, "max_ticks": 10_000,
+                             "metrics_capacity": 8},
+                            search=Search(param="x", lo=0.0, hi=1.0,
+                                          step=1.0 / 16, width=4))
+
+    out = {}
+    hb = os.environ.get("TG_DISPATCH_HEARTBEAT_S")
+    os.environ["TG_DISPATCH_HEARTBEAT_S"] = "86400"
+    try:
+        for key, make in (("storm300_sweep", storm), ("cliff64_search",
+                                                       cliff)):
+            walls = {}
+            for d, side in ((dev, "gpu"), ("cpu", "cpu")):
+                runner.clear_executor_pool()
+                t0 = time.monotonic()
+                runner.run_composition(make(side), device=d)
+                walls[side] = time.monotonic() - t0
+            gdir, cdir = make("gpu").run_dir, make("cpu").run_dir
+            s = assert_runs_equal(gdir, cdir)
+            if key == "storm300_sweep":
+                assert scenario_rows(gdir) == scenario_rows(cdir)
+            out[key] = {"outcome": s["outcome"], "ticks": s["ticks"],
+                        "gpu_seconds": walls["gpu"],
+                        "cpu_seconds": walls["cpu"]}
+            log(f"  {key}: GPU vs CPU through the runner equal (summary, "
+                f"run.out, scenario and probe files, progress rows): "
+                f"{s['outcome']}, {s['ticks']} ticks; GPU "
+                f"{walls['gpu']:.2f} s, CPU {walls['cpu']:.2f} s")
+            assert s["outcome"] == "success"
+    finally:
+        if hb is None:
+            os.environ.pop("TG_DISPATCH_HEARTBEAT_S", None)
+        else:
+            os.environ["TG_DISPATCH_HEARTBEAT_S"] = hb
+        runner.clear_executor_pool()
+    report["batched_parity"] = out
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2828,8 +3354,35 @@ def main() -> int:
         from testground_tpu_torch.sim import runner as trunner
 
         trunner.clear_executor_pool()
-    report["runner_phases_seconds"] = time.monotonic() - t_runner
-    log(f"  [36]-[41]: {report['runner_phases_seconds']:.1f} s")
+        report["runner_phases_seconds"] = time.monotonic() - t_runner
+        log(f"  [36]-[41]: {report['runner_phases_seconds']:.1f} s")
+
+        t_batched = time.monotonic()
+        log(f"[42] storm @ 10,000 over {SWEEP_RUNNER_SEEDS} seeds as a "
+            "[sweep] composition through the runner")
+        swept = runner_sweep_phase(torch, dev, report, tmp,
+                                   summary(os.path.join(tmp, "storm")))
+        log("[43] the same sweep under a forced budget: 2 scenario chunks, "
+            "preempted inside chunk 1 and resumed")
+        runner_sweep_resume_phase(
+            torch, dev, report, tmp, os.path.join(tmp, "sweep"),
+            {**swept, "summary": summary(os.path.join(tmp, "sweep"))})
+        log(f"[44] dht @ 10,000, default lowering, over {DHT_SWEEP_SEEDS} "
+            "seeds through the runner")
+        runner_dht_sweep_phase(torch, dev, report, tmp, dht_default)
+        log("[45] searches through the runner: cliff @ 10,000, faultsdemo "
+            f"@ {FAULTSDEMO_BIG_N:,d} with its [search], preempted and "
+            "resumed")
+        runner_search_phase(torch, dev, report, tmp, report["search10k"])
+        log("[46] device leases: two concurrent runner runs, together and "
+            "one at a time")
+        leases_phase(torch, dev, report, tmp)
+        log("[47] a storm sweep @ 300 x 4 (chunks of 2) and a cliff search "
+            "@ 64 through the runner: GPU vs CPU")
+        batched_parity_phase(torch, dev, report, tmp)
+        report["batched_runner_phases_seconds"] = (time.monotonic()
+                                                   - t_batched)
+        log(f"  [42]-[47]: {report['batched_runner_phases_seconds']:.1f} s")
 
     front_row = next(r for r in rows if r["n"] == 10_000
                      and r["regime"] == "mixed")

@@ -873,10 +873,10 @@ def assert_sweep_run(res, n):
         f"{res.metrics_dropped()} metric records dropped")
 
 
-def sweep_leg(n=N, device="cuda"):
+def sweep_leg(n=N, device="cuda", serial_seeds=SWEEP_SERIAL):
     """bench.py sweep_main at ``n`` on ``device``: the SWEEP_SEEDS-seed
     storm sweep as one batched run (every scenario asserted), then a
-    serial sample of SWEEP_SERIAL seeds, each its own executable and
+    serial sample of ``serial_seeds`` seeds, each its own executable and
     capture. Returns (its fields, the sweep result, the serial
     results)."""
     from .sim.sweep import chunk_compiles
@@ -894,7 +894,7 @@ def sweep_leg(n=N, device="cuda"):
     if ex.device.type == "cuda":
         assert ex.captures == 1, f"{ex.captures} captures, not 1"
     serial, serial_s = [], []
-    for s in range(SWEEP_SERIAL):
+    for s in range(serial_seeds):
         t1 = time.monotonic()
         ex_s = storm_executable(n, device, seed=s)
         r = ex_s.run()
@@ -917,7 +917,7 @@ def sweep_leg(n=N, device="cuda"):
         "captures": ex.captures,
         "batched_tick_builds": chunk_compiles() - builds0,
         "scenario_chunks": ex.n_chunks,
-        "state_model_bytes": ex.preflight["state_model_bytes"],
+        "state_model_bytes": ex.preflight["state_model_bytes_per_device"],
         "ticks": res.ticks,
         "launches": launches,
         "serial_sample_seconds": serial_s,

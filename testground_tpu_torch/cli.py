@@ -1,7 +1,10 @@
 """The port's command line (``python -m testground_tpu_torch``):
 
     run composition FILE [flags]   run a composition with the port's sim
-                                   runner, on the card by default
+                                   runner, on the card by default (a
+                                   [sweep] as one batched program, an
+                                   enabled [search] as a breaking-point
+                                   search)
     healthcheck [--fix]            the port's health checks
 
 Counterpart of ``testground run composition FILE`` run locally
@@ -33,7 +36,7 @@ from .api.manifest import TestPlanManifest
 from .config.coalescing import CoalescedConfig
 from .healthcheck.checks import home_dir
 from .runner import get_runner
-from .sim.tables import CompositionError, Telemetry, Trace
+from .sim.tables import CompositionError, Sweep, Telemetry, Trace
 
 REPO_PLANS = Path(__file__).resolve().parent.parent / "plans"
 
@@ -58,16 +61,24 @@ def _key_values(pairs) -> dict:
 
 def apply_overrides(comp: Composition, args) -> None:
     """The run flags, as the JAX command applies them: ``--test-param``
-    on every group, ``--run-cfg`` typed into the run config, ``--no-*``
-    marking a table disabled (created for [live] and [checkpoint], which
-    are on by default), the interval flags setting (or creating) their
-    table, ``--trace`` enabling one."""
+    on every group, ``--run-cfg`` typed into the run config,
+    ``--sweep-seeds`` setting (or creating) the [sweep] table's seeds,
+    ``--no-*`` marking a table disabled (created for [live] and
+    [checkpoint], which are on by default), the interval flags setting
+    (or creating) their table, ``--trace`` enabling one, ``--search`` /
+    ``--no-search`` and ``--search-budget`` acting on the composition's
+    [search] table (an error without one)."""
     for k, v in _key_values(getattr(args, "test_param", None)).items():
         for g in comp.groups:
             g.run.test_params[k] = v
     comp.global_.run_config.update(
         {k: _typed(v)
          for k, v in _key_values(getattr(args, "run_cfg", None)).items()})
+    if getattr(args, "sweep_seeds", None) is not None:
+        # `is not None`: --sweep-seeds 0 reaches Sweep.validate's error
+        if comp.sweep is None:
+            comp.sweep = Sweep()
+        comp.sweep.seeds = args.sweep_seeds
     if getattr(args, "no_faults", False) and comp.faults is not None:
         comp.faults.disabled = True
     if getattr(args, "trace_on", False):
@@ -85,6 +96,22 @@ def apply_overrides(comp: Composition, args) -> None:
         comp.telemetry.enabled = False
     if getattr(args, "no_replay", False) and comp.replay is not None:
         comp.replay.enabled = False
+    if getattr(args, "search_on", None) is not None:
+        # no default [search] table: its param and grid cannot be guessed
+        if comp.search is None and args.search_on:
+            raise CompositionError(
+                "--search requires a [search] table in the composition "
+                "(the target param and candidate grid cannot be "
+                "defaulted); see docs/search.md")
+        if comp.search is not None:
+            comp.search.enabled = bool(args.search_on)
+    if getattr(args, "search_budget", None) is not None:
+        if comp.search is None:
+            raise CompositionError(
+                "--search-budget requires a [search] table in the "
+                "composition; see docs/search.md")
+        # `is not None`: --search-budget 0 reaches Search.validate
+        comp.search.budget = args.search_budget
     if getattr(args, "live_interval", None) is not None:
         if comp.live is None:
             comp.live = Live(interval=args.live_interval)
@@ -219,7 +246,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="continue run RUN_ID from its last checkpoint")
     rp.add_argument("--test-param", action="append", dest="test_param")
     rp.add_argument("--run-cfg", action="append", dest="run_cfg")
+    rp.add_argument("--sweep-seeds", type=int, default=None,
+                    dest="sweep_seeds",
+                    help="run N seed scenarios as one batched program "
+                    "(adds/overrides the composition's [sweep] seeds)")
     rp.add_argument("--trace", action="store_true", dest="trace_on")
+    rp.add_argument("--search", action=argparse.BooleanOptionalAction,
+                    default=None, dest="search_on",
+                    help="run the composition's [search] table: a "
+                    "breaking-point search; --no-search marks it disabled")
+    rp.add_argument("--search-budget", type=int, default=None,
+                    dest="search_budget",
+                    help="cap the search at N probed scenarios (sets the "
+                    "[search] table's budget)")
     for table in ("faults", "trace", "telemetry", "replay", "live",
                   "checkpoint"):
         rp.add_argument(f"--no-{table}", action="store_true",

@@ -24,11 +24,12 @@ def tar_outputs(run_dir: str, writer) -> None:
 # journal keys that are walls or the runner's own machinery, not the
 # run's result
 WALL_KEYS = ("wall_seconds", "compile_seconds", "compile_breakdown",
-             "host_spans", "device_profile", "lease")
+             "host_spans", "device_profile", "lease", "scenarios_per_sec")
 # the pre-flight's figures of the device's memory
 BUDGET_KEYS = ("hbm_budget_bytes", "hbm_admissible_bytes")
 # the progress rows' wall fields
-ROW_WALL_KEYS = ("wall_s", "compile_seconds", "wall_seconds")
+ROW_WALL_KEYS = ("wall_s", "compile_seconds", "wall_seconds",
+                 "round_wall_seconds")
 OUTPUT_NAMES = ("results.out", "trace.json", "trace.jsonl")
 
 

@@ -1,18 +1,25 @@
 """The durability plane: checkpoints at chunk boundaries, resume, and
 the dispatch watchdog (host side).
 
-Counterpart of ``testground_tpu/sim/checkpoint.py`` for the plain run
-path. At a chunk boundary ``SimExecutable.run`` hands the (post-drain)
-state to a :class:`Checkpointer`, which writes it as host numpy leaves
-(sim/state_io.py) with the host planes' watermarks (the live sink's
-seq and byte offset, the drain's cursors and stream offsets) into
-``<run_dir>/checkpoint/``::
+Counterpart of ``testground_tpu/sim/checkpoint.py``. At a chunk
+boundary ``SimExecutable.run`` (and ``SweepExecutable.run``) hands the
+(post-drain) state to a :class:`Checkpointer`, which writes it as host
+numpy leaves (sim/state_io.py) with the host planes' watermarks (the
+live sink's seq and byte offset, the drain's cursors and stream offsets)
+into ``<run_dir>/checkpoint/``::
 
-    meta.json        version, program-key and composition digests, kind,
-                     seq, chunk, tick, host watermarks (written atomically
-                     at every save)
-    state-<seq>.pkl  the boundary state; the last two are kept, so a crash
-                     while writing always leaves one loadable snapshot
+    meta.json          version, program-key and composition digests, kind,
+                       seq, chunk, tick, the sweep's persisted chunk
+                       finals, host watermarks (written atomically at
+                       every save)
+    state-<seq>.pkl    the boundary state; the last two are kept, so a
+                       crash while writing always leaves one loadable
+                       snapshot
+    chunkfinal-<c>.pkl a sweep's completed scenario chunk ``c``: a resume
+                       at a later chunk demuxes it from here
+    driver.pkl         a search's driver, saved at every round (the
+                       rounds re-initialize the device state, so the
+                       driver is the whole state)
 
 Everything the tick reads rides in the state (keys, rings, cursors,
 fault tensors), so a resumed run continues bit for bit: its
@@ -42,6 +49,13 @@ from typing import Any, Optional
 import numpy as np
 
 from .state_io import state_to_numpy
+
+
+def _host_tree(st):
+    """A state of tensors or of numpy leaves as numpy leaves."""
+    if isinstance(st, dict):
+        return {k: _host_tree(v) for k, v in st.items()}
+    return st if isinstance(st, np.ndarray) else state_to_numpy(st)
 
 CKPT_DIR = "checkpoint"
 _META = "meta.json"
@@ -148,7 +162,9 @@ class Checkpointer:
     the last; saves are rate-limited by ``interval_s`` (0: every
     boundary) unless forced (a stop: the final snapshot of a preempted
     run). The state is read back only when a save happens.
-    ``on_first_save`` runs once, after the first snapshot lands."""
+    ``search_round(r, driver)`` saves a search's driver after round
+    ``r``. ``on_first_save`` runs once, after the first snapshot
+    lands."""
 
     def __init__(
         self,
@@ -174,11 +190,19 @@ class Checkpointer:
         self._last = clock()
         self.seq = start_seq
         self.snapshots = 0
+        self._finals_written: set = set()
         self.sink = None
         self.drain = None
+        self._search_round: Optional[int] = None
         if start_seq == 0 and self.dir.exists():
             # a fresh run into a used run_dir drops the old snapshots
             shutil.rmtree(self.dir, ignore_errors=True)
+        if start_seq > 0:
+            # resuming: the first leg's chunk finals are on disk already
+            self._finals_written = {
+                int(p.stem.split("-")[1])
+                for p in self.dir.glob("chunkfinal-*.pkl")
+            }
 
     def attach(self, sink=None, drain=None) -> None:
         """The host planes whose watermarks ride every snapshot."""
@@ -195,34 +219,62 @@ class Checkpointer:
                 pass
         if self.drain is not None:
             host["drain"] = self.drain.snapshot()
+        if self._search_round is not None:
+            host["search_round"] = self._search_round
         return host
 
-    def boundary(self, st, *, force: bool = False) -> bool:
+    def _meta(self, seq: int, chunk: int, tick: int) -> dict:
+        return {
+            "version": _VERSION,
+            "key_hash": self.key_hash,
+            "comp_hash": self.comp_hash,
+            "kind": self.kind,
+            "seq": seq,
+            "chunk": chunk,
+            "tick": tick,
+            "updated": time.time(),
+            "snapshots": self.snapshots + 1,
+            "finals": sorted(self._finals_written),
+            "host": self._host_watermarks(),
+        }
+
+    def _saved(self) -> None:
+        """After a snapshot landed: the first-save hook, then the crash
+        injection of ``TG_CKPT_CRASH_AFTER``."""
+        if self.snapshots == 1 and self.on_first_save is not None:
+            try:
+                self.on_first_save()
+            finally:
+                self.on_first_save = None
+        _maybe_crash_after(self.snapshots, self.log)
+
+    def boundary(self, st, *, chunk: Optional[int] = None, finals=None,
+                 force: bool = False) -> bool:
         """Snapshot one boundary; False when rate-limited or the write
-        failed (a full disk degrades durability, not the run)."""
+        failed (a full disk degrades durability, not the run). ``chunk``
+        is a sweep's scenario-chunk index, ``finals`` its completed
+        chunks' final states: those not yet on disk are written with
+        this snapshot, so a resume at chunk ``c`` can demux every chunk
+        before ``c``."""
         now = self._clock()
         if not force and (now - self._last) < self.interval_s:
             return False
         self._last = now
-        host_state = state_to_numpy(st)
+        host_state = _host_tree(st)
         try:
             self.dir.mkdir(parents=True, exist_ok=True)
+            for ci, final in enumerate(finals or ()):
+                if ci in self._finals_written or final is None:
+                    continue
+                _atomic_write(self.dir / f"chunkfinal-{ci}.pkl",
+                              pickle.dumps(_host_tree(final)))
+                self._finals_written.add(ci)
             seq = self.seq
             _atomic_write(self.dir / f"state-{seq}.pkl",
                           pickle.dumps(host_state))
-            meta = {
-                "version": _VERSION,
-                "key_hash": self.key_hash,
-                "comp_hash": self.comp_hash,
-                "kind": self.kind,
-                "seq": seq,
-                "chunk": 0,
-                "tick": int(np.asarray(host_state["tick"]).max()),
-                "updated": time.time(),
-                "snapshots": self.snapshots + 1,
-                "host": self._host_watermarks(),
-            }
-            atomic_write_json(self.dir / _META, meta)
+            atomic_write_json(self.dir / _META, self._meta(
+                seq, int(chunk or 0),
+                int(np.asarray(host_state["tick"]).max())))
             for p in self.dir.glob("state-*.pkl"):
                 try:
                     if int(p.stem.split("-")[1]) < seq - 1:
@@ -234,12 +286,24 @@ class Checkpointer:
         except OSError as e:
             self.log(f"WARNING: checkpoint save failed: {e}")
             return False
-        if self.snapshots == 1 and self.on_first_save is not None:
-            try:
-                self.on_first_save()
-            finally:
-                self.on_first_save = None
+        self._saved()
         return True
+
+    def search_round(self, r: int, driver) -> None:
+        """A search's checkpoint after round ``r``: the driver (grid,
+        bracket, probes, rounds) is the whole state, so a resumed search
+        replays from round ``r + 1``."""
+        self._search_round = int(r)
+        try:
+            self.dir.mkdir(parents=True, exist_ok=True)
+            _atomic_write(self.dir / "driver.pkl", pickle.dumps(driver))
+            atomic_write_json(self.dir / _META, self._meta(self.seq, 0, 0))
+            self.seq += 1
+            self.snapshots += 1
+        except OSError as e:
+            self.log(f"WARNING: search-round checkpoint failed: {e}")
+            return
+        self._saved()
 
     def journal(self) -> dict:
         """The journal's ``checkpoint`` record."""
@@ -247,12 +311,28 @@ class Checkpointer:
                 "dir": str(self.dir)}
 
 
+def _maybe_crash_after(snapshots: int, log) -> None:
+    """Crash injection for the durability tests and drills:
+    ``TG_CKPT_CRASH_AFTER=N`` SIGKILLs the process just after the N-th
+    checkpoint save, the kill -9 a resume must survive."""
+    raw = os.environ.get("TG_CKPT_CRASH_AFTER", "")
+    try:
+        n = int(raw) if raw else 0
+    except ValueError:
+        return
+    if snapshots >= n > 0:
+        log(f"TG_CKPT_CRASH_AFTER={n}: injecting kill -9 now")
+        import signal
+
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
 # ---------------------------------------------------------------- resume
 
 
 class ResumePoint:
-    """A loaded checkpoint: the boundary state (host numpy leaves) and
-    the host watermarks."""
+    """A loaded checkpoint: the boundary state (host numpy leaves; None
+    for a search's) and the host watermarks."""
 
     def __init__(self, dir_: Path, meta: dict, state) -> None:
         self.dir = Path(dir_)
@@ -297,6 +377,28 @@ class ResumePoint:
                 "digest mismatch)."
             )
 
+    def load_final(self, ci: int):
+        """A sweep's completed chunk ``ci``: its final state as host
+        numpy leaves."""
+        p = self.dir / f"chunkfinal-{ci}.pkl"
+        try:
+            return pickle.loads(p.read_bytes())
+        except (OSError, pickle.UnpicklingError, EOFError) as e:
+            raise CheckpointError(
+                f"checkpoint chunk final {p.name} unreadable: {e}") from e
+
+    def load_driver(self):
+        """A search's checkpointed driver, or None when this is not a
+        search checkpoint."""
+        p = self.dir / "driver.pkl"
+        if not p.exists():
+            return None
+        try:
+            return pickle.loads(p.read_bytes())
+        except (OSError, pickle.UnpicklingError, EOFError) as e:
+            raise CheckpointError(
+                f"checkpoint driver state unreadable: {e}") from e
+
 
 def load_checkpoint(run_dir, log=None) -> Optional[ResumePoint]:
     """The newest usable checkpoint under ``<run_dir>/checkpoint/``, or
@@ -316,6 +418,9 @@ def load_checkpoint(run_dir, log=None) -> Optional[ResumePoint]:
     if meta.get("version") != _VERSION:
         log("WARNING: checkpoint version mismatch — running fresh")
         return None
+    if meta.get("kind") == "search":
+        # no state: the driver is a search's state
+        return ResumePoint(d, meta, None)
     seq = int(meta.get("seq", 0))
     for s in (seq, seq - 1):
         p = d / f"state-{s}.pkl"

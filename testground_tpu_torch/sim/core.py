@@ -52,7 +52,9 @@ with its own key and params in the state (``rng_key``, ``params``).
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
+import threading
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -476,26 +478,34 @@ def _tree_where(go, new, old):
     return old if new is old else torch.where(go, new, old)
 
 
+# one capture at a time in the process: two runs on two threads (admitted
+# together by sim/leases.py) each capture their own loop iteration
+_CAPTURE_LOCK = threading.Lock()
+
+
 def capture_step(step, st: dict, device):
     """``step`` (state -> state) captured once in a CUDA graph on
     ``device``, after ``STEPPER_WARMUP`` eager calls (which leave ``st``
     as it was: the step is pure), with a copy of its result back into
     ``st``'s tensors. The returned function replays the graph: it
     advances ``st`` itself by one step and returns it. The capture fails
-    if the step reads anything back to the host."""
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        for _ in range(STEPPER_WARMUP):
-            step(st)
-    torch.cuda.current_stream(device).wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    ins = list(_leaves(st))
-    with torch.cuda.graph(graph):
-        out = step(st)
-        for dst, src in zip(ins, _leaves(out)):
-            if src is not dst:
-                dst.copy_(src)
+    if the step reads anything back to the host; it is thread-local, so
+    another thread's run goes on replaying and reading its own state
+    meanwhile."""
+    with _CAPTURE_LOCK:
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(STEPPER_WARMUP):
+                step(st)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        ins = list(_leaves(st))
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = step(st)
+            for dst, src in zip(ins, _leaves(out)):
+                if src is not dst:
+                    dst.copy_(src)
 
     def replay(state):
         assert state is st, "a captured stepper advances its own state"
@@ -1842,42 +1852,68 @@ class SimResult:
             self.state, ex.telemetry, ex.ctx, ex.config.quantum_ms)
 
     def chrome_trace(self) -> dict:
-        """The trace rings as Chrome trace-event JSON, the dict (a
-        runner writes it to ``trace.json``); empty events untraced."""
+        """The trace rings as Chrome trace-event JSON, the dict; empty
+        events untraced."""
+        return json.loads(self.chrome_trace_json())
+
+    def chrome_trace_json(self, fault_plan=None) -> str:
+        """The trace rings as the text of a ``trace.json`` (Chrome
+        trace-event JSON); the fault windows' track from ``fault_plan``
+        (a sweep scenario's own), else the executable's."""
         ex = self.executable
         if "trace" not in self.state:
-            return {"traceEvents": [], "displayTimeUnit": "ms"}
-        return tracemod.chrome_trace(self.state, ex.ctx,
-                                     ex.config.quantum_ms,
-                                     fault_plan=ex.faults)
+            return '{"traceEvents": [], "displayTimeUnit": "ms"}'
+        return tracemod.chrome_trace_json(
+            self.state, ex.ctx, ex.config.quantum_ms,
+            fault_plan=fault_plan if fault_plan is not None else ex.faults)
 
-    def metrics_records(self) -> list[dict]:
-        """Flatten per-instance metric buffers into records."""
+    def _metric_rows(self):
+        """Every occupied metrics slot, instance by instance: parallel
+        lists of the instance, its group's id, the metric's name, the
+        virtual time in seconds and the value."""
         names = self.executable.program.metrics.names()
         ctx = self.executable.ctx
         group_of = {g.index: g.id for g in ctx.groups}
         buf = _np(self.state["metrics_buf"])
         cnt = _np(self.state["metrics_cnt"])
         q_ms = self.executable.config.quantum_ms
-        cap = buf.shape[1]
-        occupied = np.arange(cap)[None, :] < cnt[:, None]
+        occupied = np.arange(buf.shape[1])[None, :] < cnt[:, None]
         inst_idx, slot_idx = np.nonzero(occupied)
         mids = buf[inst_idx, slot_idx, 0].astype(np.int64)
-        ticks = buf[inst_idx, slot_idx, 1]
-        vals = buf[inst_idx, slot_idx, 2]
+        times = buf[inst_idx, slot_idx, 1].astype(np.float64) * q_ms / 1e3
+        vals = buf[inst_idx, slot_idx, 2].astype(np.float64)
         groups = [group_of.get(int(g), "") for g in ctx.group_ids[inst_idx]]
-        times = ticks.astype(np.float64) * q_ms / 1e3
         n_names = len(names)
+        mnames = [names[m] if m < n_names else str(m) for m in mids.tolist()]
+        return (inst_idx.tolist(), groups, mnames, times.tolist(),
+                vals.tolist())
+
+    def metrics_records(self) -> list[dict]:
+        """Flatten per-instance metric buffers into records."""
         return [
-            {
-                "instance": int(i),
-                "group": grp,
-                "name": names[m] if m < n_names else str(m),
-                "virtual_time_s": float(t),
-                "value": float(v),
-            }
-            for i, grp, m, t, v in zip(inst_idx, groups, mids, times, vals)
+            {"instance": i, "group": g, "name": m, "virtual_time_s": t,
+             "value": v}
+            for i, g, m, t, v in zip(*self._metric_rows())
         ]
+
+    def metrics_lines(self) -> list[str]:
+        """``metrics_records()`` as ``results.out`` lines: each record's
+        ``json.dumps`` and a newline, formatted without a dict a record
+        (a 10k-instance run or sweep scenario writes tens of thousands;
+        the runner's demux)."""
+        inst, groups, mnames, times, vals = self._metric_rows()
+        js = {x: json.dumps(x) for x in set(groups) | set(mnames)}
+        ff = _json_float
+        return [
+            f'{{"instance": {i}, "group": {js[g]}, "name": {js[m]}, '
+            f'"virtual_time_s": {ff(t)}, "value": {ff(v)}}}\n'
+            for i, g, m, t, v in zip(inst, groups, mnames, times, vals)
+        ]
+
+
+def _json_float(x: float) -> str:
+    """A float as ``json.dumps`` writes it."""
+    return float.__repr__(x) if math.isfinite(x) else json.dumps(x)
 
 
 def compile_program(

@@ -92,7 +92,9 @@ class _Stream:
         setattr(self, fresh_attr, True)
         with open(self.dir / fname, mode) as f:
             for row in lines:
-                f.write(json.dumps(row) + "\n")
+                # a row is a dict, or its JSON text already
+                f.write((row if isinstance(row, str) else json.dumps(row))
+                        + "\n")
 
     def append_trace(self, rows) -> None:
         self._append(EVENTS_FILE, rows, "_trace_open")
@@ -174,14 +176,14 @@ class ObserverDrain:
         )
         if not len(ev):
             return
-        rows: list[dict] = []
+        rows: list = []
         if not stream._seen_lanes:
             rows.append(dict(tracemod.PROCESS_META))
-        new_lanes = set(int(x) for x in ev["lane"]) - stream._seen_lanes
+        new_lanes = set(ev["lane"].tolist()) - stream._seen_lanes
         if new_lanes:
             rows.extend(tracemod.chrome_thread_meta(new_lanes, self.ex.ctx))
             stream._seen_lanes |= new_lanes
-        rows.extend(tracemod.chrome_event_rows(ev, self.quantum_ms))
+        rows.extend(tracemod.chrome_event_json(ev, self.quantum_ms))
         stream.trace_events += len(ev)
         stream.append_trace(rows)
 

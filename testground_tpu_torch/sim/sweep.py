@@ -28,8 +28,13 @@ JAX.
 
 One card: the ``[sweep] mesh`` may only be ``[1, 1]`` (the 2-D mesh is
 item 12 of ROADMAP.md). When the x-chunk state does not fit the card,
-:func:`sweep_preflight` halves the scenario chunk; the chunks run one
-after another through the same capture.
+:func:`sweep_preflight` halves the scenario chunk (and, only when even
+one scenario does not fit, shrinks the metrics ring); the chunks run one
+after another through the same capture. ``SweepExecutable.run`` carries
+the durability plane: a watchdog around every chunk, a checkpoint at
+every boundary with the completed chunks' finals, and a resume into a
+checkpointed chunk that copies the saved state into the captured
+tensors.
 
 Swept test-params must reach phases through ``env.params``. Params read
 through ``ctx.static_param_*`` are baked into the program and cannot
@@ -52,9 +57,11 @@ import torch
 from ..device import resolve_device
 from .context import BuildContext, GroupSpec
 from .core import (
+    POLL_TICKS,
     SimConfig,
     SimExecutable,
     SimResult,
+    _copy_into,
     _leaves,
     capture_step,
     churn_kill_tick,
@@ -64,6 +71,7 @@ from .core import (
 )
 from .faults import compile_faults
 from .program import PAD, _not_ported
+from .state_io import state_from_numpy
 from .replay import compile_replay, merge_into_faults
 from .tables import Faults, Replay
 
@@ -73,7 +81,7 @@ _CHUNK_COMPILES = 0
 
 # the share of the card's free memory the x-chunk state may take: the
 # captured tick makes about one more state's worth of temporaries (the
-# guard's select), and a finished chunk is cloned out
+# guard's select), and the last chunk's final state is cloned out
 SWEEP_MEMORY_FRACTION = 0.4
 
 
@@ -397,6 +405,8 @@ class SweepExecutable:
         # and the seconds the capture took
         self.captures = 0
         self.capture_seconds = 0.0
+        # warmup's build and capture seconds (None when it did neither)
+        self.compile_breakdown = None
 
     @property
     def config(self) -> SimConfig:
@@ -654,71 +664,139 @@ class SweepExecutable:
             torch.func.vmap(self.base_ex.guarded_tick))
         return self._step_fn
 
-    def chunk_stepper(self, ci: int = 0):
+    def chunk_stepper(self, ci: int = 0, start=None):
         """(state, step) for chunk ``ci``: ``step(state)`` advances the
-        batched state by one loop iteration and returns it. On the card
-        the chunk's state is loaded into the captured tensors (captured on
-        first use) and ``step`` replays the graph; on the CPU the state is
-        fresh and ``step`` is the batched iteration itself."""
+        batched state by one loop iteration and returns it. The state is
+        the chunk's initial one, or ``start`` (a checkpoint's host
+        leaves). On the card it is loaded into the captured tensors
+        (captured on first use) and ``step`` replays the graph; on the
+        CPU the state is fresh and ``step`` is the batched iteration
+        itself."""
         step = self._compile_chunk()
-        st = self.init_state(ci)
-        if self.device.type != "cuda":
+        cuda = self.device.type == "cuda"
+        if cuda and self._stepper is not None:
+            _copy_into(self._captured,
+                       self.init_state(ci) if start is None else start)
+            return self._captured, self._stepper
+        st = (self.init_state(ci) if start is None
+              else state_from_numpy(start, self.device))
+        if not cuda:
             return st, step
-        if self._stepper is None:
-            t0 = time.monotonic()
-            self._stepper = capture_step(step, st, self.device)
-            self._captured = st
-            self.captures += 1
-            torch.cuda.synchronize(self.device)
-            self.capture_seconds = time.monotonic() - t0
-            return st, self._stepper
-        _tree_copy_(self._captured, st)
-        return self._captured, self._stepper
+        t0 = time.monotonic()
+        self._stepper = capture_step(step, st, self.device)
+        self._captured = st
+        self.captures += 1
+        torch.cuda.synchronize(self.device)
+        self.capture_seconds = time.monotonic() - t0
+        return st, self._stepper
+
+    def release_capture(self) -> None:
+        """Drop the capture (and the memory it holds): the next chunk
+        captures again (the captured guard bakes ``max_ticks`` in)."""
+        self._stepper = None
+        self._captured = None
+
+    def warmup(self) -> float:
+        """Build the batched iteration and, on the card, capture it on
+        chunk 0's initial state: every later chunk, run and rebound round
+        copies its start state into the captured tensors. The JAX
+        package's ``warmup`` compiles its dispatcher in the same place.
+        Returns its seconds."""
+        t0 = time.monotonic()
+        built = self._step_fn is None
+        self._compile_chunk()
+        t1 = time.monotonic()
+        captured = self.device.type == "cuda" and self._stepper is None
+        if captured:
+            self.chunk_stepper(0)
+        t2 = time.monotonic()
+        self.compile_breakdown = (
+            {"build_seconds": round(t1 - t0, 6),
+             "capture_seconds": round(t2 - t1, 6)}
+            if built or captured else None)
+        return t2 - t0
+
+    def _done(self, st, has_restarts):
+        """(tick, running, live-lane mask, done) of a batched state."""
+        cfg = self.config
+        ticks_h = st["tick"].cpu().numpy()
+        lv = live_lanes(st, has_restarts)  # [C, N]
+        running = int(torch.sum(lv))
+        if self.base_ex.event_skip:
+            # each scenario's executed budget decouples its tick: done
+            # once every LIVE scenario reached the horizon
+            live_scen = lv.any(dim=-1).cpu().numpy()
+            done = running == 0 or bool(
+                (ticks_h[live_scen] >= cfg.max_ticks).all())
+        else:
+            done = running == 0 or int(ticks_h.max()) >= cfg.max_ticks
+        return int(ticks_h.max()), running, lv, done
 
     def run(
         self, on_chunk=None, drain=None, should_stop=None,
         watchdog=None, checkpoint=None, resume=None,
     ) -> "SweepResult":
         """Run every scenario chunk to completion: ``chunk_ticks`` batched
-        loop iterations between two host reads of the termination
-        condition. ``drain`` / ``on_chunk`` / ``should_stop`` follow the
+        loop iterations between two boundaries (the termination condition
+        is read every ``POLL_TICKS`` iterations inside, and a chunk ends with
+        the sweep). ``drain`` / ``on_chunk`` / ``should_stop`` follow the
         :meth:`SimExecutable.run` contract at every boundary, with the
         batched state (a drain streams each row to its own scenario
         directory) and, in ``info``, the ``[C, N]`` live-lane mask and
         the chunk's position; a should_stop() ends the run with the
         drained prefix kept (never-run chunks stay None in
-        ``SweepResult.chunk_states``). ``watchdog``, ``checkpoint`` and
-        ``resume`` belong to the durability plane, not ported yet."""
-        for what, v in (("watchdog", watchdog), ("checkpoint", checkpoint),
-                        ("resume", resume)):
-            if v is not None:
-                raise _not_ported(f"SweepExecutable.run({what}=...)", 11,
-                                  "runner and serving integration")
+        ``SweepResult.chunk_states``).
+
+        The durability plane (sim/checkpoint.py): before the last
+        boundary of a chunk ``checkpoint`` snapshots the batched state
+        with the completed chunks' finals (forced when stopping), and
+        ``watchdog`` judges the chunk's wall time, armed around it;
+        ``resume = {"chunk": c, "state": host leaves}`` re-enters
+        scenario chunk ``c`` at a checkpointed boundary (on the card by
+        copying into the captured tensors: no second capture). The
+        chunks before ``c`` stay None in ``chunk_states`` for the caller
+        to fill from the checkpoint's chunk finals. The last chunk's
+        final state stays on the device; earlier ones move to the host,
+        so the card holds one chunk."""
         cfg = self.config
         has_restarts = self.base_ex.has_restarts
-        skip = self.base_ex.event_skip
         cuda = self.device.type == "cuda"
+        chunk = max(1, cfg.chunk_ticks)
+        poll = min(POLL_TICKS, chunk)
         terminated = False
-        finals: list = []
+        start_chunk = int(resume["chunk"]) if resume is not None else 0
+        finals: list = [None] * start_chunk
         wall = 0.0
         captures = self.captures
-        for ci in range(self.n_chunks):
+        for ci in range(start_chunk, self.n_chunks):
             if terminated:
                 break
-            st, step = self.chunk_stepper(ci)
+            st, step = self.chunk_stepper(
+                ci, resume["state"] if resume is not None
+                and ci == start_chunk else None)
             if cuda:
                 torch.cuda.synchronize(self.device)
             # the capture is set-up, as in SimExecutable.run: each
             # chunk's clock starts after its state is loaded
             wall0 = time.monotonic()
             while True:
-                for _ in range(max(1, cfg.chunk_ticks)):
-                    st = step(st)
-                ticks_h = st["tick"].cpu().numpy()
-                lv = live_lanes(st, has_restarts)  # [C, N]
-                live_scen = lv.any(dim=-1).cpu().numpy()
-                running = int(torch.sum(lv))
-                tick = int(ticks_h.max())
+                d0 = time.monotonic()
+                if watchdog is not None:
+                    watchdog.begin()
+                left = chunk
+                while left:
+                    k = min(poll, left)
+                    for _ in range(k):
+                        st = step(st)
+                    left -= k
+                    tick, running, lv, done = self._done(st, has_restarts)
+                    if done:
+                        break
+                # the watchdog's unit is the chunk (device work and the
+                # host reads), before the boundary's host work below
+                dispatch_s = time.monotonic() - d0
+                if watchdog is not None:
+                    watchdog.end()
                 if drain is not None:
                     # each batched row streams to its own scenario
                     # directory before the cursors reset in place
@@ -734,14 +812,12 @@ class SweepExecutable:
                     if drain is not None:
                         info["observer"] = drain.stats()
                     on_chunk(tick, running, info)
-                if skip:
-                    # each scenario's executed budget decouples its tick:
-                    # exit once every LIVE scenario reached the horizon
-                    done = running == 0 or bool(
-                        (ticks_h[live_scen] >= cfg.max_ticks).all())
-                else:
-                    done = running == 0 or tick >= cfg.max_ticks
                 stopping = should_stop is not None and should_stop()
+                if checkpoint is not None and not done:
+                    checkpoint.boundary(st, chunk=ci, finals=finals,
+                                        force=stopping)
+                if watchdog is not None and not done:
+                    watchdog.observe(dispatch_s)
                 if done:
                     break
                 if stopping:
@@ -751,7 +827,12 @@ class SweepExecutable:
                 torch.cuda.synchronize(self.device)
             wall += time.monotonic() - wall0
             # the captured tensors are reused by the next chunk or run
-            finals.append(_tree_map(torch.clone, st) if cuda else st)
+            if not cuda:
+                finals.append(st)
+            elif ci == self.n_chunks - 1:
+                finals.append(_tree_map(torch.clone, st))
+            else:
+                finals.append(_tree_map(lambda x: x.cpu(), st))
         finals.extend([None] * (self.n_chunks - len(finals)))
         return SweepResult(
             self, finals, wall_seconds=wall, terminated=terminated,
@@ -811,7 +892,7 @@ class SweepResult:
 
 
 def sweep_preflight(
-    make_sweep: Callable[[SimConfig, int], SweepExecutable],
+    make_sweep: Callable[..., SweepExecutable],
     cfg: SimConfig,
     n_scenarios: int,
     explicit_chunk: int = 0,
@@ -821,21 +902,23 @@ def sweep_preflight(
     trace_tiers=None,
     telemetry_tiers=None,
 ):
-    """The memory pre-flight of a sweep: the state scales x chunk, so
-    walk scenario-chunk sizes largest first (the full batch, then
-    halvings) and take the first whose state model
-    (``SweepExecutable.state_model_bytes``) fits ``budget`` bytes (by
-    default ``SWEEP_MEMORY_FRACTION`` of the card's free memory, from
-    ``torch.cuda.mem_get_info``; no bound on the CPU). ``make_sweep(cfg,
-    chunk)`` builds an executable; returns ``(executable, report)``.
+    """The memory pre-flight of a sweep, as the JAX package's: the state
+    scales x chunk, so walk scenario-chunk sizes largest first (the full
+    batch, then halvings) and take the first whose state model
+    (``SweepExecutable.state_model_bytes``) fits; only when even chunk 1
+    does not fit at the requested metrics capacity, walk the ladder again
+    with the metrics ring (and the trace and telemetry tiers) allowed to
+    shrink: chunking costs wall time, a shrink loses data.
+    ``make_sweep(cfg, chunk)`` builds an executable (with ``trace_cap``
+    / ``telem_interval`` keywords when the trace / telemetry ladders are
+    given: the runner's preflight_autosize walks them). The bound is
+    ``budget`` bytes when given, else ``SWEEP_MEMORY_FRACTION`` of the
+    card's free memory as if the runner's executor pool were empty
+    (``runner.device_hbm_bytes(free=True)``), so a sweep's chunk and
+    tiers never depend on what the pool holds. Returns ``(executable,
+    report)`` with the runner's pre-flight keys and the sweep's."""
+    from .runner import device_hbm_bytes, preflight_autosize
 
-    The metrics-ring shrink (``allow_shrink``, tried only when even
-    chunk 1 does not fit) and the trace and telemetry tier ladders go
-    through the runner's pre-flight, item 11 of ROADMAP.md: they raise
-    naming it."""
-    if trace_tiers is not None or telemetry_tiers is not None:
-        raise _not_ported("sweep_preflight's trace and telemetry tiers", 11,
-                          "runner and serving integration")
     if explicit_chunk:
         ladder = [min(explicit_chunk, n_scenarios)]
     else:
@@ -846,47 +929,69 @@ def sweep_preflight(
             if c == 1:
                 break
             c = math.ceil(c / 2)
-    built = None
-    for chunk in ladder:
-        if built is None:
-            ex = built = make_sweep(cfg, chunk)
-        else:
-            ex = SweepExecutable(
-                built.base_ex, built.scenarios, built._scen_params,
-                chunk=chunk, fault_plans=built._fault_plans,
-                replay_plans=built._replay_plans,
-            )
-        if budget is None and ex.device.type == "cuda":
-            free, _ = torch.cuda.mem_get_info(ex.device)
-            budget = int(free * SWEEP_MEMORY_FRACTION)
-        total = ex.state_model_bytes()
-        if budget is not None and total > budget:
-            log(f"pre-flight: chunk {chunk} needs {total} bytes, over the "
-                f"{budget}-byte budget")
-            continue
-        report = {
-            "scenarios": n_scenarios,
-            "scenario_chunk": chunk,
-            "mesh_shape": {"scenario": 1, "instance": 1},
-            "scenario_chunk_padded": ex.chunk_size,
-            "instances_padded": ex.base_ex.n,
-            "state_model_bytes": total,
-            "state_model_bytes_per_axis": {
+    # only the config and the observer tiers change the built program;
+    # another chunk is a wrapper around the same builds
+    built: dict = {}
+
+    def cached_make(cfg2, chunk, trace_cap=None, telem_interval=None):
+        key = (tuple(sorted(dataclasses.asdict(cfg2).items())), trace_cap,
+               telem_interval)
+        kw = {}
+        if trace_cap is not None:
+            kw["trace_cap"] = trace_cap
+        if telem_interval is not None:
+            kw["telem_interval"] = telem_interval
+        sw = built.get(key)
+        if sw is None:
+            sw = built[key] = make_sweep(cfg2, chunk, **kw)
+        if sw.chunk_size == min(chunk, sw.n_scenarios):
+            return sw
+        return SweepExecutable(
+            sw.base_ex, sw.scenarios, sw._scen_params, chunk=chunk,
+            fault_plans=sw._fault_plans, replay_plans=sw._replay_plans,
+        )
+
+    if budget is not None:
+        memory, fraction = int(budget), 1.0
+    else:
+        first = cached_make(cfg, ladder[0],
+                            trace_tiers[0] if trace_tiers else None,
+                            telemetry_tiers[0] if telemetry_tiers else None)
+        memory = device_hbm_bytes(first.device, free=True)
+        fraction = SWEEP_MEMORY_FRACTION
+    last_err: Optional[RuntimeError] = None
+    for shrink in (False, True) if allow_shrink else (False,):
+        for chunk in ladder:
+            try:
+                ex, report = preflight_autosize(
+                    lambda extra, cfg2, c=chunk: cached_make(
+                        cfg2, c, (extra or {}).get("trace_capacity"),
+                        (extra or {}).get("telemetry_interval")),
+                    cfg, budget=memory, fraction=fraction,
+                    allow_shrink=shrink, log=log,
+                    trace_tiers=trace_tiers,
+                    telemetry_tiers=telemetry_tiers,
+                )
+            except RuntimeError as err:
+                last_err = err
+                continue
+            total = ex.state_model_bytes()
+            report["scenarios"] = n_scenarios
+            report["scenario_chunk"] = chunk
+            # one card: the JAX package's 2-D mesh accounting at 1 x 1
+            report["mesh_shape"] = {"scenario": 1, "instance": 1}
+            report["scenario_chunk_padded"] = ex.chunk_size
+            report["instances_padded"] = ex.base_ex.n
+            report["state_model_bytes_per_axis"] = {
                 "scenario_row": total, "instance_shard": total,
-            },
-            "budget_bytes": budget,
-        }
-        rp = ex.base_ex.replay
-        if rp is not None:
-            report["replay_bytes"] = ex.chunk_size * rp.model_bytes()
-        if chunk < n_scenarios and not explicit_chunk:
-            log(f"pre-flight: sweep chunked to {chunk} scenarios per "
-                f"dispatch ({math.ceil(n_scenarios / chunk)} chunks)")
-        return ex, report
-    if allow_shrink:
-        raise _not_ported("sweep_preflight's metrics-ring shrink", 11,
-                          "runner and serving integration")
-    raise RuntimeError(
-        f"sweep pre-flight: even one scenario's state does not fit the "
-        f"{budget}-byte budget"
-    )
+            }
+            rp = ex.base_ex.replay
+            if rp is not None:
+                report["replay_bytes"] = ex.chunk_size * rp.model_bytes()
+            if chunk < n_scenarios and not explicit_chunk:
+                log(f"pre-flight HBM: sweep chunked to {chunk} scenarios "
+                    f"per dispatch ({math.ceil(n_scenarios / chunk)} "
+                    "chunks) on a 1x1 mesh")
+            return ex, report
+    raise last_err if last_err is not None else RuntimeError(
+        "sweep pre-flight found no admissible configuration")

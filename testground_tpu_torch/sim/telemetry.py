@@ -440,19 +440,27 @@ def telemetry_records(
     def t_of(s: int) -> float:
         return (sample_base + s + 1) * spec.interval * q_s
 
+    def groups_of(lanes):
+        return [group_of.get(g, "") for g in gids[lanes].tolist()]
+
+    # the cells as Python lists: a 1,024-lane run samples ~57k of them
     if spec.k_lane and cnt and "lane_buf" in ts:
         buf = _np(ts["lane_buf"])[:n, :cnt, :]
         for k, probe in enumerate(spec.lane_probes):
             col = buf[:, :, k]
             lanes, samples = np.nonzero(col)
-            for i, s in zip(lanes, samples):
+            name = f"telemetry.{probe}"
+            for i, g, s, v in zip(lanes.tolist(), groups_of(lanes),
+                                  samples.tolist(),
+                                  col[lanes, samples].astype(
+                                      np.float64).tolist()):
                 lane_recs.append(
                     {
-                        "instance": int(i),
-                        "group": group_of.get(int(gids[i]), ""),
-                        "name": f"telemetry.{probe}",
-                        "virtual_time_s": t_of(int(s)),
-                        "value": float(col[i, s]),
+                        "instance": i,
+                        "group": g,
+                        "name": name,
+                        "virtual_time_s": t_of(s),
+                        "value": v,
                     }
                 )
     if spec.glob and cnt and "glob_buf" in ts:
@@ -473,16 +481,20 @@ def telemetry_records(
         end_t = float(_np(state.get("tick", 0))) * q_s
         for h, hname in enumerate(spec.hist_names):
             lanes, buckets = np.nonzero(hist[:, h, :])
-            for i, b in zip(lanes, buckets):
+            name = f"telemetry.hist.{hname}"
+            for i, g, b, v in zip(lanes.tolist(), groups_of(lanes),
+                                  buckets.tolist(),
+                                  hist[lanes, h, buckets].astype(
+                                      np.float64).tolist()):
                 lane_recs.append(
                     {
-                        "instance": int(i),
-                        "group": group_of.get(int(gids[i]), ""),
-                        "name": f"telemetry.hist.{hname}",
+                        "instance": i,
+                        "group": g,
+                        "name": name,
                         "type": "histogram",
-                        "bucket": int(b),
+                        "bucket": b,
                         "virtual_time_s": end_t,
-                        "value": float(hist[i, h, b]),
+                        "value": v,
                     }
                 )
     return lane_recs, glob_recs

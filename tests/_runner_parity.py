@@ -87,6 +87,48 @@ def rinputs(plan, case, groups, run_dir_j, run_dir_t, run_id="parity",
     return make(jcontracts, run_dir_j, 0), make(tcontracts, run_dir_t, 1)
 
 
+@contextlib.contextmanager
+def jax_sees_one_device():
+    """``jax.devices()`` cut to its first device: the JAX sweep plane
+    picks its (scenario, instance) mesh from the visible devices, and a
+    search's sweep takes no ``[sweep] mesh`` to pin it."""
+    real = jax.devices
+    jax.devices = lambda *a, **k: real(*a, **k)[:1]
+    try:
+        yield
+    finally:
+        jax.devices = real
+
+
+class PreemptAt:
+    """A runner's should_stop hook that preempts its run at boundary
+    ``k`` (1-based), as a SIGTERM landing during that chunk would."""
+
+    def __init__(self, runner, k):
+        self.runner, self.k = runner, k
+        self.real = runner._make_should_stop
+
+    def __enter__(self):
+        runner, k = self.runner, self.k
+
+        def make(rinput):
+            rid, calls = rinput.run_id, [0]
+            ev = runner._term_event(rid)
+
+            def should_stop():
+                calls[0] += 1
+                if calls[0] == k:
+                    runner.request_preempt(rid)
+                return ev.is_set()
+
+            return should_stop
+
+        runner._make_should_stop = make
+
+    def __exit__(self, *exc):
+        self.runner._make_should_stop = self.real
+
+
 NO_HEARTBEAT = {"TG_DISPATCH_HEARTBEAT_S": "86400"}
 
 

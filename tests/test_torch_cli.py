@@ -41,12 +41,12 @@ from testground_tpu_torch.sim.tables import CompositionError
 COMPOSITIONS = sorted(REPO.glob("plans/*/composition.toml"))
 
 
-def jax_engine_rinput(path, run_id, home):
-    """What the JAX engine's run path builds for a composition file whose
-    groups are built by the sim:module builder (artifact: the plan's
-    directory)."""
+def jax_engine_rinput(path, run_id, home, comp=None):
+    """What the JAX engine's run path builds for a composition file (or
+    ``comp``, its loaded and overridden form) whose groups are built by
+    the sim:module builder (artifact: the plan's directory)."""
     plan_dir = Path(path).parent
-    comp = JComposition.load(path)
+    comp = comp if comp is not None else JComposition.load(path)
     for g in comp.groups:
         g.run.artifact = g.run.artifact or str(plan_dir)
     manifest = JManifest.load(plan_dir / "manifest.toml")
@@ -115,6 +115,11 @@ def _args(**kw):
     {"no_live": True, "no_checkpoint": True},
     {"live_interval": 0.5, "checkpoint_interval": 0.0},
     {"telemetry_interval": 20, "trace_on": True},
+    {"sweep_seeds": 4},
+    {"search_on": True},
+    {"search_on": False},
+    {"search_on": True, "search_budget": 8},
+    {"search_budget": 0},
 ])
 def test_run_flags_shape_the_composition_as_jax_does(flags, tmp_path):
     path = REPO / "plans" / "faultsdemo" / "composition.toml"
@@ -146,6 +151,34 @@ def test_composition_errors_match_jax(tmp_path):
         assert str(terr.value) == str(jerr.value)
 
 
+@pytest.mark.parametrize("flags", [
+    {"search_on": True}, {"search_budget": 8},
+])
+def test_search_flags_without_a_search_table_fail_as_jax_does(flags):
+    path = REPO / "plans" / "election" / "composition.toml"
+    with pytest.raises(Exception) as jerr:
+        _apply_overrides(JComposition.load(path), _args(**flags))
+    with pytest.raises(CompositionError) as terr:
+        cli.apply_overrides(Composition.load(path), _args(**flags))
+    assert str(terr.value) == str(jerr.value)
+    assert "requires a [search] table" in str(terr.value)
+
+
+def test_sweep_seeds_zero_fails_as_jax_does(tmp_path):
+    path = REPO / "plans" / "faultsdemo" / "composition.toml"
+    from testground_tpu_torch.api.manifest import TestPlanManifest
+
+    mine, theirs = Composition.load(path), JComposition.load(path)
+    cli.apply_overrides(mine, _args(sweep_seeds=0))
+    _apply_overrides(theirs, _args(sweep_seeds=0))
+    with pytest.raises(Exception) as jerr:
+        theirs.prepare_for_run(JManifest.load(path.parent / "manifest.toml"))
+    with pytest.raises(CompositionError) as terr:
+        mine.prepare_for_run(TestPlanManifest.load(
+            path.parent / "manifest.toml"))
+    assert str(terr.value) == str(jerr.value)
+
+
 def _cli(*args, home):
     env = dict(os.environ, TESTGROUND_HOME=str(home), **NO_HEARTBEAT)
     return subprocess.run(
@@ -167,6 +200,43 @@ def test_cli_runs_faultsdemo_as_the_jax_runner_does(tmp_path):
     ri = jax_engine_rinput(REPO / path, "cli1", tmp_path / "jaxhome")
     run_jax(ri)
     assert_runs_equal(ri.run_dir, port_dir)
+
+
+@pytest.mark.parametrize("flags", [
+    ("--sweep-seeds", "2"), ("--search", "--search-budget", "8"),
+])
+def test_cli_sweep_and_search_run_as_the_jax_runner_does(flags, tmp_path):
+    """``run composition`` with ``--sweep-seeds`` (faultsdemo swept over
+    2 seeds) and with ``--search`` (its own [search] table, capped at 8
+    probes), each cut at 2,000 ticks: exit 0, and the files the JAX
+    runner writes for the same RunInput."""
+    from _runner_parity import jax_sees_one_device
+
+    path = "plans/faultsdemo/composition.toml"
+    proc = _cli("run", "composition", path, "--device", "cpu",
+                "--run-id", "cli2", "--run-cfg", "max_ticks=2000", *flags,
+                home=tmp_path / "home")
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "run cli2: outcome success" in proc.stdout
+    port_dir = tmp_path / "home" / "data" / "outputs" / "faultsdemo" / "cli2"
+    comp = JComposition.load(REPO / path)
+    _apply_overrides(comp, _args(
+        run_cfg=["max_ticks=2000"],
+        sweep_seeds=2 if "--sweep-seeds" in flags else None,
+        search_on=True if "--search" in flags else None,
+        search_budget=8 if "--search" in flags else None))
+    ri = jax_engine_rinput(REPO / path, "cli2", tmp_path / "jaxhome",
+                           comp=comp)
+    with jax_sees_one_device():
+        run_jax(ri)
+    s = assert_runs_equal(ri.run_dir, port_dir)
+    assert s["outcome"] == "success"
+    if "--search" in flags:
+        assert s["scenarios_probed"] <= 8 and s["compiles"] == 1
+        assert (port_dir / "round" / "0" / "scenario" / "0"
+                / "results.out").exists()
+    else:
+        assert [r["seed"] for r in s["scenarios"]] == [0, 1]
 
 
 def test_cli_refuses_a_plan_the_port_lacks_and_needs_a_card(tmp_path):

@@ -14,7 +14,9 @@ entry mode on the card against the port's CPU path (on the card ``run``
 replays a CUDA graph of the tick); the count scatter's and the ring merge's vmap rules through the kernels (one
 launch for S scenarios, bit-equal to S serial calls); a search's one
 capture; and the runner (sim/runner.py) on the card against the CPU,
-and a resume that copies its checkpoint into the pooled capture. This file imports no jax, so it runs on the GPU machine:
+a resume that copies its checkpoint into the pooled capture, and a
+[sweep] composition through the runner against the CPU, preempted
+inside its second scenario chunk and resumed with no capture. This file imports no jax, so it runs on the GPU machine:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \\
         tests/test_torch_cuda.py
@@ -604,4 +606,55 @@ def test_runner_resume_copies_into_the_capture(tmp_path, monkeypatch):
     assert cs.pooled_captures() == caps
     assert summary(tmp_path / "cut")["resumed_from_tick"] == 128
     assert output_files(tmp_path / "cut") == output_files(tmp_path / "full")
+    runner.clear_executor_pool()
+
+
+def test_sweep_runner_gpu_matches_cpu_and_resumes(tmp_path, monkeypatch):
+    """A [sweep] composition through the runner on the card against the
+    CPU: storm (compressed params) at 48 over 4 seeds in scenario chunks
+    of 2, every file, row and deterministic key equal, one capture; then
+    on the card, preempted at the first boundary of chunk 1 and resumed
+    in the same process: no capture, and every scenario's files and row
+    equal to the uninterrupted run's."""
+    import math
+
+    from testground_tpu_torch import graft
+    from testground_tpu_torch.runner.outputs import (
+        assert_runs_equal, output_files, summary)
+    from testground_tpu_torch.sim import runner
+    from testground_tpu_torch.sim.tables import Sweep
+
+    dev = _cuda()
+    monkeypatch.setenv("TG_DISPATCH_HEARTBEAT_S", "86400")
+
+    def rinput(name, run_id="r", **kw):
+        return cs.runner_input(
+            "benchmarks", "storm", 48, graft.STORM_PARAMS, tmp_path / name,
+            run_id, dict(cs.STORM_RUN_CONFIG, chunk_ticks=32),
+            sweep=Sweep(seeds=4, chunk=2), **kw)
+
+    for d, side in ((dev, "gpu"), ("cpu", "cpu")):
+        runner.clear_executor_pool()
+        runner.run_composition(rinput(side), device=d)
+        if side == "gpu":
+            assert cs.pooled(runner).captures == 1
+    s = assert_runs_equal(tmp_path / "gpu", tmp_path / "cpu")
+    assert s["outcome"] == "success" and s["scenario_chunk"] == 2
+    rows = cs.scenario_rows(tmp_path / "gpu")
+    assert rows == cs.scenario_rows(tmp_path / "cpu")
+    # chunk 0's boundaries, then the first of chunk 1
+    stop = math.ceil(max(r["ticks_executed"] for r in rows[:2]) / 32) + 1
+    runner.clear_executor_pool()
+    ck = {"checkpoint": {"interval": 0.0}}
+    with cs.preempt_at(stop):
+        out = runner.run_composition(rinput("cut", "cut", **ck), device=dev)
+    assert out.result.outcome == "preempted"
+    caps = cs.pooled_captures()
+    out = runner.run_composition(rinput("cut", "cut", resume=True, **ck),
+                                 device=dev)
+    assert out.result.outcome == "success"
+    assert cs.pooled_captures() == caps
+    assert summary(tmp_path / "cut")["resumed_from_chunk"] == 1
+    assert cs.scenario_rows(tmp_path / "cut") == rows
+    assert output_files(tmp_path / "cut") == output_files(tmp_path / "gpu")
     runner.clear_executor_pool()

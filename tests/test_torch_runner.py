@@ -295,12 +295,20 @@ def test_plan_the_port_lacks_raises(tmp_path):
 
 
 def test_sweep_and_search_compositions_are_not_ported_yet(tmp_path):
+    """Once refused as not ported, a [sweep] and a [search] composition
+    now take their batched paths (tests/test_torch_runner_sweep.py and
+    tests/test_torch_runner_search.py hold them against the JAX
+    runner): a sweep demuxes its scenarios, a search over a param the
+    plan does not expose is refused as compile_sweep refuses it."""
     sweep = _port_rinput(tmp_path / "s", sweep=tables.Sweep(seeds=2))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        trunner.run_composition(sweep, device="cpu")
+    out = trunner.run_composition(sweep, device="cpu")
+    s = summary(tmp_path / "s")
+    assert out.result.outcome == s["outcome"] == "success"
+    assert [r["seed"] for r in s["scenarios"]] == [0, 1]
+    assert (tmp_path / "s" / "scenario" / "1" / "results.out").exists()
     search = _port_rinput(tmp_path / "q", search={
         "param": "x", "lo": 0, "hi": 4, "step": 1, "objective": "outcome"})
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match=r"grid over \['x'\] is impossible"):
         trunner.run_composition(search, device="cpu")
     # a disabled [search] runs the plain path and journals the mark
     off = _port_rinput(tmp_path / "o", search={
@@ -317,3 +325,31 @@ def test_the_card_is_the_default(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         trunner.run_composition(_port_rinput(tmp_path / "r"))
+
+
+def test_metrics_lines_are_the_records_json_dumps(tmp_path):
+    """``SimResult.metrics_lines`` (the runner's results.out writer) is
+    ``json.dumps`` of each of ``metrics_records``, the floats JSON
+    cannot spell as Python does (NaN, infinities) and an id past the
+    metric names included."""
+    import json
+
+    import torch
+
+    from testground_tpu_torch.sim import BuildContext, GroupSpec
+    from testground_tpu_torch.sim.core import SimConfig, compile_program
+
+    ctx = BuildContext([GroupSpec("single", 0, 3, {})], test_case="metrics")
+    res = compile_program(tplacebo.testcases["metrics"], ctx,
+                          SimConfig(max_ticks=200), device="cpu").run()
+    assert res.metrics_records()
+    buf, cnt = res.state["metrics_buf"], res.state["metrics_cnt"]
+    buf[0, 0, 2] = float("nan")
+    buf[1, 0, 2] = float("inf")
+    buf[2, 0, 2] = -float("inf")
+    buf[2, 0, 0] = 99  # no such metric: named by its id
+    buf[1, 0, 1] = 12_345.0
+    assert torch.all(cnt > 0)
+    recs = res.metrics_records()
+    assert res.metrics_lines() == [json.dumps(r) + "\n" for r in recs]
+    assert any(r["name"] == "99" for r in recs)

@@ -15,6 +15,7 @@ import tomllib
 import pytest
 from _runner_parity import (
     REPO,
+    PreemptAt,
     assert_runs_equal,
     deterministic,
     output_files,
@@ -60,35 +61,6 @@ def _faultsdemo(tmp, name, run_id, resume=False, params=None):
            for k, v in tables.items()})
 
 
-class _PreemptAt:
-    """A runner's should_stop hook that preempts its run at boundary
-    ``k`` (1-based), as a SIGTERM landing during that chunk would."""
-
-    def __init__(self, runner, k):
-        self.runner, self.k = runner, k
-        self.real = runner._make_should_stop
-
-    def __enter__(self):
-        runner, k = self.runner, self.k
-
-        def make(rinput):
-            rid, calls = rinput.run_id, [0]
-            ev = runner._term_event(rid)
-
-            def should_stop():
-                calls[0] += 1
-                if calls[0] == k:
-                    runner.request_preempt(rid)
-                return ev.is_set()
-
-            return should_stop
-
-        runner._make_should_stop = make
-
-    def __exit__(self, *exc):
-        self.runner._make_should_stop = self.real
-
-
 @pytest.fixture(scope="module")
 def legs(tmp_path_factory):
     """Both runners' three legs: uninterrupted (full), preempted at
@@ -100,7 +72,7 @@ def legs(tmp_path_factory):
     out = {}
     for side, run, runner in ((0, run_jax, jrunner), (1, run_port, trunner)):
         run(full[side])
-        with _PreemptAt(runner, STOP_AT):
+        with PreemptAt(runner, STOP_AT):
             b = run(pre[side], clear=False)
         mid = {"summary": summary(pre[side].run_dir),
                "progress": progress_rows(pre[side].run_dir),

@@ -267,7 +267,12 @@ def test_refusals_match_jax(name, tmp_path):
     assert msg
 
 
-def test_one_card_mesh_and_the_durability_hooks_name_their_items():
+def test_one_card_mesh_and_the_durability_hooks_name_their_items(tmp_path):
+    from testground_tpu_torch.sim.checkpoint import (
+        Checkpointer, DispatchWatchdog, load_checkpoint,
+    )
+    from testground_tpu_torch.sim.state_io import state_from_numpy
+
     scen = scenarios([0, 1])
     for mesh in (None, [1, 1]):
         tsweep.compile_sweep(_end_ok, [TGroup(*G2[0])], TConfig(), scen,
@@ -275,10 +280,23 @@ def test_one_card_mesh_and_the_durability_hooks_name_their_items():
     with pytest.raises(NotImplementedError, match="item 12"):
         tsweep.compile_sweep(_end_ok, [TGroup(*G2[0])], TConfig(), scen,
                              mesh_shape=[2, 1], device="cpu")
-    ex = t_sweep(_end_ok, G2, scen)
-    for kw in ("watchdog", "checkpoint", "resume"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            ex.run(**{kw: object()})
+    # the durability hooks, once refused as not ported: the watchdog
+    # judges and the checkpoint snapshots every boundary but a chunk's
+    # last, with the completed chunks' finals; a resume from the newest
+    # snapshot re-enters its chunk and ends where the whole run ends
+    ex = t_sweep(_param_plan, G2, scenarios(range(3)), chunk=2,
+                 chunk_ticks=1, max_ticks=50)
+    ck = Checkpointer(tmp_path, key_hash="k", kind="sweep", interval_s=0.0)
+    wd = DispatchWatchdog(floor_s=60.0)
+    full = ex.run(watchdog=wd, checkpoint=ck)
+    assert wd.boundaries == ck.snapshots >= 2
+    rp = load_checkpoint(tmp_path)
+    assert (rp.kind, rp.chunk, rp.meta["finals"]) == ("sweep", 1, [0])
+    res = ex.run(resume={"chunk": rp.chunk, "state": rp.state})
+    assert res.chunk_states[0] is None and res.has_scenario(2)
+    res.chunk_states[0] = state_from_numpy(rp.load_final(0), "cpu")
+    for s in range(3):
+        assert_leaves_equal(full.scenario(s).state, res.scenario(s).state)
 
 
 def _fault_grid():
@@ -385,18 +403,23 @@ def test_result_surface_and_preflight_ladder():
     one = mk(cfg, 1).state_model_bytes()
     ex2, report = tsweep.sweep_preflight(mk, cfg, 5, budget=int(one * 2.5))
     assert report["scenario_chunk"] == ex2.chunk_size == 2
-    assert report["state_model_bytes"] <= int(one * 2.5)
+    assert report["state_model_bytes_per_device"] <= int(one * 2.5)
     assert [r.outcomes() for r in ex2.run()] == [{"single": (2, 2)}] * 5
     ex3, report = tsweep.sweep_preflight(mk, cfg, 5)
     assert report["scenario_chunk"] == 5  # no bound on the CPU
     # a [sweep] chunk is the ladder's only rung
     ex4, report = tsweep.sweep_preflight(mk, cfg, 5, explicit_chunk=3)
     assert (report["scenario_chunk"], ex4.n_chunks) == (3, 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tsweep.sweep_preflight(mk, cfg, 5, trace_tiers=[64, 16])
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # a budget under one scenario: the metrics ring shrinks (down to its
+    # last tier) before the pre-flight gives up
+    half = mk(dataclasses.replace(cfg, metrics_capacity=8),
+              1).state_model_bytes()
+    ex5, report = tsweep.sweep_preflight(mk, cfg, 5, budget=half)
+    assert (report["scenario_chunk"], report["metrics_capacity"]) == (1, 8)
+    assert report["metrics_capacity_requested"] == cfg.metrics_capacity
+    with pytest.raises(RuntimeError, match="cannot fit"):
         tsweep.sweep_preflight(mk, cfg, 5, budget=1)
-    with pytest.raises(RuntimeError, match="does not fit"):
+    with pytest.raises(RuntimeError, match="cannot fit"):
         tsweep.sweep_preflight(mk, cfg, 5, budget=1, allow_shrink=False)
 
 
