@@ -3,14 +3,21 @@
 
     python3 chip_smoke.py
 
-Phases, in order (any failure raises and the exit code is not 0):
+Phases, in order (any failure raises and the exit code is not 0). The CPU
+side of every GPU-vs-CPU phase (5, 8, 13, 18, 23, 28, 32, 35, 40, 47) runs
+in one child process (multiprocessing, spawn) started before phase 1,
+its torch threads capped at half the host's cores; it hands each phase
+its final CPU state (or, for 40 and 47, its run directory), and a
+failure there fails the phase.
 
 1. device report: the card's name, and its name and power limit as
    ``nvidia-smi`` gives them;
 2. build: the three kernels from ``testground_tpu_torch/csrc``, the
    deliver-front kernel's -DFRONT_TRACE build and the count scatter's
    -DSCATTER_TRACE build, one nvcc per source, started together, with
-   their build seconds;
+   their build seconds; then each kernel's ``torch.library`` custom op
+   dispatched once on tiny CPU tensors, with its seconds (a process's
+   first custom-op dispatch imports much of torch, once);
 3. deliver-front kernel vs plain on the card, bit-equal, and the whole
    dispatch bit-equal to ``front_reference``: the seven randomized
    front regimes of the deliver-front tests and the nine ``STARVATION``
@@ -25,7 +32,9 @@ Phases, in order (any failure raises and the exit code is not 0):
    splitbrain-sampled@100k's (N = 100,000, CAP 64, W 7), the
    microbenchmark's shapes at N = 100,000, 1,000,000 and 1,000,003,
    k_eff of 0 / random / A, k_eff = CAP on a full ring, w near 2**30 and
-   A > CAP; kernel, plain, ``ring.clone()`` and bound times;
+   A > CAP, the inputs made on the card from a ``torch.Generator``;
+   kernel, plain (3 repetitions at the ~1M-row shapes), ``ring.clone()``
+   and bound times;
 3c. the ported ring-merge microbenchmark
    (``testground_tpu_torch/tools/microbench_append.py``) at N = 100,000
    and 1,000,000: merge alone and staging + merge + read, plain vs
@@ -237,10 +246,34 @@ Phases, in order (any failure raises and the exit code is not 0):
 47. a storm sweep at n = 300 over 4 seeds in chunks of 2, and a cliff
    bisect at 64, through the runner on the card and on the CPU: every
    deterministic key, run.out, scenario and probe file and progress row
-   equal.
+   equal;
+48. the daemon as users start it: ``python -m testground_tpu_torch
+   daemon --listen 127.0.0.1:0`` (on the card) with its own
+   ``TESTGROUND_HOME`` and a bearer token; through its client, [36]'s
+   storm@10k and [37]'s fused dht@10k compositions submitted at once
+   (two scheduler workers, device leases): each collected tarball's
+   results.out, run.out and deterministic summary keys equal to the
+   in-process run's; each task's queue wait, dispatch and
+   submit-to-complete;
+49. the serving surface: storm cut at 300 ticks twice (the second a pool
+   hit: memory_hit, compiles 0, no capture; ``/cache`` lists it),
+   ``/metrics``' lease and pool counters, ``/progress`` snapshots while
+   two storm@10k runs (512-tick chunks) run, ``kill`` of a task queued
+   behind them, ``kill`` terminating one at a chunk boundary (outcome
+   terminated), SIGTERM to the daemon preempting the other, and the
+   daemon restarted on the same home resuming it (``/resume``) to
+   [36]'s results.out;
+50. [28]'s storm at 300 under its three planes, and a 2-seed [sweep] of
+   it, as compositions through the card daemon and a ``--device cpu``
+   daemon (started with the card's, its runs submitted before [48]):
+   every deterministic key, run.out, output file, scenario and progress
+   row equal.
 
-The last lines are the card's nvidia-smi line, one JSON object with the
-kernel measurements, and ``{"ok": true, "device": {...}}``. Everything
+The last lines are a table of the ten slowest phases, the card's
+nvidia-smi line, one JSON object with the kernel measurements, and
+``{"ok": true, "device": {...}}``; before them, this run's storm@10k
+ms/tick [11], runner dispatch [36] and sweep scenarios/s [42] beside
+R14f's. Everything
 measured also goes to ``chiprun_out/chip_smoke.json``. Without CUDA, or
 without the ``testground_tpu_torch`` package beside it, the script exits
 non-zero and prints no result.
@@ -289,12 +322,28 @@ REGIMES = [
 _T0 = time.monotonic()
 
 
+# (phase label, start) of each phase header logged, in order
+PHASE_STARTS: list = []
+
+
 def log(msg: str) -> None:
     """Print a line; a phase's header (``[n] ...``) with the seconds since
-    the script started."""
+    the script started, its start kept for the closing table."""
     if msg.startswith("["):
-        msg = f"{msg}  (t = {time.monotonic() - _T0:.1f} s)"
+        t = time.monotonic()
+        PHASE_STARTS.append((msg.split("]", 1)[0] + "]", t))
+        msg = f"{msg}  (t = {t - _T0:.1f} s)"
     print(msg, flush=True)
+
+
+def phase_seconds(end: float) -> dict:
+    """Seconds by phase label, a phase running until the next header
+    (the last until ``end``); a label's sub-phases (``[3a]``) apart."""
+    out: dict = {}
+    marks = PHASE_STARTS + [("end", end)]
+    for (label, t0), (_, t1) in zip(marks, marks[1:]):
+        out[label] = out.get(label, 0.0) + (t1 - t0)
+    return out
 
 
 def nvidia_smi_line() -> str:
@@ -491,27 +540,59 @@ MERGE_CASES = [
 ]
 
 
-def merge_case(np, name, n, seed, cap=32, width=7, A=8):
-    """Ring-merge inputs (numpy, from ``seed``): ring f32 [n, cap, width],
-    w and k_eff int32 [n], staging f32 [A*n, width]. ``name`` picks the
-    counts: k_zero (nothing lands), k_random, k_all (A per row),
-    full_ring (k_eff = cap: every slot written), w_near_2_30, a_over_cap
-    (random counts; with A > cap later passes overwrite earlier ones)."""
-    rng = np.random.default_rng(seed)
-    ring = (rng.random((n, cap, width)) * 100).astype(np.float32)
-    arr = (rng.random((A * n, width)) * 100 + 200).astype(np.float32)
-    w = rng.integers(0, 10_000, n).astype(np.int32)
+# the plain merge's repetitions at the ~1M-row shapes of [3b]
+MERGE_PLAIN_REPS_1M = 3
+
+
+def first_dispatch(torch):
+    """One call of each kernel's ``torch.library`` custom op on tiny CPU
+    tensors: a process's first dispatch of a custom op imports much of
+    torch (~2 s on a CPU host), a one-time cost that would otherwise
+    land in whichever phase calls a kernel first ([3b])."""
+    from testground_tpu_torch.sim import count_scatter as csc
+    from testground_tpu_torch.sim import ring_merge as rm
+
+    i32 = torch.int32
+    rm.merge(torch.zeros(2, 4, 3), torch.zeros(2, dtype=i32),
+             torch.zeros(2, dtype=i32), torch.zeros(4, 3))
+    csc.scatter_add(torch.zeros(3, 2), torch.zeros(4, dtype=i32),
+                    torch.ones(4, 2))
+
+
+def merge_case_on(torch, dev, name, n, seed, cap=32, width=7, A=8):
+    """Ring-merge inputs made on ``dev`` from an explicit
+    ``torch.Generator`` seeded with ``seed`` (on the card for [3b]: a host
+    build of the ~1M row cases took most of that phase): ring f32
+    [n, cap, width], w and k_eff int32 [n], staging f32 [A*n, width].
+    ``name`` picks the counts: k_zero (nothing lands), k_random, k_all
+    (A per row), full_ring (k_eff = cap: every slot written), w_near_2_30,
+    a_over_cap (random counts; with A > cap later passes overwrite
+    earlier ones)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    f32, i32 = torch.float32, torch.int32
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev, dtype=f32)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev,
+                             dtype=i32)
+
+    ring = rand(n, cap, width) * 100
+    arr = rand(A * n, width) * 100 + 200
+    w = ints(0, 10_000)
     if name == "k_zero":
-        k = np.zeros(n, np.int32)
+        k = torch.zeros(n, dtype=i32, device=dev)
     elif name in ("k_random", "a_over_cap"):
-        k = rng.integers(0, A + 1, n).astype(np.int32)
+        k = ints(0, A + 1)
     elif name == "k_all":
-        k = np.full(n, A, np.int32)
+        k = torch.full((n,), A, dtype=i32, device=dev)
     elif name == "full_ring":
-        k = np.full(n, cap, np.int32)
+        k = torch.full((n,), cap, dtype=i32, device=dev)
     elif name == "w_near_2_30":
-        w = (2**30 - rng.integers(0, 3 * cap, n)).astype(np.int32)
-        k = rng.integers(0, A + 1, n).astype(np.int32)
+        w = 2**30 - ints(0, 3 * cap)
+        k = ints(0, A + 1)
     else:
         raise ValueError(name)
     return ring, w, k, arr
@@ -749,9 +830,9 @@ def merge_phase(torch, np, dev, report):
     rows = []
     max_err = 0.0
     for seed, (label, n, case, cap, width, A) in enumerate(MERGE_CASES):
-        ring, w, k, arr = (
-            torch.as_tensor(a, device=dev)
-            for a in merge_case(np, case, n, seed, cap, width, A))
+        t_case = time.monotonic()
+        ring, w, k, arr = merge_case_on(torch, dev, case, n, seed, cap,
+                                        width, A)
         got = rm.merge(ring, w, k, arr)
         want = rm.merge_plain(ring, w, k, arr)
         ok, err = bit_equal(torch, [got], [want])
@@ -760,11 +841,14 @@ def merge_phase(torch, np, dev, report):
             raise AssertionError(f"ring merge kernel != plain: {label} "
                                  f"{case} @ {n}")
         reps = 200 if n <= 10_000 else 20
+        # the plain version is no yardstick (PERF.md §6): few repetitions
+        # at the ~1M-row shapes
+        plain_reps = reps if n < 1_000_000 else MERGE_PLAIN_REPS_1M
         calls = calls_for(n)
         k_ms, how = device_ms(torch, lambda: rm.merge(ring, w, k, arr), reps,
                               calls)
         p_ms, _ = device_ms(torch, lambda: rm.merge_plain(ring, w, k, arr),
-                            reps, calls)
+                            plain_reps, calls)
         c_ms, _ = device_ms(torch, ring.clone, reps, calls)
         # each output cell is read from the staging if a record lands
         # there, else from the ring, so the reads of both together are
@@ -775,12 +859,14 @@ def merge_phase(torch, np, dev, report):
         rows.append({
             "shape": label, "case": case, "n": n, "cap": cap, "width": width,
             "arrival_slots": A, "bit_equal": True, "kernel_ms": k_ms,
-            "plain_ms": p_ms, "clone_ms": c_ms, "bound_ms": bound_ms,
-            "bytes": moved, "timing": how,
+            "plain_ms": p_ms, "plain_reps": plain_reps, "clone_ms": c_ms,
+            "bound_ms": bound_ms, "bytes": moved, "timing": how,
+            "case_seconds": time.monotonic() - t_case,
         })
         log(f"  merge {label:11s} {case:12s} n={n:>9,d} cap={cap:2d} "
             f"W={width} A={A}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-            f"clone {c_ms:.4f} ms, bound {bound_ms:.4f} ms, bit-equal")
+            f"clone {c_ms:.4f} ms, bound {bound_ms:.4f} ms, bit-equal "
+            f"({rows[-1]['case_seconds']:.2f} s)")
         del ring, w, k, arr, got, want
     report["merge"] = rows
     report["merge_max_abs_err"] = max_err
@@ -1307,18 +1393,18 @@ def storm_phase(torch, dev, report, key, shaped, chunk_ticks=32,
     return out
 
 
-def parity_phase(np, dev, report, key, make, n=300):
-    """One composition at ``n`` on the card and on the CPU: every state
-    leaf bit-equal."""
+def parity_phase(np, dev, report, key, n=300):
+    """One composition at ``n`` on the card, and its CPU side from the
+    child (``cpu_side``): every state leaf bit-equal."""
     from testground_tpu_torch.sim.state_io import (
         compare_leaves, flatten, state_to_numpy,
     )
 
     states, walls = {}, {}
-    for d in (dev, "cpu"):
-        res = make(n, d).run()
-        states[str(d)] = flatten(state_to_numpy(res.state))
-        walls[str(d)] = (res.ticks, res.wall_seconds)
+    res = parity_maker(key, CPU_DIR)(n, dev).run()
+    states[str(dev)] = flatten(state_to_numpy(res.state))
+    walls[str(dev)] = (res.ticks, res.wall_seconds)
+    states["cpu"], walls["cpu"] = cpu_side(key)
     leaves = compare_leaves(states[str(dev)], states["cpu"],
                             f"{key}: GPU vs CPU")
     report[key] = {
@@ -1328,6 +1414,174 @@ def parity_phase(np, dev, report, key, make, n=300):
     log(f"  {key}: GPU vs CPU bit-equal over {leaves} leaves "
         f"(ticks {walls[str(dev)][0]}, GPU {walls[str(dev)][1]:.2f} s, "
         f"CPU {walls['cpu'][1]:.2f} s)")
+
+
+
+# ------------------------------------------- the CPU sides, in a child
+#
+# Every GPU-vs-CPU phase ([5], [8], [13], [18], [23], [28], [32], [35],
+# [40], [47]) runs its CPU side in ONE child process (multiprocessing,
+# spawn), started at the top of the script with its torch threads capped
+# at half the host's cores: the child runs the CPU sides in the order the
+# phases read them while the card runs the other phases, and hands each
+# phase its final CPU state (every leaf, as numpy arrays) or, for the
+# runner's phases, its run directory. A failure in the child fails the
+# phase that reads it; nothing falls back to an in-line CPU run.
+
+# the CPU sides' outputs (runner run directories, the drain's files)
+CPU_DIR = ""
+# key -> Future of the child's result
+CPU_SIDES: dict = {}
+# (key, n) of the state parity phases, in the order the phases read them
+CPU_PARITY = (
+    ("dht300_parity", 300), ("gossipsub300_parity", 300),
+    ("dht300_default_parity", 300), ("storm300_parity", 300),
+    ("storm300_shaped_parity", 300), ("barrier300_parity", 300),
+    ("subtree300_parity", 300), ("sparsetimer300_dense_parity", 300),
+    ("sparsetimer300_skip_parity", 300), ("splitbrain300_parity", 300),
+    ("classdials300_parity", 300), ("storm300_planes_parity", 300),
+    ("faultsdemo300_parity", 300), ("replay300_dense_parity", 300),
+    ("replay300_skip_parity", 300),
+)
+CPU_RUNNER_KEYS = ("storm300", "faultsdemo300", "storm300_sweep",
+                   "cliff64_search")
+
+
+def cpu_threads() -> int:
+    """The child's torch threads: half the host's cores."""
+    return max(1, (os.cpu_count() or 2) // 2)
+
+
+def _cpu_child_init(root: str, threads: int) -> None:
+    sys.path.insert(0, root)
+    import torch
+
+    torch.set_num_threads(threads)
+    try:
+        torch.set_num_interop_threads(threads)
+    except RuntimeError:
+        pass
+    # heartbeat rows count wall time: none in a parity pair
+    os.environ["TG_DISPATCH_HEARTBEAT_S"] = "86400"
+
+
+def parity_maker(key, tmp):
+    """The executable maker ``make(n, device)`` of a state parity phase
+    (``tmp``: where the echo trace is written)."""
+    from testground_tpu_torch import bench as tb
+    from testground_tpu_torch.plans import election as telection
+    from testground_tpu_torch.plans import faultsdemo as tdemo
+
+    def echo(skip):
+        def make(n, d):
+            path = os.path.join(tmp, f"echo-{os.getpid()}.jsonl")
+            if not os.path.exists(path):
+                tb.write_echo_trace(path, n)
+            return tb.echo_executable(n, d, path, event_skip=skip)
+        return make
+
+    return {
+        "dht300_parity": dht_exec,
+        "gossipsub300_parity": gossipsub_exec,
+        "dht300_default_parity":
+            lambda n, d: dht_exec(n, d, pallas_front=None),
+        "storm300_parity": graft_storm_exec,
+        "storm300_shaped_parity":
+            lambda n, d: graft_storm_exec(n, d, shaped=True),
+        "barrier300_parity": lambda n, d: tb.barrier_executable(n, 3, d),
+        "subtree300_parity": lambda n, d: tb.subtree_executable(n, 20, d),
+        "sparsetimer300_dense_parity":
+            lambda n, d: tb.sparsetimer_executable(n, False, d, rounds=10),
+        "sparsetimer300_skip_parity":
+            lambda n, d: tb.sparsetimer_executable(n, True, d, rounds=10),
+        "splitbrain300_parity":
+            lambda n, d: tb.splitbrain_executable(n, d, "drop-sampled"),
+        "classdials300_parity": queued_class_exec,
+        "storm300_planes_parity": planes_storm_exec,
+        "faultsdemo300_parity": lambda n, d: tdemo.chaos_executable(
+            n, d, chunk_ticks=32, max_ticks=2_000),
+        "replay300_dense_parity": echo(False),
+        "replay300_skip_parity": echo(True),
+        "election5_parity": lambda n, d: telection.election_executable(n, d),
+    }[key]
+
+
+def cpu_state_job(key, n, tmp):
+    """[child] a state parity phase's CPU side: (leaves, (ticks, wall))."""
+    from testground_tpu_torch.sim.state_io import flatten, state_to_numpy
+
+    res = parity_maker(key, tmp)(n, "cpu").run()
+    return flatten(state_to_numpy(res.state)), (res.ticks, res.wall_seconds)
+
+
+def cpu_drain_job(n, out_dir):
+    """[child] [32]'s drained sparsetimer on the CPU into ``out_dir``:
+    (leaves, the drain's stats)."""
+    from pathlib import Path
+
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.sim.state_io import flatten, state_to_numpy
+
+    res, dr = bench.drained_run(bench.drain_executable(n, "cpu", rounds=10),
+                                Path(out_dir))
+    return flatten(state_to_numpy(res.state)), dr.stats()
+
+
+def cpu_sweep_job(n, seeds):
+    """[child] [35]'s shaped fault sweep on the CPU: (each scenario's
+    leaves, (iterations, wall, captures))."""
+    from testground_tpu_torch.sim.state_io import flatten, state_to_numpy
+
+    ex = shaped_fault_sweep(n, "cpu", seeds)
+    res = ex.run()
+    return ([flatten(state_to_numpy(res.scenario(s).state))
+             for s in range(seeds)],
+            (res.ticks, res.wall_seconds, ex.captures))
+
+
+def cpu_runner_job(key, cpu_dir):
+    """[child] a runner parity phase's composition run on the CPU into
+    ``cpu_dir``; its seconds."""
+    from testground_tpu_torch.sim import runner
+
+    runner.clear_executor_pool()
+    t0 = time.monotonic()
+    runner.run_composition(runner_parity_input(key, cpu_dir, "cpu"),
+                           device="cpu")
+    return time.monotonic() - t0
+
+
+def start_cpu_sides(cpu_dir):
+    """The child, with every CPU side submitted in the order the phases
+    read them; returns the executor."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_child_init, initargs=(ROOT, cpu_threads()))
+    for key, n in CPU_PARITY:
+        CPU_SIDES[key] = pool.submit(cpu_state_job, key, n, cpu_dir)
+    CPU_SIDES["drain300"] = pool.submit(
+        cpu_drain_job, 300, os.path.join(cpu_dir, "drain_cpu"))
+    CPU_SIDES["election5_parity"] = pool.submit(
+        cpu_state_job, "election5_parity", 5, cpu_dir)
+    CPU_SIDES["sweep300"] = pool.submit(cpu_sweep_job, 300, 4)
+    for key in CPU_RUNNER_KEYS:
+        CPU_SIDES[key] = pool.submit(cpu_runner_job, key, cpu_dir)
+    return pool
+
+
+# seconds the phases waited for the child, by key
+CPU_WAITS: dict = {}
+
+
+def cpu_side(key):
+    """The child's result for ``key`` (raises what the child raised)."""
+    t0 = time.monotonic()
+    out = CPU_SIDES[key].result()
+    CPU_WAITS[key] = time.monotonic() - t0
+    return out
 
 
 # ------------------------------------------------ the rest of the plan
@@ -1960,8 +2214,9 @@ def election_phase(torch, dev, report, n):
 
 
 def drain_parity_phase(torch, np, dev, report, n=300):
-    """[32] a drained sparsetimer at ``n`` on the card and on the CPU:
-    every state leaf bit-equal and the three streamed files byte-equal."""
+    """[32] a drained sparsetimer at ``n`` on the card, and on the CPU in
+    the child: every state leaf bit-equal and the three streamed files
+    byte-equal."""
     import tempfile
     from pathlib import Path
 
@@ -1973,17 +2228,17 @@ def drain_parity_phase(torch, np, dev, report, n=300):
 
     with tempfile.TemporaryDirectory(prefix="chip-smoke-drain-") as tmp:
         states, stats = {}, {}
-        for d in (dev, "cpu"):
-            res, dr = bench.drained_run(
-                bench.drain_executable(n, d, rounds=10), Path(tmp) / str(d))
-            states[str(d)] = flatten(state_to_numpy(res.state))
-            stats[str(d)] = dr.stats()
+        res, dr = bench.drained_run(
+            bench.drain_executable(n, dev, rounds=10), Path(tmp) / str(dev))
+        states[str(dev)] = flatten(state_to_numpy(res.state))
+        stats[str(dev)] = dr.stats()
+        states["cpu"], stats["cpu"] = cpu_side("drain300")
         leaves = compare_leaves(states[str(dev)], states["cpu"],
                                 "drained sparsetimer: GPU vs CPU")
         sizes = {}
         for f in (EVENTS_FILE, RESULTS_FILE, "trace.json"):
             a = (Path(tmp) / str(dev) / f).read_bytes()
-            assert a == (Path(tmp) / "cpu" / f).read_bytes(), f
+            assert a == (Path(CPU_DIR) / "drain_cpu" / f).read_bytes(), f
             sizes[f] = len(a)
     assert stats[str(dev)] == stats["cpu"], stats
     report["drain300_parity"] = {"leaves": leaves, "files": sizes,
@@ -2095,19 +2350,21 @@ def shaped_fault_sweep(n, device, seeds=4):
 
 
 def sweep_parity_phase(np, dev, report, n=300, seeds=4):
-    """[35] the shaped fault sweep at ``n`` x ``seeds`` on the card and on
-    the CPU: every scenario's every state leaf bit-equal."""
+    """[35] the shaped fault sweep at ``n`` x ``seeds`` on the card, and
+    on the CPU in the child: every scenario's every state leaf
+    bit-equal."""
     from testground_tpu_torch.sim.state_io import (
         compare_leaves, flatten, state_to_numpy,
     )
 
     states, walls = {}, {}
-    for d in (dev, "cpu"):
-        ex = shaped_fault_sweep(n, d, seeds)
-        res = ex.run()
-        states[str(d)] = [flatten(state_to_numpy(res.scenario(s).state))
-                          for s in range(seeds)]
-        walls[str(d)] = (res.ticks, res.wall_seconds, ex.captures)
+    ex = shaped_fault_sweep(n, dev, seeds)
+    res = ex.run()
+    states[str(dev)] = [flatten(state_to_numpy(res.scenario(s).state))
+                        for s in range(seeds)]
+    walls[str(dev)] = (res.ticks, res.wall_seconds, ex.captures)
+    assert (n, seeds) == (300, 4), "the child runs the CPU side at 300 x 4"
+    states["cpu"], walls["cpu"] = cpu_side("sweep300")
     leaves = [compare_leaves(states[str(dev)][s], states["cpu"][s],
                              f"sweep scenario {s}: GPU vs CPU")
               for s in range(seeds)]
@@ -2277,6 +2534,7 @@ def runner_dht_phase(torch, dev, report, tmp, dht):
     row = {"outcome": s["outcome"], "ticks": s["ticks"],
            "launches": launches, "wall_seconds": s["wall_seconds"],
            "direct_wall_seconds": dht["wall_seconds"],
+           "compile_seconds": s["compile_seconds"],
            "ok": s["outcomes"]["single"]["ok"],
            "crashed_count": s.get("crashed_count", 0),
            "host_spans": s["host_spans"],
@@ -2454,68 +2712,96 @@ def memory_model_phase(torch, dev, report, tmp):
     return report["memory_model"]
 
 
-def runner_parity_phase(torch, dev, report, tmp, n=300):
-    """[40] the card against the CPU through the runner at n = 300:
-    storm with ``__graft_entry__``'s compressed params, and faultsdemo's
-    composition traced and sampled (its [faults], [trace], [telemetry]);
-    every deterministic summary key, run.out, every output file and the
-    progress rows equal."""
+def runner_parity_input(key, tmp, side):
+    """The RunInput of a runner parity phase's composition ``key`` (at
+    n = 300, the cliff search at 64), its run directory
+    ``<tmp>/<key>_<side>``."""
     import tomllib
 
     from testground_tpu_torch import graft
-    from testground_tpu_torch.runner.outputs import assert_runs_equal
-    from testground_tpu_torch.sim import runner
-    from testground_tpu_torch.sim.tables import Faults, Telemetry, Trace
+    from testground_tpu_torch.sim.tables import (
+        Faults, Search, Sweep, Telemetry, Trace,
+    )
 
-    with open(os.path.join(ROOT, "plans", "faultsdemo", "composition.toml"),
-              "rb") as f:
-        comp = tomllib.load(f)
-    params = dict(comp["global"]["run"]["test_params"], min_pings="0")
-
-    def storm(d, side):
-        return runner_input("benchmarks", "storm", n, graft.STORM_PARAMS,
-                            os.path.join(tmp, f"par_storm_{side}"),
-                            "par", STORM_RUN_CONFIG)
-
-    def demo(d, side):
+    run_dir = os.path.join(tmp, f"{key}_{side}")
+    if key == "storm300":
+        return runner_input("benchmarks", "storm", 300, graft.STORM_PARAMS,
+                            run_dir, "par", STORM_RUN_CONFIG)
+    if key == "faultsdemo300":
+        with open(os.path.join(ROOT, "plans", "faultsdemo",
+                               "composition.toml"), "rb") as f:
+            comp = tomllib.load(f)
+        params = dict(comp["global"]["run"]["test_params"], min_pings="0")
         return runner_input(
-            "faultsdemo", "chaos", n, params,
-            os.path.join(tmp, f"par_demo_{side}"), "par",
+            "faultsdemo", "chaos", 300, params, run_dir, "par",
             {"max_ticks": 2_000}, groups=("left", "right"),
             faults=Faults.from_dict(comp["faults"]),
             trace=Trace.from_dict(comp["trace"]),
             telemetry=Telemetry.from_dict(comp["telemetry"]))
+    if key == "storm300_sweep":
+        params = dict(graft.STORM_PARAMS, conn_delay_ms=600, data_size_kb=8)
+        return runner_input("benchmarks", "storm", 300, params, run_dir,
+                            "bpar", STORM_RUN_CONFIG,
+                            sweep=Sweep(seeds=4, chunk=2))
+    if key == "cliff64_search":
+        return runner_input("benchmarks", "cliff", 64, {"x_fail": CLIFF_AT},
+                            run_dir, "bpar",
+                            {"quantum_ms": 10.0, "max_ticks": 10_000,
+                             "metrics_capacity": 8},
+                            search=Search(param="x", lo=0.0, hi=1.0,
+                                          step=1.0 / 16, width=4))
+    raise ValueError(key)
+
+
+def runner_parity_pair(dev, tmp, keys):
+    """Each composition of ``keys`` through the runner on the card, its
+    CPU run from the child: every deterministic summary key, run.out,
+    output file and progress row equal; {key: row}."""
+    from testground_tpu_torch.runner.outputs import assert_runs_equal
+    from testground_tpu_torch.sim import runner
 
     out = {}
     hb = os.environ.get("TG_DISPATCH_HEARTBEAT_S")
     # heartbeat rows count wall time: none in a parity pair
     os.environ["TG_DISPATCH_HEARTBEAT_S"] = "86400"
     try:
-        for key, make in (("storm300", storm), ("faultsdemo300", demo)):
-            walls = {}
-            for d, side in ((dev, "gpu"), ("cpu", "cpu")):
-                runner.clear_executor_pool()
-                ri = make(d, side)
-                t0 = time.monotonic()
-                runner.run_composition(ri, device=d)
-                walls[side] = time.monotonic() - t0
-            s = assert_runs_equal(make(dev, "gpu").run_dir,
-                                  make("cpu", "cpu").run_dir)
+        for key in keys:
+            runner.clear_executor_pool()
+            ri = runner_parity_input(key, tmp, "gpu")
+            t0 = time.monotonic()
+            runner.run_composition(ri, device=dev)
+            gpu_s = time.monotonic() - t0
+            cpu_s = cpu_side(key)
+            gdir = ri.run_dir
+            cdir = runner_parity_input(key, CPU_DIR, "cpu").run_dir
+            s = assert_runs_equal(gdir, cdir)
+            if key == "storm300_sweep":
+                assert scenario_rows(gdir) == scenario_rows(cdir)
             out[key] = {"outcome": s["outcome"], "ticks": s["ticks"],
-                        "gpu_seconds": walls["gpu"],
-                        "cpu_seconds": walls["cpu"]}
+                        "gpu_seconds": gpu_s, "cpu_seconds": cpu_s}
             log(f"  {key}: GPU vs CPU through the runner equal (summary, "
-                f"run.out, outputs, progress rows): {s['outcome']}, "
-                f"{s['ticks']} ticks; GPU {walls['gpu']:.2f} s, CPU "
-                f"{walls['cpu']:.2f} s")
+                f"run.out, outputs, scenario and probe files, progress "
+                f"rows): {s['outcome']}, {s['ticks']} ticks; GPU "
+                f"{gpu_s:.2f} s, CPU {cpu_s:.2f} s")
             assert s["outcome"] == "success"
     finally:
         if hb is None:
             os.environ.pop("TG_DISPATCH_HEARTBEAT_S", None)
         else:
             os.environ["TG_DISPATCH_HEARTBEAT_S"] = hb
-    report["runner_parity"] = out
+        runner.clear_executor_pool()
     return out
+
+
+def runner_parity_phase(torch, dev, report, tmp):
+    """[40] the card against the CPU through the runner at n = 300:
+    storm with ``__graft_entry__``'s compressed params, and faultsdemo's
+    composition traced and sampled (its [faults], [trace], [telemetry]);
+    every deterministic summary key, run.out, every output file and the
+    progress rows equal."""
+    report["runner_parity"] = runner_parity_pair(
+        dev, tmp, ("storm300", "faultsdemo300"))
+    return report["runner_parity"]
 
 
 def cli_phase(report, tmp):
@@ -2988,65 +3274,429 @@ def leases_phase(torch, dev, report, tmp):
     return row
 
 
-def batched_parity_phase(torch, dev, report, tmp, n=300):
+def batched_parity_phase(torch, dev, report, tmp):
     """[47] the card against the CPU through the batched runner paths:
     storm (compressed params, the dial window and data cut further, to
-    600 ms and 8 KiB, as the CPU tests cut them) at ``n`` over 4 seeds
+    600 ms and 8 KiB, as the CPU tests cut them) at 300 over 4 seeds
     in chunks of 2, and a cliff bisect at 64 over a 17-value grid; every
     deterministic key, run.out, scenario or probe file and progress row
     equal."""
-    from testground_tpu_torch import graft
+    report["batched_parity"] = runner_parity_pair(
+        dev, tmp, ("storm300_sweep", "cliff64_search"))
+    return report["batched_parity"]
+
+
+# ------------------------------------------------- the daemon ([48]-[50])
+
+DAEMON_TOKEN = "chip-smoke-token"
+# [49]'s storm@10k runs watched, terminated and preempted: 512-tick
+# chunks, a progress row and a checkpoint at every boundary
+WATCH_TABLES = {"live": {"enabled": True, "interval": 0.0},
+                "checkpoint": {"enabled": True, "interval": 0.0}}
+# R14f's figures (PR 14's last chip run, NVIDIA H100 80GB HBM3, 700 W),
+# printed beside this run's so that a perturbation by the CPU child shows
+R14F = {"storm10k_ms_per_executed_tick": 3.4050105413113765,
+        "runner_storm10k_dispatch_seconds": 11.482488762999992,
+        "runner_sweep10k_scenarios_per_sec": 0.859}
+
+
+def composition_of(plan, case, n, params, run_config, groups=("single",),
+                   **tables) -> dict:
+    """A composition in the form ``POST /run`` carries: ``n`` instances
+    of ``plan``'s ``case`` split evenly over ``groups``, the sim:module
+    builder, and ``tables``."""
+    return {
+        "metadata": {},
+        "global": {"plan": plan, "case": case, "runner": "sim:jax",
+                   "builder": "sim:module", "total_instances": n,
+                   "run_config": dict(run_config)},
+        "groups": [{"id": g, "instances": {"count": n // len(groups)},
+                    "run": {"test_params": {k: str(v)
+                                            for k, v in params.items()}}}
+                   for g in groups],
+        **tables,
+    }
+
+
+class DaemonProc:
+    """``python -m testground_tpu_torch daemon --listen 127.0.0.1:0``
+    as users start it: a home of its own whose ``.env.toml`` requires a
+    bearer token, its output to a log file in that home."""
+
+    def __init__(self, home, device="cuda", threads=None):
+        self.home, self.device, self.threads = home, device, threads
+        os.makedirs(home, exist_ok=True)
+        with open(os.path.join(home, ".env.toml"), "w") as f:
+            f.write(f'[daemon]\ntokens = ["{DAEMON_TOKEN}"]\n'
+                    f'[client]\ntoken = "{DAEMON_TOKEN}"\n')
+        self.starts = 0
+        self.start()
+
+    def start(self):
+        env = dict(os.environ, TESTGROUND_HOME=self.home,
+                   TG_DISPATCH_HEARTBEAT_S="86400")
+        if self.threads:
+            env["OMP_NUM_THREADS"] = str(self.threads)
+        self.starts += 1
+        self.log_path = os.path.join(self.home, f"daemon{self.starts}.log")
+        self.log = open(self.log_path, "w")
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "testground_tpu_torch", "daemon",
+             "--listen", "127.0.0.1:0", "--device", self.device],
+            stdout=self.log, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
+        self.endpoint = None
+
+    def ready(self, timeout=120.0):
+        """The daemon's client once it listens; the seconds it took."""
+        from testground_tpu_torch.client import Client
+
+        deadline = time.monotonic() + timeout
+        while self.endpoint is None:
+            with open(self.log_path) as f:
+                for line in f:
+                    if line.startswith("daemon listening on "):
+                        self.endpoint = line.split()[-1]
+            if self.endpoint is None:
+                if self.proc.poll() is not None:
+                    raise RuntimeError(
+                        f"the daemon exited {self.proc.returncode}: "
+                        + open(self.log_path).read()[-3000:])
+                assert time.monotonic() < deadline, "the daemon never listened"
+                time.sleep(0.05)
+        self.ready_seconds = time.monotonic() - self.t0
+        return Client(self.endpoint, token=DAEMON_TOKEN, timeout=600.0)
+
+    def stop(self, timeout=120.0) -> int:
+        """SIGTERM, as a scheduler stops a job; its exit code."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.log.close()
+        return self.proc.returncode
+
+    def run_dir(self, plan, tid):
+        return os.path.join(self.home, "data", "outputs", plan, tid)
+
+
+def wait_task(client, tid, states=("complete", "canceled"), timeout=600.0):
+    """Task ``tid``'s status once its state is one of ``states``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        st = client.status(tid)
+        if st["state"] in states:
+            return st
+        assert time.monotonic() < deadline, (tid, st["state"])
+        time.sleep(0.05)
+
+
+def task_timing(st) -> dict:
+    """A finished task's queue wait, dispatch, compile and
+    submit-to-complete seconds (the daemon's own state stamps)."""
+    by = {}
+    for rec in st["states"]:
+        by.setdefault(rec["state"], rec["created"])
+    j = (st.get("result") or {}).get("journal") or {}
+    return {"queue_wait_seconds": by["processing"] - st["created"],
+            "dispatch_seconds": j.get("wall_seconds"),
+            "compile_seconds": j.get("compile_seconds"),
+            "submit_to_complete_seconds":
+                st["states"][-1]["created"] - st["created"]}
+
+
+def collected(client, tid, dest):
+    """Task ``tid``'s outputs tarball (GET /outputs) unpacked into
+    ``dest``; its run directory there."""
+    import io
+    import tarfile
+
+    buf = io.BytesIO()
+    client.collect_outputs(tid, buf)
+    buf.seek(0)
+    with tarfile.open(fileobj=buf, mode="r:gz") as tf:
+        tf.extractall(dest, filter="data")
+    return os.path.join(dest, tid)
+
+
+def assert_like_ref(st, got_dir, orig_dir, ref_dir, skip=()):
+    """A daemon run's collected files against an in-process run's:
+    results.out byte for byte, run.out but its wall, and every
+    deterministic summary key (but ``skip``); the summaries' paths are
+    each run's own directory, written ``<run_dir>``."""
+    from testground_tpu_torch.runner.outputs import (
+        deterministic, output_files, run_out_lines, summary)
+
+    a = _without(deterministic(summary(got_dir), orig_dir), skip)
+    b = _without(deterministic(summary(ref_dir), ref_dir), skip)
+    for d in (a, b):
+        d.get("hbm_preflight", {}).pop("executor_cache", None)
+    assert a == b, {k: (a.get(k), b.get(k)) for k in set(a) | set(b)
+                    if a.get(k) != b.get(k)}
+    assert run_out_lines(got_dir) == run_out_lines(ref_dir)
+    files = output_files(ref_dir)
+    assert files and output_files(got_dir) == files, sorted(files)
+    return a
+
+
+def daemon_phase(report, tmp, card, refs, comps):
+    """[48] the card daemon's client submits ``comps`` (storm@10k as
+    [36] ran it, dht@10k with the fused front as [37]) at once: two
+    scheduler workers run them under device leases; each outputs
+    tarball's results.out, run.out and deterministic summary keys equal
+    the in-process run's (``refs``); queue wait, dispatch and
+    submit-to-complete against [36]'s and [37]'s walls."""
+    from testground_tpu_torch.runner.outputs import summary
+
+    c = card.ready()
+    log(f"  card daemon listening on {card.endpoint} after "
+        f"{card.ready_seconds:.1f} s")
+    tids = {k: c.run(comp, plan_dir=os.path.join(
+        ROOT, "plans", comp["global"]["plan"])) for k, comp in comps.items()}
+    rows = {}
+    for k, tid in tids.items():
+        st = wait_task(c, tid)
+        # dht's churned instances crash: its outcome is [37]'s failure
+        want = summary(refs[k][0])["outcome"]
+        assert st["state"] == "complete" and st["outcome"] == want, (
+            k, st["state"], st["outcome"], want, st.get("error"))
+        plan = comps[k]["global"]["plan"]
+        got = collected(c, tid, os.path.join(tmp, "d48", k))
+        # the live plane's snapshots count wall time (the dispatch
+        # heartbeat's rows): the daemon's are not [36]'s
+        assert_like_ref(st, got, card.run_dir(plan, tid), refs[k][0],
+                        skip=("live",))
+        j = st["result"]["journal"]
+        rows[k] = {"task": tid, **task_timing(st), "lease": j.get("lease"),
+                   "in_process_dispatch_seconds": refs[k][1],
+                   "in_process_compile_seconds": refs[k][2]}
+        log(f"  {k}: {st['outcome']}, results.out, run.out and summary "
+            f"equal to the in-process run's; queue wait "
+            f"{rows[k]['queue_wait_seconds']:.3f} s, build+capture "
+            f"{rows[k]['compile_seconds']:.3f} s, dispatch "
+            f"{rows[k]['dispatch_seconds']:.3f} s (in process: "
+            f"{refs[k][1]:.3f} s), submit to complete "
+            f"{rows[k]['submit_to_complete_seconds']:.3f} s; lease "
+            f"{(j.get('lease') or {}).get('concurrent_runs')} concurrent")
+        assert j.get("lease"), "no lease journaled"
+    report["daemon_runs"] = rows
+    return c
+
+
+def serving_phase(report, tmp, card, c, ref_storm, storm10k):
+    """[49] the serving surface: storm cut at 300 ticks submitted twice
+    (the second a pool hit: memory_hit, compiles 0, no capture; /cache
+    lists the pooled executor); /metrics' lease and pool counters; two
+    storm@10k runs in 512-tick chunks, /progress serving snapshots while
+    they run, a third task queued behind them and killed, one run
+    terminated at a chunk boundary by kill, POST /terminate answering 0
+    with the other still running (the sim runner's ``terminate_all``
+    stops nothing, in JAX as in the port), that one preempted by SIGTERM
+    to the daemon; the daemon restarted on the same home resumes it
+    (POST /resume) to [36]'s results.out."""
+    import urllib.request
+
+    row = {}
+    short = dict(storm10k, **{"global": dict(
+        storm10k["global"], run_config=dict(STORM_RUN_CONFIG,
+                                            **LEASE_RUN_CONFIG))})
+    plan_dir = os.path.join(ROOT, "plans", "benchmarks")
+    sts = []
+    for _ in range(2):
+        sts.append(wait_task(c, c.run(short, plan_dir=plan_dir)))
+    j1, j2 = (st["result"]["journal"] for st in sts)
+    assert j2["hbm_preflight"]["executor_cache"] == "memory_hit", j2
+    assert j2["compiles"] == 0 and j2["compile_breakdown"] is None
+    assert j2["ticks"] == j1["ticks"] == LEASE_RUN_CONFIG["max_ticks"]
+    info = c.cache()
+    assert info["enabled"] is False and info["memory"]["keys"] >= 1
+    assert info["memory"]["memory_hits"] >= 1, info["memory"]
+    row["pool"] = {"first": task_timing(sts[0]), "hit": task_timing(sts[1]),
+                   "cache": info["memory"]}
+    log(f"  storm@10k cut at 300 ticks twice: the second a memory_hit "
+        f"with compiles 0 (build+capture {j1['compile_seconds']:.3f} s, "
+        f"then {j2['compile_seconds']:.3f} s); /cache: "
+        f"{info['memory']['keys']} pooled key(s), "
+        f"{info['memory']['memory_hits']} hit(s)")
+    req = urllib.request.Request(card.endpoint + "/metrics", headers={
+        "Authorization": f"Bearer {DAEMON_TOKEN}"})
+    with urllib.request.urlopen(req, timeout=30) as r:
+        text = r.read().decode()
+    for want in ("tg_lease_bytes_admitted_total ",
+                 'tg_excache_ops_total{op="hit",tier="memory"}',
+                 "tg_run_chunk_seconds_count ",
+                 'tg_task_transitions_total{state="complete"}'):
+        assert want in text, want
+    row["metrics_lines"] = len(text.splitlines())
+
+    watched = dict(storm10k, **{"global": dict(
+        storm10k["global"], run_config=dict(
+            STORM_RUN_CONFIG, chunk_ticks=RESUME_CHUNK))}, **WATCH_TABLES)
+    a = c.run(watched, plan_dir=plan_dir)
+    b = c.run(watched, plan_dir=plan_dir)
+    snaps = {}
+    for tid in (a, b):
+        wait_task(c, tid, states=("processing",))
+        deadline = time.monotonic() + 120
+        while True:
+            got = []
+            c.progress(tid, on_snapshot=got.append)
+            if got:
+                break
+            assert time.monotonic() < deadline, "no snapshot while running"
+            time.sleep(0.05)
+        assert c.status(tid)["state"] == "processing"
+        snaps[tid] = len(got)
+    q = c.run(short, plan_dir=plan_dir)
+    assert c.status(q)["state"] == "scheduled"
+    assert c.kill(q) == {"killed": q}
+    assert wait_task(c, q)["state"] == "canceled"
+    assert c.kill(b) == {"killed": b}
+    sb = wait_task(c, b)
+    jb = sb["result"]["journal"]
+    assert sb["state"] == "canceled" and sb["result"]["outcome"] == \
+        "terminated", (sb["state"], sb["result"]["outcome"])
+    assert jb["ticks"] % RESUME_CHUNK == 0 and jb["terminated"]
+    assert c.terminate("sim:jax") == 0
+    assert c.status(a)["state"] == "processing", "the run ended too soon"
+    t0 = time.monotonic()
+    rc = card.stop()
+    stop_s = time.monotonic() - t0
+    assert rc == 0, (rc, open(card.log_path).read()[-3000:])
+    card.start()
+    c = card.ready()
+    sa = c.status(a)
+    assert sa["state"] == "complete" and sa["outcome"] == "preempted", (
+        sa["state"], sa["outcome"])
+    assert sa["input"]["resume"] is True
+    ja = sa["result"]["journal"]
+    assert ja["ticks"] % RESUME_CHUNK == 0 and ja["checkpoint"][
+        "snapshots"] >= 1
+    assert c.resume(a) == {"resumed": a}
+    sr = wait_task(c, a)
+    assert sr["outcome"] == "success", (sr["outcome"], sr.get("error"))
+    jr = sr["result"]["journal"]
+    assert jr["resumed_from_tick"] == ja["ticks"]
+    got = collected(c, a, os.path.join(tmp, "d49"))
+    assert_like_ref(sr, got, card.run_dir("benchmarks", a), ref_storm,
+                    skip=RESUME_KEYS)
+    row.update({"snapshots_while_running": snaps,
+                "terminated_at_tick": jb["ticks"],
+                "preempted_at_tick": ja["ticks"],
+                "sigterm_to_exit_seconds": stop_s,
+                "restart_ready_seconds": card.ready_seconds,
+                "resumed": task_timing(sr)})
+    log(f"  /progress served {snaps[a]} and {snaps[b]} snapshot(s) while "
+        f"running; a queued task killed; one run terminated at tick "
+        f"{jb['ticks']}; SIGTERM preempted the other at tick {ja['ticks']}"
+        f" (exit 0 in {stop_s:.1f} s); the restarted daemon (ready in "
+        f"{card.ready_seconds:.1f} s) resumed it: results.out, run.out and "
+        "summary equal to [36]'s")
+    report["daemon_serving"] = row
+    return c
+
+
+def planes_composition(n=300, sweep=None) -> dict:
+    """[28]'s storm under all three planes as a composition (bench.py's
+    fault timeline compressed with the dial window, 64-slot rings,
+    samples every 10 ticks, 2,000 ticks), checkpointed at every chunk
+    boundary, optionally swept."""
+    from testground_tpu_torch import bench, graft
+
+    scale = graft.STORM_PARAMS["conn_delay_ms"] / bench.PARAMS["conn_delay_ms"]
+    # a checkpoint at every chunk boundary: the default 60 s interval
+    # would count wall time (the CPU run's snapshots, not the card's)
+    tables = {"faults": bench.fault_timeline(scale),
+              "trace": {"capacity": bench.TRACE_CAPACITY},
+              "telemetry": {"interval": 10},
+              "checkpoint": {"enabled": True, "interval": 0.0}}
+    if sweep:
+        tables["sweep"] = {"seeds": sweep}
+    return composition_of(
+        "benchmarks", "storm", n, dict(graft.STORM_PARAMS,
+                                       **bench.FAULT_PARAMS),
+        {"quantum_ms": 10.0, "max_ticks": 2_000, "chunk_ticks": 32,
+         "phase_gating": True}, **tables)
+
+
+def plane_comps() -> dict:
+    """[50]'s two compositions, by key."""
+    return {"storm300_planes": planes_composition(),
+            "storm300_planes_sweep": planes_composition(sweep=2)}
+
+
+def daemon_parity_phase(report, card, c, cpu, cpu_tids):
+    """[50] storm @ 300 under its planes, and a 2-seed [sweep] of it,
+    through the card daemon and the ``--device cpu`` daemon (submitted
+    at [48]): every deterministic key, run.out, output file, scenario row
+    and progress row equal."""
     from testground_tpu_torch.runner.outputs import assert_runs_equal
-    from testground_tpu_torch.sim import runner
-    from testground_tpu_torch.sim.tables import Search, Sweep
 
-    params = dict(graft.STORM_PARAMS, conn_delay_ms=600, data_size_kb=8)
+    cc = cpu.ready()
+    plan_dir = os.path.join(ROOT, "plans", "benchmarks")
+    rows = {}
+    for k, comp in plane_comps().items():
+        st = wait_task(c, c.run(comp, plan_dir=plan_dir))
+        sc = wait_task(cc, cpu_tids[k])
+        assert st["outcome"] == sc["outcome"] == "success", (
+            k, st["outcome"], sc["outcome"], sc.get("error"))
+        gdir = card.run_dir("benchmarks", st["id"])
+        cdir = cpu.run_dir("benchmarks", sc["id"])
+        s = assert_runs_equal(gdir, cdir)
+        if "sweep" in k:
+            assert scenario_rows(gdir) == scenario_rows(cdir)
+        rows[k] = {"ticks": s["ticks"], "gpu": task_timing(st),
+                   "cpu": task_timing(sc)}
+        log(f"  {k}: card daemon == CPU daemon (summary, run.out, outputs,"
+            f" scenario and progress rows), {s['ticks']} ticks; submit to "
+            f"complete {rows[k]['gpu']['submit_to_complete_seconds']:.2f} s"
+            f" on the card, {rows[k]['cpu']['submit_to_complete_seconds']:.2f}"
+            " s on the CPU")
+    report["daemon_parity"] = rows
 
-    def storm(side):
-        return runner_input("benchmarks", "storm", n, params,
-                            os.path.join(tmp, f"bpar_storm_{side}"), "bpar",
-                            STORM_RUN_CONFIG, sweep=Sweep(seeds=4, chunk=2))
 
-    def cliff(side):
-        return runner_input("benchmarks", "cliff", 64, {"x_fail": CLIFF_AT},
-                            os.path.join(tmp, f"bpar_cliff_{side}"), "bpar",
-                            {"quantum_ms": 10.0, "max_ticks": 10_000,
-                             "metrics_capacity": 8},
-                            search=Search(param="x", lo=0.0, hi=1.0,
-                                          step=1.0 / 16, width=4))
+def daemon_phases(report, tmp, refs):
+    """[48]-[50] against the card daemon and a CPU daemon started
+    together (the CPU daemon's runs for [50] submitted first, so that
+    they overlap [48]-[49])."""
+    from testground_tpu_torch import bench
 
-    out = {}
-    hb = os.environ.get("TG_DISPATCH_HEARTBEAT_S")
-    os.environ["TG_DISPATCH_HEARTBEAT_S"] = "86400"
+    t0 = time.monotonic()
+    storm10k = composition_of("benchmarks", "storm", 10_000, bench.PARAMS,
+                              STORM_RUN_CONFIG)
+    dht10k = composition_of("dht", "find-providers", 10_000, DHT_PARAMS,
+                            DHT_RUN_CONFIG)
+    card = DaemonProc(os.path.join(tmp, "card-home"))
+    cpu = DaemonProc(os.path.join(tmp, "cpu-home"), device="cpu",
+                     threads=cpu_threads())
     try:
-        for key, make in (("storm300_sweep", storm), ("cliff64_search",
-                                                       cliff)):
-            walls = {}
-            for d, side in ((dev, "gpu"), ("cpu", "cpu")):
-                runner.clear_executor_pool()
-                t0 = time.monotonic()
-                runner.run_composition(make(side), device=d)
-                walls[side] = time.monotonic() - t0
-            gdir, cdir = make("gpu").run_dir, make("cpu").run_dir
-            s = assert_runs_equal(gdir, cdir)
-            if key == "storm300_sweep":
-                assert scenario_rows(gdir) == scenario_rows(cdir)
-            out[key] = {"outcome": s["outcome"], "ticks": s["ticks"],
-                        "gpu_seconds": walls["gpu"],
-                        "cpu_seconds": walls["cpu"]}
-            log(f"  {key}: GPU vs CPU through the runner equal (summary, "
-                f"run.out, scenario and probe files, progress rows): "
-                f"{s['outcome']}, {s['ticks']} ticks; GPU "
-                f"{walls['gpu']:.2f} s, CPU {walls['cpu']:.2f} s")
-            assert s["outcome"] == "success"
+        cc = cpu.ready()
+        plan_dir = os.path.join(ROOT, "plans", "benchmarks")
+        cpu_tids = {k: cc.run(comp, plan_dir=plan_dir)
+                    for k, comp in plane_comps().items()}
+        log("[48] the daemon: storm @ 10,000 and dht @ 10,000 (fused front) "
+            "submitted at once through its client")
+        c = daemon_phase(report, tmp, card, refs,
+                         {"storm10k": storm10k, "dht10k": dht10k})
+        log("[49] the serving surface: a pool hit, /cache, /metrics, "
+            "/progress, kill, terminate, SIGTERM and resume")
+        c = serving_phase(report, tmp, card, c, refs["storm10k"][0],
+                          storm10k)
+        log("[50] storm @ 300 under its planes and a 2-seed [sweep] of it: "
+            "card daemon vs CPU daemon")
+        daemon_parity_phase(report, card, c, cpu, cpu_tids)
     finally:
-        if hb is None:
-            os.environ.pop("TG_DISPATCH_HEARTBEAT_S", None)
-        else:
-            os.environ["TG_DISPATCH_HEARTBEAT_S"] = hb
-        runner.clear_executor_pool()
-    report["batched_parity"] = out
-    return out
+        rcs = {"card": card.stop(), "cpu": cpu.stop()}
+    assert rcs == {"card": 0, "cpu": 0}, rcs
+    report["daemon_phases_seconds"] = time.monotonic() - t0
+    log(f"  [48]-[50]: {report['daemon_phases_seconds']:.1f} s; both "
+        "daemons stopped by SIGTERM, exit 0")
+
 
 
 def main() -> int:
@@ -3068,6 +3718,28 @@ def main() -> int:
         print(f"chip_smoke: the port found at {pkg_dir} is not the one "
               "beside this script", file=sys.stderr)
         return 1
+    import tempfile
+
+    global CPU_DIR
+    cpu_tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-cpu-")
+    CPU_DIR = cpu_tmp.name
+    pool = start_cpu_sides(CPU_DIR)
+    ok = False
+    try:
+        rc = phases(torch)
+        ok = True
+        return rc
+    finally:
+        if not ok:
+            # a failed phase: the child's running side is not waited for
+            for p in list(getattr(pool, "_processes", {}).values()):
+                p.terminate()
+        pool.shutdown(wait=ok, cancel_futures=True)
+        cpu_tmp.cleanup()
+
+
+def phases(torch) -> int:
+    """Every phase, in order; the CPU sides come from the child."""
     import numpy as np
 
     from concurrent.futures import ThreadPoolExecutor
@@ -3098,6 +3770,13 @@ def main() -> int:
                 if "registers" in line or "Compiling" in line:
                     log(f"    {line.strip()}")
 
+    log("[2] the kernels' custom ops dispatched once (torch's one-time "
+        "imports)")
+    t0 = time.monotonic()
+    first_dispatch(torch)
+    report["first_dispatch_seconds"] = time.monotonic() - t0
+    log(f"  first dispatch: {report['first_dispatch_seconds']:.2f} s")
+
     log("[3] deliver-front kernel vs plain on the card")
     rows, max_err = kernel_phase(torch, np, dev, report)
     log("[3a] deliver-front kernel phases (-DFRONT_TRACE build)")
@@ -3112,7 +3791,7 @@ def main() -> int:
     profile_phase(torch, report, "dht10k_profile", dht_exec(10_000, dev),
                   dht["ms_per_tick"])
     log("[5] dht @ 300 through the fused front: GPU vs CPU")
-    parity_phase(np, dev, report, "dht300_parity", dht_exec)
+    parity_phase(np, dev, report, "dht300_parity")
     log("[6] gossipsub mesh-propagation @ 4,096, default lowering")
     gossip = gossipsub_phase(torch, dev, report, "gossipsub4096", 4096)
     log("[6b] gossipsub@4,096 tick under torch.profiler")
@@ -3139,9 +3818,8 @@ def main() -> int:
                   dht_exec(10_000, dev, pallas_front=None),
                   dht_default["ms_per_tick"])
     log("[8] gossipsub @ 300 and dht @ 300, default lowering: GPU vs CPU")
-    parity_phase(np, dev, report, "gossipsub300_parity", gossipsub_exec)
-    parity_phase(np, dev, report, "dht300_default_parity",
-                 lambda n, d: dht_exec(n, d, pallas_front=None))
+    parity_phase(np, dev, report, "gossipsub300_parity")
+    parity_phase(np, dev, report, "dht300_default_parity")
     log(f"[9] gossipsub mesh-propagation @ {GOSSIP_BIG_N:,d}, default "
         "lowering (bounded append)")
     gossip_big = gossipsub_phase(torch, dev, report, "gossipsub_big",
@@ -3167,9 +3845,8 @@ def main() -> int:
                   storm_shaped["ms_per_executed_tick"])
     log("[13] storm @ 300, compressed params, unshaped and shaped with "
         "churn: GPU vs CPU")
-    parity_phase(np, dev, report, "storm300_parity", graft_storm_exec)
-    parity_phase(np, dev, report, "storm300_shaped_parity",
-                 lambda n, d: graft_storm_exec(n, d, shaped=True))
+    parity_phase(np, dev, report, "storm300_parity")
+    parity_phase(np, dev, report, "storm300_shaped_parity")
 
     from testground_tpu_torch import bench as tbench
 
@@ -3195,15 +3872,9 @@ def main() -> int:
     small_cases_phase(torch, dev, report)
     log("[18] barrier, subtree and sparsetimer (dense and skipped) @ 300: "
         "GPU vs CPU")
-    parity_phase(np, dev, report, "barrier300_parity",
-                 lambda n, d: tbench.barrier_executable(n, 3, d))
-    parity_phase(np, dev, report, "subtree300_parity",
-                 lambda n, d: tbench.subtree_executable(n, 20, d))
-    for skip in (False, True):
-        parity_phase(np, dev, report,
-                     f"sparsetimer300_{'skip' if skip else 'dense'}_parity",
-                     lambda n, d, skip=skip: tbench.sparsetimer_executable(
-                         n, skip, d, rounds=10))
+    for key in ("barrier300_parity", "subtree300_parity",
+                "sparsetimer300_dense_parity", "sparsetimer300_skip_parity"):
+        parity_phase(np, dev, report, key)
     report["sparsetimer_count_scatter_launches"] = {
         k: v["launches"]["count_scatter"] for k, v in
         (("dense", sparse[False]), ("skip", sparse[True]))}
@@ -3232,11 +3903,9 @@ def main() -> int:
     small_plans_phase(torch, dev, report)
     log("[23] splitbrain drop-sampled and a queued class-rule dialing "
         "program @ 300: GPU vs CPU")
-    parity_phase(np, dev, report, "splitbrain300_parity",
-                 lambda n, d: tbench.splitbrain_executable(n, d,
-                                                           "drop-sampled"))
+    parity_phase(np, dev, report, "splitbrain300_parity")
     reset_launch_counts()
-    parity_phase(np, dev, report, "classdials300_parity", queued_class_exec)
+    parity_phase(np, dev, report, "classdials300_parity")
     merges = other_launches()["ring_merge"]
     report["classdials300_parity"]["gpu_ring_merge_launches"] = merges
     log(f"  ring-merge kernel launches on the card's run: {merges}")
@@ -3276,12 +3945,8 @@ def main() -> int:
     for n in (4, FAULTSDEMO_BIG_N):
         faultsdemo_phase(torch, dev, report, n)
     log("[28] storm with all three planes and faultsdemo @ 300: GPU vs CPU")
-    parity_phase(np, dev, report, "storm300_planes_parity", planes_storm_exec)
-    from testground_tpu_torch.plans import faultsdemo as tdemo
-
-    parity_phase(np, dev, report, "faultsdemo300_parity",
-                 lambda n, d: tdemo.chaos_executable(
-                     n, d, chunk_ticks=32, max_ticks=2_000))
+    parity_phase(np, dev, report, "storm300_planes_parity")
+    parity_phase(np, dev, report, "faultsdemo300_parity")
     report["plane_count_scatter_launches"] = {
         p: report[k]["launches"]["count_scatter"]
         for p, k in PLANE_KEYS.items()}
@@ -3299,20 +3964,10 @@ def main() -> int:
         election_phase(torch, dev, report, n)
     log("[32] replayed echo (dense and skipped), drained sparsetimer and "
         "election @ 5: GPU vs CPU")
-    import tempfile
-
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-replay-") as tmp:
-        trace = tb.write_echo_trace(os.path.join(tmp, "echo.jsonl"), 300)
-        for skip in (False, True):
-            parity_phase(np, dev, report,
-                         f"replay300_{'skip' if skip else 'dense'}_parity",
-                         lambda n, d, skip=skip: tb.echo_executable(
-                             n, d, trace, event_skip=skip))
+    for key in ("replay300_dense_parity", "replay300_skip_parity"):
+        parity_phase(np, dev, report, key)
     drain_parity_phase(torch, np, dev, report)
-    from testground_tpu_torch.plans import election as telection
-
-    parity_phase(np, dev, report, "election5_parity",
-                 lambda n, d: telection.election_executable(n, d), n=5)
+    parity_phase(np, dev, report, "election5_parity", n=5)
     log(f"[33] bench --sweep: the {SWEEP_SEEDS}-seed storm @ 10,000 sweep, "
         "batched and a serial sample; scenarios "
         f"{', '.join(map(str, SWEEP_HELD))} against their serial runs")
@@ -3383,6 +4038,16 @@ def main() -> int:
         report["batched_runner_phases_seconds"] = (time.monotonic()
                                                    - t_batched)
         log(f"  [42]-[47]: {report['batched_runner_phases_seconds']:.1f} s")
+        report["cpu_side_waits_seconds"] = dict(CPU_WAITS)
+        log(f"  the phases waited {sum(CPU_WAITS.values()):.1f} s in all "
+            "for the CPU child")
+
+        rs, rd = report["runner_storm10k"], report["runner_dht10k"]
+        daemon_phases(report, tmp, {
+            "storm10k": (os.path.join(tmp, "storm"), rs["wall_seconds"],
+                         rs["compile_seconds"]),
+            "dht10k": (os.path.join(tmp, "dht"), rd["wall_seconds"],
+                       rd["compile_seconds"])})
 
     front_row = next(r for r in rows if r["n"] == 10_000
                      and r["regime"] == "mixed")
@@ -3436,11 +4101,30 @@ def main() -> int:
         },
     ]}
     report["kernels"] = kernels["kernels"]
-    report["seconds"] = time.monotonic() - t_start
+    end = time.monotonic()
+    report["seconds"] = end - t_start
+    report["phase_seconds"] = phase_seconds(end)
+    report["against_r14f"] = {
+        "storm10k_ms_per_executed_tick": (
+            storm["ms_per_executed_tick"],
+            R14F["storm10k_ms_per_executed_tick"]),
+        "runner_storm10k_dispatch_seconds": (
+            report["runner_storm10k"]["wall_seconds"],
+            R14F["runner_storm10k_dispatch_seconds"]),
+        "runner_sweep10k_scenarios_per_sec": (
+            report["runner_sweep10k"]["scenarios_per_sec"],
+            R14F["runner_sweep10k_scenarios_per_sec"]),
+    }
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
     log(f"done in {report['seconds']:.1f} s")
+    for k, (now, then) in report["against_r14f"].items():
+        log(f"  {k}: {now:.4f} (R14f: {then:.4f}, x{now / then:.3f})")
+    print("the ten slowest phases:")
+    for label, sec in sorted(report["phase_seconds"].items(),
+                             key=lambda kv: -kv[1])[:10]:
+        print(f"  {label:7s} {sec:7.1f} s")
     print(smi)
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {

@@ -244,6 +244,24 @@ class Group:
     # computed by Composition.validate_for_run
     calculated_instance_count: int = 0
 
+    def build_key(self) -> str:
+        """The key identical builds share (the JAX ``Group.build_key``:
+        the builder, its config, and the [build] table's selectors and
+        dependencies in canonical order)."""
+        if not self.builder:
+            raise CompositionError(
+                "group must have a builder (prepare first)")
+        sel = ",".join(sorted(self.build.get("selectors", [])))
+        deps = "|".join(
+            f"{d.get('module', '')}:{d.get('version', '')}"
+            for d in sorted(self.build.get("dependencies", []),
+                            key=lambda d: d.get("module", "")))
+        return json.dumps({
+            "builder": self.builder,
+            "build_config": self.build_config or None,
+            "build_as_key": f"selectors={sel};dependencies={deps}",
+        }, sort_keys=True)
+
     def to_dict(self) -> dict:
         d: dict[str, Any] = {"id": self.id,
                              "instances": self.instances.to_dict()}
@@ -490,6 +508,58 @@ class Composition:
             )
 
     # --------------------------------------------------------- preparation
+
+    def validate_for_build(self) -> None:
+        if not self.groups:
+            raise CompositionError(
+                "composition must declare at least one group")
+        if not self.global_.plan:
+            raise CompositionError("global.plan is required")
+        if not self.global_.builder:
+            for g in self.groups:
+                if not g.builder:
+                    raise CompositionError(
+                        f"group {g.id}: no builder set and no "
+                        "global.builder")
+
+    def prepare_for_build(self, manifest) -> "Composition":
+        """A prepared copy for the builder, as the JAX package prepares
+        it: the manifest's builder config, the global [build] defaults
+        and build config trickled to the groups, each group's builder
+        checked against the manifest."""
+        c = self.clone()
+        c.global_.plan = manifest.name
+        if not manifest.builders:
+            raise CompositionError(
+                "plan supports no builders; review the manifest")
+        for k, v in (manifest.builders.get(c.global_.builder) or {}).items():
+            c.global_.build_config.setdefault(k, v)
+        if c.global_.build is not None:
+            gdeps = list(c.global_.build.get("dependencies", []))
+            gsel = list(c.global_.build.get("selectors", []))
+            for grp in c.groups:
+                deps = list(grp.build.get("dependencies", []))
+                if not deps:
+                    deps = gdeps
+                else:
+                    have = {d.get("module") for d in deps}
+                    deps += [d for d in gdeps if d.get("module") not in have]
+                if deps:
+                    grp.build["dependencies"] = deps
+                if not grp.build.get("selectors") and gsel:
+                    grp.build["selectors"] = gsel
+        for grp in c.groups:
+            for k, v in c.global_.build_config.items():
+                grp.build_config.setdefault(k, v)
+        for grp in c.groups:
+            if not grp.builder:
+                grp.builder = c.global_.builder
+            if not manifest.has_builder(grp.builder):
+                raise CompositionError(
+                    f"plan does not support builder '{grp.builder}'; "
+                    f"supported: {manifest.supported_builders()}"
+                )
+        return c
 
     def prepare_for_run(self, manifest) -> "Composition":
         """A prepared copy: the manifest's runner config applied, the

@@ -1,14 +1,33 @@
-"""What flows between the entry point and the runner (a copy of the run
-half of ``testground_tpu/api/contracts.py``): ``RunGroup`` and
-``RunInput`` in, ``RunOutput`` with its graded ``RunResult`` out."""
+"""What flows between the entry point, the builder and the runner (a copy
+of ``testground_tpu/api/contracts.py``): ``BuildInput`` and
+``BuildOutput`` for the sim builder, ``RunGroup`` and ``RunInput`` in,
+``RunOutput`` with its graded ``RunResult`` out."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
-from .composition import Composition, Resources
+from .composition import Composition, Group, Resources
 from .manifest import TestPlanManifest
+
+
+@dataclass
+class BuildInput:
+    """Input to a single builder invocation (one deduped group-set)."""
+
+    build_id: str
+    env_config: Any  # config.EnvConfig
+    source_dir: str  # unpacked plan sources
+    select_build: Group  # representative group carrying build cfg
+    composition: Composition
+    manifest: TestPlanManifest
+
+
+@dataclass
+class BuildOutput:
+    artifact_path: str  # the staged plan directory
+    dependencies: dict[str, str] = field(default_factory=dict)
 
 
 @dataclass

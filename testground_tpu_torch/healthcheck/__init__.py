@@ -48,6 +48,12 @@ class HealthcheckReport:
                 "checks": [{"name": c.name, "status": c.status,
                             "message": c.message} for c in self.checks]}
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "HealthcheckReport":
+        return cls(checks=[CheckReport(c["name"], c["status"],
+                                       c.get("message", ""))
+                           for c in d.get("checks", [])])
+
 
 def run_checks(checks: list[Check], fix: bool = False) -> HealthcheckReport:
     """Run each check in order; with ``fix``, a failed check's fixer."""

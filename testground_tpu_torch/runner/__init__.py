@@ -2,7 +2,7 @@
 ``SimTorchRunner``, registered under the name the repo's compositions
 give (``sim:jax``), whose counterpart it is."""
 
-from .registry import get_runner, register
+from .registry import all_runners, get_runner, register
 from .sim_torch import SimTorchRunner
 
-__all__ = ["SimTorchRunner", "get_runner", "register"]
+__all__ = ["SimTorchRunner", "all_runners", "get_runner", "register"]

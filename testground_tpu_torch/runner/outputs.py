@@ -80,7 +80,10 @@ def assert_runs_equal(a, b, rows=True) -> dict:
     trace.jsonl byte for byte, and (``rows``) the progress rows but their
     walls. Returns ``b``'s summary."""
     sa, sb = summary(a), summary(b)
-    assert deterministic(sb, b) == deterministic(sa, a), (a, b)
+    da, db = deterministic(sa, a), deterministic(sb, b)
+    assert db == da, (a, b, {k: (da.get(k), db.get(k))
+                             for k in sorted(set(da) | set(db))
+                             if da.get(k) != db.get(k)})
     assert run_out_lines(b) == run_out_lines(a), (a, b)
     fa, fb = output_files(a), output_files(b)
     assert sorted(fb) == sorted(fa), (sorted(fa), sorted(fb))

@@ -15,3 +15,23 @@ def get_runner(name: str):
     if r is None:
         raise ValueError(f"unknown runner: {name}; have {sorted(_REGISTRY)}")
     return r
+
+
+def all_runners() -> dict[str, object]:
+    return dict(_REGISTRY)
+
+
+def runner_healthcheck(name: str, fix: bool, env_runners: dict,
+                       runners: dict = None):
+    """Resolve + invoke a runner's healthcheck with its env.toml section
+    (shared by the command line and the daemon; a copy of the JAX
+    registry's). Raises LookupError with a user-facing message for an
+    unknown runner or one with no healthcheck."""
+    pool = runners if runners is not None else _REGISTRY
+    r = pool.get(name)
+    if r is None:
+        raise LookupError(f"unknown runner: {name}; have {sorted(pool)}")
+    hc = getattr(r, "healthcheck", None)
+    if hc is None:
+        raise LookupError(f"no healthcheck for runner: {name}")
+    return hc(fix=fix, runner_config=dict(env_runners.get(name, {})))

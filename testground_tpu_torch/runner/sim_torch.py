@@ -26,7 +26,9 @@ class SimTorchRunner:
 
         return prewarm_composition(rinput, ow=ow, device=device)
 
-    def healthcheck(self, fix: bool = False):
+    def healthcheck(self, fix: bool = False, runner_config=None):
+        """The port's checks (``runner_config``, the runner's env.toml
+        section, configures none of them)."""
         from ..healthcheck import run_checks
         from ..healthcheck.checks import default_checks
 
@@ -38,6 +40,11 @@ class SimTorchRunner:
         from ..sim.runner import request_terminate
 
         request_terminate(run_id)
+
+    def terminate_all(self) -> int:
+        """Instances stopped outright: none (a run stops at its chunk
+        boundary through ``terminate_run``), as the JAX runner answers."""
+        return 0
 
     def collect_outputs(self, run_dir: str, writer) -> None:
         """A tar.gz of the run's outputs into ``writer``."""

@@ -24,6 +24,28 @@ from __future__ import annotations
 import threading
 import time
 
+from ..obs import REGISTRY as _OBS
+
+# the metrics plane's admission counters and live-lease gauge, under the
+# JAX registry's names
+_M_BYTES = _OBS.counter(
+    "tg_lease_bytes_admitted_total",
+    "Modeled bytes-per-device admitted by the device-lease registry.",
+)
+_M_WAIT_S = _OBS.counter(
+    "tg_lease_wait_seconds_total",
+    "Cumulative seconds runs blocked at lease admission.",
+)
+_M_OVERCOMMIT = _OBS.counter(
+    "tg_lease_overcommitted_total",
+    "Leases granted past the HBM budget after the bounded wait "
+    "expired (lost-release backstop).",
+)
+_M_ACTIVE = _OBS.gauge(
+    "tg_lease_active_runs",
+    "Runs currently holding a device lease.",
+)
+
 
 class DeviceLeaseRegistry:
     """A thread-safe table of leases, keyed by run id."""
@@ -81,11 +103,17 @@ class DeviceLeaseRegistry:
                 "bytes_per_device": int(bytes_per_device),
                 "granted": time.time(),
             }
+        waited = time.monotonic() - t0
+        _M_BYTES.inc(bytes_per_device)
+        _M_WAIT_S.inc(round(waited, 3))
+        if overcommitted:
+            _M_OVERCOMMIT.inc()
+        _M_ACTIVE.set(concurrent + 1)
         rec = {
             "devices": list(devices),
             "bytes_per_device": int(bytes_per_device),
             "hbm_budget_bytes_per_device": budget,
-            "waited_s": round(time.monotonic() - t0, 3),
+            "waited_s": round(waited, 3),
             "concurrent_runs": concurrent,
         }
         if overcommitted:
@@ -98,6 +126,7 @@ class DeviceLeaseRegistry:
         with self._lock:
             if self._leases.pop(run_id, None) is not None:
                 self._lock.notify_all()
+            _M_ACTIVE.set(len(self._leases))
 
     def active(self) -> dict:
         """The leases held now, by run id."""

@@ -9,6 +9,9 @@ for the memory high-water mark (the CPU reports none, as XLA's CPU
 backend does not). ``journal()`` gives the run journal's
 ``device_profile``.
 
+Each lap is also observed in the metrics plane's
+``tg_run_chunk_seconds`` histogram (obs/).
+
 ``TG_PROFILE_DIR=/path`` arms a ``torch.profiler`` window over one chunk,
 the chunk of index ``TG_PROFILE_CHUNK`` (default 1, 0-based), exported
 as a Chrome trace to ``<dir>/chunk<K>/trace.json``. :func:`profiled`
@@ -24,7 +27,15 @@ from typing import Optional
 
 import torch
 
+from ..obs import histogram
+
 _WARNED: dict = {}
+# the metrics plane's chunk histogram, under the JAX profiler's name
+_CHUNK_SECONDS = histogram(
+    "tg_run_chunk_seconds",
+    "Per-chunk dispatch wall seconds (device work + the boundary host "
+    "sync).",
+)
 
 
 def env_num(name: str, default, parse=int):
@@ -94,6 +105,7 @@ class ChunkProfiler:
         lap = max(0.0, float(lap_s))
         self.sum_s += lap
         self.max_s = max(self.max_s, lap)
+        _CHUNK_SECONDS.observe(lap)
         if self.device is not None and self.device.type == "cuda":
             peak = int(torch.cuda.max_memory_allocated(self.device))
             self.hbm_high_water = max(self.hbm_high_water or 0, peak)

@@ -342,6 +342,30 @@ _EXECUTOR_CACHE_N = 4
 _RUNTIME_CFG_FIELDS = ("chunk_ticks", "max_ticks")
 # statuses of a run that built and captured nothing
 _WARM_STATUSES = ("memory_hit",)
+# the pool's process counters (GET /cache and the dashboard's hit rate)
+_EX_STATS = {"memory_hits": 0, "misses": 0, "checkins": 0}
+
+
+def _excache_obs(op: str, n: int = 1) -> None:
+    """The pool's ``op`` (hit, miss, checkin, evict) counted in the
+    metrics plane's ``tg_excache_ops_total`` under ``tier="memory"``, as
+    the JAX runner counts its pool's."""
+    from ..obs import counter
+
+    c = counter("tg_excache_ops_total",
+                "Executor-cache operations by tier (memory/disk/shared) "
+                "and op (hit/miss/store/evict/tombstone/error/checkin).")
+    for _ in range(n):
+        c.inc(tier="memory", op=op)
+
+
+def executor_cache_stats() -> dict:
+    """The pool's counters and occupancy, under the JAX runner's keys
+    (one executor a key: ``pool_depth`` 1)."""
+    with _EX_CACHE_LOCK:
+        return {**_EX_STATS, "keys": len(_EX_CACHE),
+                "pooled_executors": len(_EX_CACHE), "pool_depth": 1,
+                "cache_depth": _EXECUTOR_CACHE_N}
 
 
 def clear_executor_pool() -> None:
@@ -416,7 +440,11 @@ def _executor_checkout(key):
     with _EX_CACHE_LOCK:
         entry = _EX_CACHE.pop(key, None)
         if entry is not None:
+            _EX_STATS["memory_hits"] += 1
+            _excache_obs("hit")
             return entry, "memory_hit"
+        _EX_STATS["misses"] += 1
+        _excache_obs("miss")
         status = ("evicted" if len(_EX_CACHE) >= _EXECUTOR_CACHE_N
                   else "miss")
         return None, status
@@ -427,11 +455,16 @@ def _executor_checkin(key, ex, report=None) -> None:
     for the next run of the same program."""
     clean = {k: v for k, v in (report or {}).items()
              if k not in ("executor_cache", "observer_drain", "lease")}
+    evicted = 0
     with _EX_CACHE_LOCK:
+        _EX_STATS["checkins"] += 1
         _EX_CACHE[key] = (ex, clean)
         _EX_CACHE.move_to_end(key)
         while len(_EX_CACHE) > _EXECUTOR_CACHE_N:
             _EX_CACHE.popitem(last=False)
+            evicted += 1
+    _excache_obs("checkin")
+    _excache_obs("evict", evicted)
 
 
 def _held_bytes(report) -> int:
@@ -459,6 +492,7 @@ def _make_room(report, device, log) -> bool:
             evicted.append(_EX_CACHE.popitem(last=False))
     if not evicted:
         return False
+    _excache_obs("evict", len(evicted))
     freed = sum(_held_bytes(r) for _, (_, r) in evicted)
     del evicted
     if torch.device(device).type == "cuda":

@@ -8,11 +8,15 @@ composition as the JAX command's do; ``run composition
 plans/faultsdemo/composition.toml --device cpu`` exits 0 with grade PASS
 and writes what the JAX runner writes for the same RunInput; SIGTERM
 preempts the command's run and ``--resume`` finishes it; the
-healthcheck reports each check."""
+healthcheck reports each check. A local ``run composition`` goes through
+the port's engine, so ``tasks`` and ``status`` list its task; ``daemon``
+serves, and every command with ``--endpoint`` answers as the JAX
+command does against a JAX daemon."""
 
 import _torch_threads  # noqa: F401  (caps torch's CPU threads)
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -291,17 +295,23 @@ def test_sigterm_preempts_the_cli_run_and_resume_finishes_it(tmp_path,
             time.sleep(0.005)
         os.kill(os.getpid(), signal.SIGTERM)
 
-    unhandled = []
-    prev = signal.signal(signal.SIGTERM, lambda *a: unhandled.append(a))
+    chained = []
+
+    def guard(*a):
+        chained.append(a)
+
+    prev = signal.signal(signal.SIGTERM, guard)
     try:
         sender = threading.Thread(target=send_when_running, daemon=True)
         sender.start()
         assert cli.main(flags + ["--run-id", "stopped"]) == 1
         sender.join(timeout=60)
-        assert signal.getsignal(signal.SIGTERM) is not cli._preempt_on_sigterm
+        # the command restores the handler it found
+        assert signal.getsignal(signal.SIGTERM) is guard
     finally:
         signal.signal(signal.SIGTERM, prev)
-    assert not unhandled
+    # the engine's handler chains the handler it found, as JAX's does
+    assert len(chained) == 1
     s = json.loads((outputs / "stopped" / "sim_summary.json").read_text())
     assert s["outcome"] == "preempted" and s["resume_token"] == "stopped"
     whole = json.loads((outputs / "whole" / "sim_summary.json").read_text())
@@ -338,3 +348,210 @@ def test_healthcheck_reports_each_check(tmp_path):
     proc = _cli("healthcheck", home=tmp_path)
     assert "plans-loadable: ok" in proc.stdout
     assert proc.returncode == (0 if report.ok else 1)
+
+
+# ------------------------------------------ the engine and the daemon
+
+def test_local_run_journals_a_task_that_tasks_and_status_list(tmp_path,
+                                                              monkeypatch,
+                                                              capsys):
+    """``run composition`` without ``--endpoint`` goes through the
+    port's engine: its task lands in the home's task store, and
+    ``tasks`` and ``status`` list it, as the JAX command's do."""
+    monkeypatch.setenv("TESTGROUND_HOME", str(tmp_path))
+    comp = tmp_path / "ok.toml"
+    comp.write_text(
+        '[global]\nplan = "placebo"\ncase = "ok"\nrunner = "sim:jax"\n'
+        'builder = "sim:module"\ntotal_instances = 2\n[[groups]]\n'
+        'id = "single"\ninstances = { count = 2 }\n')
+    shutil.copytree(REPO / "plans" / "placebo", tmp_path / "plans/placebo")
+    assert cli.main(["run", "composition", str(comp), "--device", "cpu",
+                     "--run-id", "loc1"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("task queued: loc1\n")
+    assert "starting run loc1: plan=placebo case=ok instances=2" in out
+    assert "run loc1: outcome success" in out
+    assert cli.main(["tasks"]) == 0
+    assert capsys.readouterr().out.split() == [
+        "loc1", "run", "complete", "success", "placebo/ok"]
+    assert cli.main(["status", "--task", "loc1"]) == 0
+    st = json.loads(capsys.readouterr().out)
+    assert st["state"] == "complete" and st["outcome"] == "success"
+    assert st["result"]["outcome"] == "success" and st["result"]["journal"]
+    assert cli.main(["tasks", "--failed"]) == 0
+    assert capsys.readouterr().out == "no failed run tasks\n"
+    assert cli.main(["status", "--task", "nope"]) == 1
+    assert capsys.readouterr().err == "no such task: nope\n"
+    assert cli.main(["logs", "--task", "loc1"]) == 0
+    assert "run finished: outcome=success" in capsys.readouterr().out
+    assert cli.main(["collect", "--task", "loc1", "--output",
+                     str(tmp_path / "o.tgz")]) == 0
+    assert (tmp_path / "o.tgz").stat().st_size > 0
+    assert cli.main(["cache", "ls"]) == 0
+    assert capsys.readouterr().out.endswith(
+        "executor disk cache: disabled (TG_EXECUTOR_CACHE_DIR=off)\n")
+    assert cli.main(["kill", "--task", "loc1"]) == 1
+
+
+def _port_daemon(home):
+    """``python -m testground_tpu_torch daemon --listen 127.0.0.1:0
+    --device cpu`` as users start it; (process, endpoint)."""
+    from _torch_threads import thread_cap
+
+    env = dict(os.environ, TESTGROUND_HOME=str(home),
+               OMP_NUM_THREADS=str(thread_cap()), **NO_HEARTBEAT)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "testground_tpu_torch", "daemon",
+         "--listen", "127.0.0.1:0", "--device", "cpu"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=REPO, env=env)
+    line = proc.stdout.readline()
+    assert line.startswith("daemon listening on http://127.0.0.1:"), line
+    return proc, line.split()[-1]
+
+
+def _mask(text, tid):
+    return text.replace(tid, "<tid>")
+
+
+def test_endpoint_commands_answer_as_jax_does(tmp_path, monkeypatch,
+                                              capsys):
+    """Every daemon-backed command of the port's command line, against a
+    port daemon started as a subprocess (``daemon --device cpu``), gives
+    the JAX command's output and exit code against a JAX daemon, the
+    run's own log lines aside: run composition, tasks (plain, --json,
+    --failed), status, logs (and --follow), collect, kill, terminate,
+    prewarm, cache ls/purge, healthcheck --runner, an unknown task and an
+    unreachable daemon. SIGTERM then stops the daemon, exit code 0."""
+    from _runner_parity import jax_on_one_device
+
+    from testground_tpu.cmd import root as jroot
+    from testground_tpu.daemon import Daemon as JDaemon
+
+    homes = {s: tmp_path / f"{s}-client" for s in ("jax", "port")}
+    for h in homes.values():
+        shutil.copytree(REPO / "plans" / "placebo", h / "plans" / "placebo")
+    proc, tend = _port_daemon(tmp_path / "port-daemon")
+    try:
+        with jax_on_one_device():
+            jd = JDaemon(home=str(tmp_path / "jax-daemon"),
+                         listen="127.0.0.1:0").start_background()
+            try:
+                _drive_both(jroot.main, jd.endpoint, tend, homes,
+                            monkeypatch, capsys, tmp_path)
+            finally:
+                jd.close()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+    assert proc.returncode == 0, out
+
+
+def _drive_both(jmain, jend, tend, homes, monkeypatch, capsys, tmp):
+    comp = tmp / "metrics.toml"
+    comp.write_text(
+        '[global]\nplan = "placebo"\ncase = "metrics"\nrunner = "sim:jax"\n'
+        'builder = "sim:module"\ntotal_instances = 3\n[[groups]]\n'
+        'id = "single"\ninstances = { count = 3 }\n')
+    comp = str(comp)
+    runs = {}
+
+    def call(side, *argv):
+        monkeypatch.setenv("TESTGROUND_HOME", str(homes[side]))
+        end = jend if side == "jax" else tend
+        main = jmain if side == "jax" else cli.main
+        rc = main(["--endpoint", end, "--home", str(homes[side]), *argv])
+        o = capsys.readouterr()
+        return rc, o.out, o.err
+
+    def both(*argv, same=True):
+        r = {s: call(s, *argv) for s in ("jax", "port")}
+        if same:
+            assert r["port"] == r["jax"], argv
+        return r
+
+    for side in ("jax", "port"):
+        rc, out, err = call(side, "run", "composition", comp)
+        lines = out.splitlines()
+        tid = lines[0].split()[-1]
+        runs[side] = (rc, lines[0].replace(tid, "<tid>"),
+                      lines[-1].replace(tid, "<tid>"), tid)
+        assert any("starting run " + tid + ": plan=placebo case=metrics "
+                   "instances=3 runner=sim:jax" in ln for ln in lines)
+    assert runs["port"][:3] == runs["jax"][:3] == (
+        0, "task queued: <tid>", "run <tid> outcome: success")
+    tids = {s: runs[s][3] for s in runs}
+
+    r = {s: call(s, "tasks") for s in tids}
+    assert (_mask(r["port"][1], tids["port"])
+            == _mask(r["jax"][1], tids["jax"]))
+    r = {s: call(s, "tasks", "--json") for s in tids}
+    rows = {s: json.loads(r[s][1]) for s in r}
+    assert [d["id"] for d in rows["port"]] == [tids["port"]]
+    assert set(rows["port"][0]) == set(rows["jax"][0])
+    both("tasks", "--failed")
+    r = {s: call(s, "status", "--task", tids[s]) for s in tids}
+    st = {s: json.loads(r[s][1]) for s in r}
+    assert set(st["port"]) == set(st["jax"])
+    for k in ("state", "outcome", "type", "plan", "case", "attempts"):
+        assert st["port"][k] == st["jax"][k], k
+    for flags in ((), ("--follow",)):
+        r = {s: call(s, "logs", "--task", tids[s], *flags) for s in tids}
+        for s in r:
+            assert r[s][0] == 0
+            assert f"starting run {tids[s]}: plan=placebo" in r[s][1]
+    for s in tids:
+        out = tmp / f"{s}.tgz"
+        assert call(s, "collect", "--task", tids[s], "--output",
+                    str(out)) == (0, f"outputs collected: {out}\n", "")
+    import tarfile
+
+    names = {}
+    for s in tids:
+        with tarfile.open(tmp / f"{s}.tgz") as tf:
+            names[s] = sorted(n.replace(tids[s], "<tid>")
+                              for n in tf.getnames())
+    assert names["port"] == names["jax"]
+    r = {s: call(s, "kill", "--task", tids[s]) for s in tids}
+    assert (r["port"][0], _mask(r["port"][2], tids["port"])) == (
+        r["jax"][0], _mask(r["jax"][2], tids["jax"])) == (
+        1, "task not killable (not found or complete): <tid>\n")
+    # (the JAX daemon, in this process, warns on stderr for its host
+    # runners' absent CLIs)
+    r = both("terminate", same=False)
+    assert r["port"][:2] == r["jax"][:2] == (0, "terminated 0 instances\n")
+    both("terminate", "--runner", "sim:jax")
+    both("status", "--task", "nope")
+    both("cache", "ls")
+    both("cache", "purge")
+    r = both("cache", "ls", "--json", same=False)
+    info = {s: json.loads(r[s][1]) for s in r}
+    for k in ("dir", "enabled", "entries"):
+        assert info["port"][k] == info["jax"][k], k
+    # the JAX disk tier's counters are process-wide (other tests of this
+    # process may have moved them); the port has no disk tier
+    assert info["port"]["disk"] == dict.fromkeys(info["jax"]["disk"], 0)
+    r = {s: call(s, "prewarm", comp) for s in tids}
+    for s in r:
+        lines = r[s][1].splitlines()
+        tid = lines[0].split()[-1]
+        assert (r[s][0], lines[0].replace(tid, "<t>"),
+                lines[-1].replace(tid, "<t>")) == (
+            0, "prewarm task queued: <t>", "prewarm <t> outcome: success")
+    r = both("healthcheck", "--runner", "nosuch", same=False)
+    for s in r:
+        assert r[s][0] == 1
+        assert r[s][2].startswith("error: unknown runner: nosuch; have ")
+    r = both("healthcheck", "--runner", "sim:jax", same=False)
+    for s in r:
+        last = r[s][1].splitlines()[-1]
+        assert last in ("healthcheck: OK", "healthcheck: FAILED")
+        assert r[s][0] == (0 if last == "healthcheck: OK" else 1)
+    r = {s: cli.main(["--endpoint", "http://127.0.0.1:1", "tasks"])
+         if s == "port" else jmain(["--endpoint", "http://127.0.0.1:1",
+                                    "tasks"])
+         for s in ("jax", "port")}
+    assert r["port"] == r["jax"] == 1
+    errs = capsys.readouterr().err.splitlines()
+    assert errs[0] == errs[1] and errs[0].startswith(
+        "error: cannot reach daemon http://127.0.0.1:1: ")

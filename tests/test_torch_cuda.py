@@ -179,8 +179,8 @@ def test_dht_gpu_matches_cpu():
 ])
 def test_ring_merge_kernel_matches_plain(label, n, case, cap, width, A):
     dev = _cuda()
-    ring, w, k, arr = (torch.as_tensor(a, device=dev) for a in cs.merge_case(
-        np, case, n, 11, cap, width, A))
+    ring, w, k, arr = cs.merge_case_on(torch, dev, case, n, 11, cap, width,
+                                       A)
     before = ring.clone()
     launches = int(rm.merge.launches)
     got = rm.merge(ring, w, k, arr)
@@ -193,8 +193,7 @@ def test_ring_merge_kernel_matches_plain(label, n, case, cap, width, A):
 
 def test_ring_merge_wrapper_refuses_bad_input():
     dev = _cuda()
-    ring, w, k, arr = (torch.as_tensor(a, device=dev) for a in cs.merge_case(
-        np, "k_random", 64, 0))
+    ring, w, k, arr = cs.merge_case_on(torch, dev, "k_random", 64, 0)
     with pytest.raises(ValueError):
         rm.merge(ring, w, k, arr[1:])  # not [A*N, W]
     with pytest.raises(TypeError):

@@ -94,8 +94,10 @@ EDGE_CASES = [
 
 
 def edge_case(name, n, seed, **kw):
-    """The card check's merge cases (chip_smoke.py), at small N."""
-    return cs.merge_case(np, name, n, seed, **kw)
+    """chip_smoke.py's merge-case generator run on the CPU at small N,
+    as numpy arrays for the JAX reference."""
+    return tuple(a.numpy() for a in cs.merge_case_on(
+        torch, "cpu", name, n, seed, **kw))
 
 
 @pytest.mark.parametrize("name,kw", EDGE_CASES)
