@@ -286,7 +286,24 @@ failure there fails the phase.
    and captured on the card, each one's ops (its CPU build's) and graph
    nodes within ``testground_tpu_torch/tools/op_budgets.json``;
 55. ``check_contracts`` on the card: every ported contract holds (ops and
-   graph nodes), warmstart and prewarm shown as not ported.
+   graph nodes), warmstart and prewarm shown as not ported;
+56. the command line in this process (``cli.main``, what ``python -m
+   testground_tpu_torch`` calls): ``run single --plan benchmarks
+   --testcase storm --instances 10000 --runner sim:jax --builder
+   sim:module`` with bench.py's params and [36]'s run config: exit 0,
+   outcome success, [36]'s count-scatter launches, every summary counter,
+   run.out and results.out equal to [36]'s (the journal's checkpoint,
+   live and host-span entries aside), its dispatch beside [36]'s;
+57. faultsdemo @ 4 through ``run composition`` in 50-tick chunks
+   checkpointed at every boundary: whole (exit 0), preempted at boundary
+   3 (exit 3, the JAX command's code for ``preempted``), then ``run
+   --resume TASK_ID`` (exit 0) with the whole run's files;
+58. at 200 instances or fewer, each run held to the same composition
+   written out by hand: a templated faultsdemo (``{{ .Env.X }}``
+   counts), ``--drain`` on faultsdemo (traced and sampled), ``--replay
+   plans/election/replay.jsonl --replay-scale 2`` on election, ``--runner
+   sim:jax`` on a local:exec placebo; then ``build composition`` and
+   ``build purge``.
 
 The last lines are a table of the ten slowest phases, the card's
 nvidia-smi line, one JSON object with the kernel measurements, and
@@ -3742,6 +3759,291 @@ def contracts_phase(dev, report):
         check_contracts.NOT_PORTED), rows
 
 
+# ------------------------------------------ the command line ([56]-[58])
+
+class cli_run:
+    """``cli.main(argv)`` in this process (what ``python -m
+    testground_tpu_torch`` calls, without a second round of torch's
+    one-time imports), ``TESTGROUND_HOME`` set to ``home``: its exit
+    code, its stdout's lines and its stderr, and its seconds."""
+
+    def __init__(self, home, *argv):
+        import contextlib
+        import io
+
+        from testground_tpu_torch import cli
+
+        out, err = io.StringIO(), io.StringIO()
+        old = os.environ.get("TESTGROUND_HOME")
+        os.environ["TESTGROUND_HOME"] = home
+        t0 = time.monotonic()
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                self.rc = cli.main(list(argv))
+        finally:
+            self.seconds = time.monotonic() - t0
+            if old is None:
+                os.environ.pop("TESTGROUND_HOME", None)
+            else:
+                os.environ["TESTGROUND_HOME"] = old
+        self.lines = out.getvalue().splitlines()
+        self.err = err.getvalue()
+        self.argv = argv
+        # the task id: the first line's last word ("task queued: TID")
+        self.tid = self.lines[0].split()[-1] if self.lines else ""
+
+    def expect(self, rc, last):
+        """Assert the exit code and the command's last line (``<tid>``
+        standing for its task id)."""
+        want = last.replace("<tid>", self.tid)
+        assert (self.rc, self.lines[-1:]) == (rc, [want]), (
+            self.argv, self.rc, self.lines[-8:], self.err[-3000:])
+        return self
+
+
+def cli_home(tmp, name, plans):
+    """A fresh ``TESTGROUND_HOME`` holding the repository's ``plans``."""
+    import shutil
+
+    home = os.path.join(tmp, name)
+    for p in plans:
+        shutil.copytree(os.path.join(ROOT, "plans", p),
+                        os.path.join(home, "plans", p))
+    return home
+
+
+def cli_outputs(home, plan, tid):
+    return os.path.join(home, "data", "outputs", plan, tid)
+
+
+def device_flags(dev):
+    """The card is the commands' default; ``--device cpu`` elsewhere
+    (a short iteration of these phases on the CPU)."""
+    return () if dev.type == "cuda" else ("--device", "cpu")
+
+
+# the journal keys a run of another task id or through another entry
+# point may differ in: none of them is a counter
+CLI_RUN_DIFFERS = ("checkpoint", "live", "host_spans")
+
+
+def cli_single_phase(torch, dev, report, tmp, ref_dir, ref_launches,
+                     n=10_000):
+    """[56] ``run single --plan benchmarks --testcase storm --instances
+    10000 --runner sim:jax --builder sim:module`` with bench.py's params
+    and [36]'s run config: exit 0, outcome success, [36]'s count-scatter
+    launches, and every summary counter and results.out equal to [36]'s
+    run (its group id is ``single`` too)."""
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.runner.outputs import (
+        deterministic, output_files, run_out_lines, summary)
+    from testground_tpu_torch.sim import runner
+
+    home = cli_home(tmp, "cli56", ("benchmarks",))
+    runner.clear_executor_pool()
+    argv = ["run", "single", "--plan", "benchmarks", "--testcase", "storm",
+            "--instances", str(n), "--runner", "sim:jax", "--builder",
+            "sim:module", *device_flags(dev)]
+    for k, v in bench.PARAMS.items():
+        argv += ["--test-param", f"{k}={v}"]
+    for k, v in STORM_RUN_CONFIG.items():
+        argv += ["--run-cfg", f"{k}={json.dumps(v)}"]
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    reset_launch_counts()
+    r = cli_run(home, *argv)
+    launches = other_launches()
+    r.expect(0, "run <tid> outcome: success")
+    run_dir = cli_outputs(home, "benchmarks", r.tid)
+    s, ref = summary(run_dir), summary(ref_dir)
+    a = _without(deterministic(s, run_dir), CLI_RUN_DIFFERS)
+    b = _without(deterministic(ref, ref_dir), CLI_RUN_DIFFERS)
+    assert a == b, ("run single's summary differs from [36]'s",
+                    {k: (a.get(k), b.get(k)) for k in set(a) | set(b)
+                     if a.get(k) != b.get(k)})
+    assert run_out_lines(run_dir) == run_out_lines(ref_dir)
+    files = output_files(ref_dir)
+    assert files and output_files(run_dir) == files
+    if dev.type == "cuda":
+        assert launches == ref_launches, (launches, ref_launches)
+    row = {"returncode": r.rc, "seconds": r.seconds, "outcome": s["outcome"],
+           "ticks": s["ticks"], "launches": launches,
+           "wall_seconds": s["wall_seconds"],
+           "runner_wall_seconds": ref["wall_seconds"],
+           "compile_seconds": s["compile_seconds"],
+           "summary_keys_not_compared": list(CLI_RUN_DIFFERS)}
+    report["cli_run_single"] = row
+    log(f"  run single storm@{n:,d}: exit 0, {s['outcome']}, {s['ticks']} "
+        f"ticks, count-scatter launches {launches['count_scatter']} "
+        f"([36]: {ref_launches['count_scatter']}); dispatch "
+        f"{s['wall_seconds']:.3f} s beside [36]'s {ref['wall_seconds']:.3f}"
+        f" s; command {r.seconds:.1f} s; every counter, run.out and "
+        "results.out equal to [36]'s but "
+        + ", ".join(CLI_RUN_DIFFERS))
+    return row
+
+
+def _runs_equal(a_dir, b_dir, skip=()):
+    """Two runs' deterministic summaries (but ``skip``, and whether the
+    executor was captured or a pool hit), run.out and output files
+    equal."""
+    from testground_tpu_torch.runner.outputs import (
+        deterministic, output_files, run_out_lines, summary)
+
+    skip = (*skip, "compiles", "compile_breakdown")
+    a = _without(deterministic(summary(a_dir), a_dir), skip)
+    b = _without(deterministic(summary(b_dir), b_dir), skip)
+    for d in (a, b):
+        d.get("hbm_preflight", {}).pop("executor_cache", None)
+    assert a == b, (a_dir, {k: (a.get(k), b.get(k))
+                            for k in set(a) | set(b) if a.get(k) != b.get(k)})
+    assert run_out_lines(a_dir) == run_out_lines(b_dir), (a_dir, b_dir)
+    files = output_files(b_dir)
+    assert files and output_files(a_dir) == files, (a_dir, b_dir)
+
+
+CLI_CHUNK = 50  # [57]'s faultsdemo @ 4 in 50-tick chunks
+CLI_STOP_AT = 3
+
+
+def cli_resume_phase(dev, report, tmp):
+    """[57] faultsdemo @ 4 through ``run composition`` in 50-tick chunks
+    checkpointed at every boundary: whole, then preempted at boundary 3
+    (exit 3, the JAX command's code for ``preempted``), then ``run
+    --resume TASK_ID`` (exit 0): the resumed run's files equal to the
+    whole run's."""
+    home = cli_home(tmp, "cli57", ("faultsdemo",))
+    comp = os.path.join(home, "plans", "faultsdemo", "composition.toml")
+    flags = ["--run-cfg", f"chunk_ticks={CLI_CHUNK}",
+             "--checkpoint-interval", "0", *device_flags(dev)]
+    whole = cli_run(home, "run", "composition", comp, *flags).expect(
+        0, "run <tid> outcome: success")
+    with preempt_at(CLI_STOP_AT):
+        cut = cli_run(home, "run", "composition", comp, *flags).expect(
+            3, "run <tid> outcome: preempted")
+    resumed = cli_run(home, "run", "--resume", cut.tid,
+                      *device_flags(dev))
+    assert resumed.lines[0] == f"task requeued for resume: {cut.tid}", (
+        resumed.lines, resumed.err[-3000:])
+    resumed.expect(0, "run <tid> outcome: success")
+    from testground_tpu_torch.runner.outputs import summary
+
+    cut_dir = cli_outputs(home, "faultsdemo", cut.tid)
+    s = summary(cut_dir)
+    assert s["resumed_from_tick"] == CLI_CHUNK * CLI_STOP_AT, s.get(
+        "resumed_from_tick")
+    _runs_equal(cut_dir, cli_outputs(home, "faultsdemo", whole.tid),
+                RESUME_KEYS)
+    row = {"returncodes": [whole.rc, cut.rc, resumed.rc],
+           "seconds": [whole.seconds, cut.seconds, resumed.seconds],
+           "resumed_from_tick": s["resumed_from_tick"], "ticks": s["ticks"]}
+    report["cli_resume"] = row
+    log(f"  faultsdemo@4: whole exit {whole.rc}, preempted at tick "
+        f"{CLI_CHUNK * CLI_STOP_AT} exit {cut.rc}, run --resume exit "
+        f"{resumed.rc}: files equal to the whole run's "
+        f"({whole.seconds:.1f} + {cut.seconds:.1f} + {resumed.seconds:.1f}"
+        " s)")
+    return row
+
+
+def _demo_text(**edits):
+    """plans/faultsdemo/composition.toml with ``edits`` (old text ->
+    new text)."""
+    with open(os.path.join(ROOT, "plans", "faultsdemo",
+                           "composition.toml")) as f:
+        text = f.read()
+    for old, new in edits.items():
+        assert old in text, old
+        text = text.replace(old, new)
+    return text
+
+
+def cli_rest_phase(dev, report, tmp):
+    """[58] the rest of the command line at 300 instances or fewer, each
+    run held to the same composition written out by hand: a templated
+    faultsdemo (``{{ .Env.TG_SMOKE_COUNT }}`` instances a group),
+    ``--drain`` on faultsdemo (traced and sampled), ``--replay
+    plans/election/replay.jsonl --replay-scale 2`` on election @ 5,
+    ``--runner sim:jax`` on a local:exec placebo @ 200; then ``build
+    composition`` and ``build purge``."""
+    home = cli_home(tmp, "cli58", ("faultsdemo", "election", "placebo"))
+    comps = os.path.join(tmp, "cli58-comps")
+    os.makedirs(comps)
+    cap = ["--run-cfg", "max_ticks=2000"]  # faultsdemo cut short
+
+    def write(name, text):
+        path = os.path.join(comps, name)
+        with open(path, "w") as f:
+            f.write(text)
+        return path
+
+    group = "instances = { count = 2 }"
+    cases = {
+        "template": (
+            write("t.toml", _demo_text(**{group: "instances = { count = "
+                                          "{{ .Env.TG_SMOKE_COUNT }} }"})),
+            write("t_hand.toml", _demo_text()), [], cap),
+        "drain": (
+            write("d.toml", _demo_text()),
+            write("d_hand.toml", _demo_text(**{
+                "[trace]\n": "[trace]\ndrain = true\n",
+                "[telemetry]\n": "[telemetry]\ndrain = true\n"})),
+            ["--drain"], cap),
+    }
+    with open(os.path.join(ROOT, "plans", "election",
+                           "composition.toml")) as f:
+        election = f.read()
+    cases["replay"] = (
+        write("e.toml", election),
+        write("e_hand.toml", election.replace(
+            'trace = "replay.jsonl"',
+            'trace = "plans/election/replay.jsonl"\nscale = 2.0')),
+        ["--replay", "plans/election/replay.jsonl", "--replay-scale", "2"],
+        [])
+    placebo = ('[global]\nplan = "placebo"\ncase = "ok"\nrunner = "{r}"\n'
+               'builder = "sim:module"\ntotal_instances = 200\n[[groups]]\n'
+               'id = "single"\ninstances = {{ count = 200 }}\n')
+    cases["runner"] = (
+        write("p.toml", placebo.format(r="local:exec")),
+        write("p_hand.toml", placebo.format(r="sim:jax")),
+        ["--runner", "sim:jax"], [])
+    os.environ["TG_SMOKE_COUNT"] = "2"
+    rows = {}
+    try:
+        for key, (path, hand, flags, extra) in cases.items():
+            plan = "placebo" if key == "runner" else (
+                "election" if key == "replay" else "faultsdemo")
+            a = cli_run(home, "run", "composition", path, *flags, *extra,
+                        *device_flags(dev)).expect(
+                0, "run <tid> outcome: success")
+            b = cli_run(home, "run", "composition", hand, *extra,
+                        *device_flags(dev)).expect(
+                0, "run <tid> outcome: success")
+            _runs_equal(cli_outputs(home, plan, a.tid),
+                        cli_outputs(home, plan, b.tid), ("host_spans",))
+            rows[key] = {"seconds": [a.seconds, b.seconds]}
+            log(f"  {key}: exit 0 both, files equal to the hand-written "
+                f"composition's ({a.seconds:.1f} + {b.seconds:.1f} s)")
+    finally:
+        os.environ.pop("TG_SMOKE_COUNT")
+    b = cli_run(home, "build", "composition", cases["drain"][0])
+    staged = b.lines[-1].split(": ", 1)[-1]
+    assert b.rc == 0 and b.lines[-3:] == [
+        f"build {b.tid} outcome: success", f"  group left: {staged}",
+        f"  group right: {staged}"], (b.lines, b.err[-3000:])
+    assert os.path.isdir(staged), staged
+    p = cli_run(home, "build", "purge", "--plan", "faultsdemo")
+    # the runs above staged the plan once, the build reuses that stage
+    p.expect(0, "purged 1 cached artifact(s) for plan faultsdemo")
+    assert not os.path.exists(staged)
+    rows["build"] = {"seconds": [b.seconds, p.seconds]}
+    log(f"  build composition: {staged}; build purge: 1 purged "
+        f"({b.seconds:.1f} + {p.seconds:.1f} s)")
+    report["cli_rest"] = rows
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4091,6 +4393,12 @@ def phases(torch) -> int:
                          rs["compile_seconds"]),
             "dht10k": (os.path.join(tmp, "dht"), rd["wall_seconds"],
                        rd["compile_seconds"])})
+        # [36]'s run, for [56] to hold the command line's run against
+        import shutil
+
+        cli_tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-cli-")
+        storm36 = os.path.join(cli_tmp.name, "storm36")
+        shutil.copytree(os.path.join(tmp, "storm"), storm36)
 
     for k, plane in ((51, "live"), (52, "metrics"), (53, "ckpt")):
         log(f"[{k}] bench --{plane} @ 10,000: sparsetimer dense in "
@@ -4102,6 +4410,24 @@ def phases(torch) -> int:
     ladder_phase(dev, report)
     log("[55] check_contracts on the card")
     contracts_phase(dev, report)
+
+    t_cli = time.monotonic()
+    with cli_tmp:
+        log("[56] run single --plan benchmarks --testcase storm --instances "
+            "10000 --runner sim:jax --builder sim:module, through cli.main")
+        cli_single_phase(torch, dev, report, cli_tmp.name, storm36,
+                         runner_storm["launches"])
+        log(f"[57] run composition faultsdemo preempted at boundary "
+            f"{CLI_STOP_AT}, then run --resume TASK_ID")
+        cli_resume_phase(dev, report, cli_tmp.name)
+        log("[58] a templated composition, --drain, --replay with "
+            "--replay-scale, --runner, build composition and build purge")
+        cli_rest_phase(dev, report, cli_tmp.name)
+    from testground_tpu_torch.sim import runner as trunner
+
+    trunner.clear_executor_pool()
+    report["cli_phases_seconds"] = time.monotonic() - t_cli
+    log(f"  [56]-[58]: {report['cli_phases_seconds']:.1f} s")
 
     front_row = next(r for r in rows if r["n"] == 10_000
                      and r["regime"] == "mixed")

@@ -358,6 +358,15 @@ class Composition:
         with open(path, "rb") as f:
             return cls.from_dict(tomllib.load(f))
 
+    def to_toml(self) -> str:
+        from ..utils import tomlio
+
+        return tomlio.dumps(self.to_dict(), list_tables={"groups"})
+
+    def save(self, path) -> None:
+        with open(path, "w") as f:
+            f.write(self.to_toml())
+
     def clone(self) -> "Composition":
         return Composition.from_dict(json.loads(json.dumps(self.to_dict())))
 

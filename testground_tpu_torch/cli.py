@@ -1,12 +1,21 @@
 """The port's command line (``python -m testground_tpu_torch``), the
 counterpart of the JAX package's ``testground`` command
-(``testground_tpu/cmd/root.py``) for the commands that drive the sim
-runner:
+(``testground_tpu/cmd/root.py``); each command prints the JAX command's
+lines and exits with its code:
 
+    version                        the version and its commit
+    plan list|import|rm|create     the plans under $TESTGROUND_HOME/plans
+    describe PLAN                  a plan's builders, runners and cases
     run composition FILE [flags]   queue a composition and wait for it (a
                                    [sweep] runs as one batched program,
                                    an enabled [search] as a
                                    breaking-point search)
+    run single --plan P --testcase C [--instances N] [flags]
+                                   the same for a one-group composition
+    run --resume TASK_ID           continue an interrupted run from its
+                                   last checkpoint
+    build composition FILE | single --plan P | purge --plan P
+                                   stage a plan's artifacts, or purge them
     prewarm FILE                   build and capture its executor into the
                                    runner's pool, without running it
     daemon [--listen] [--device]   serve the engine over HTTP
@@ -16,23 +25,33 @@ runner:
     healthcheck [--runner] [--fix] the port's health checks
 
 Without ``--endpoint`` a command runs against an in-process engine over
-the task store in ``$TESTGROUND_HOME/data/daemon`` (engine/): ``run
-composition`` queues its task there, a scheduler worker runs it, and
-``tasks`` and ``status`` list it afterwards. With ``--endpoint URL`` (before
-or after the command's name) it goes to a daemon through the client, with
-the JAX command's output and exit codes; the plan's directory travels
-with the run. Runs go to the card unless ``--device cpu`` is given (to
-``run composition`` and ``prewarm`` locally, to ``daemon`` for the daemon's
-runs).
+the task store in ``$TESTGROUND_HOME/data/daemon`` (engine/): ``run``
+queues its task there, a scheduler worker runs it, and ``tasks`` and
+``status`` list it afterwards. With ``--endpoint URL`` (before or after
+the command's name) it goes to a daemon through the client; the plan's
+directory travels with the run. Runs go to the card unless ``--device
+cpu`` is given (to ``run`` and ``prewarm`` locally, to ``daemon`` for the
+daemon's runs).
 
-A composition's flags under the JAX command's names shape it, and it is
-prepared against its plan's manifest as the JAX engine prepares it; its
-outputs go to ``$TESTGROUND_HOME/data/outputs/<plan>/<task id>``. The
-plan's directory (its manifest and data files) is the composition file's
-own directory when that holds the plan's manifest, else
-``$TESTGROUND_HOME/plans/<plan>``, else the repository's ``plans/<plan>``.
-SIGTERM preempts a local run at its next chunk boundary (``--resume
-TASK_ID`` continues it). A local run's exit code is 0 when it succeeds.
+A composition file is a template (cmd/template.py), rendered before it
+is parsed, as the JAX command renders it. A composition's flags under the
+JAX command's names shape it, and it is prepared against its plan's
+manifest as the JAX engine prepares it; its outputs go to
+``$TESTGROUND_HOME/data/outputs/<plan>/<task id>``. The plan's directory
+(its manifest and data files) is the composition file's own directory
+when that holds the plan's manifest, else ``$TESTGROUND_HOME/plans/<plan>``,
+else the repository's ``plans/<plan>``; without one, the engine looks
+under its home and the run fails there, as JAX's does. SIGTERM preempts a local run at
+its next chunk boundary (``run --resume TASK_ID`` continues it). A run's
+exit code is the JAX command's for its outcome: 0 success, 1 failure, 2
+canceled, 3 any other (a preempted or terminated run).
+
+The port has one builder, ``sim:module``, and one runner, the sim
+runner under the name ``sim:jax``: the host runners and builders
+(``local:exec``, ``exec:python``, ...) are not ported, so ``run single``
+and ``build single`` with their default ``--runner``/``--builder`` get
+the engine's "unknown runner"/"unknown builder" error. A plan runs only
+when the port carries its program (``testground_tpu_torch.plans``).
 """
 
 from __future__ import annotations
@@ -53,7 +72,14 @@ from .engine import EngineError
 from .healthcheck.checks import home_dir
 from .rpc import RPCError
 from .runner import get_runner
-from .sim.tables import CompositionError, Sweep, Telemetry, Trace
+from .sim.program import _not_ported
+from .sim.tables import (
+    CompositionError,
+    Replay,
+    Sweep,
+    Telemetry,
+    Trace,
+)
 
 REPO_PLANS = Path(__file__).resolve().parent.parent / "plans"
 
@@ -78,24 +104,33 @@ def _key_values(pairs) -> dict:
 
 def apply_overrides(comp: Composition, args) -> None:
     """The run flags, as the JAX command applies them: ``--test-param``
-    on every group, ``--run-cfg`` typed into the run config,
-    ``--sweep-seeds`` setting (or creating) the [sweep] table's seeds,
-    ``--no-*`` marking a table disabled (created for [live] and
-    [checkpoint], which are on by default), the interval flags setting
-    (or creating) their table, ``--trace`` enabling one, ``--search`` /
-    ``--no-search`` and ``--search-budget`` acting on the composition's
-    [search] table (an error without one)."""
+    on every group, ``--run-cfg`` typed into the run config, ``--runner``
+    replacing the runner, ``--sweep-seeds`` setting (or creating) the
+    [sweep] table's seeds, ``--no-*`` marking a table disabled (created
+    for [live] and [checkpoint], which are on by default), the interval
+    flags setting (or creating) their table, ``--trace`` enabling one,
+    ``--search`` / ``--no-search`` and ``--search-budget`` acting on the
+    composition's [search] table, ``--replay FILE`` pointing (or
+    creating) the [replay] table, ``--replay-scale`` setting its scale,
+    and ``--drain`` / ``--no-drain`` setting the [trace] and [telemetry]
+    tables' drain (each an error without its table). ``--mesh`` is not
+    ported (a 2-D device mesh is multi-GPU work)."""
     for k, v in _key_values(getattr(args, "test_param", None)).items():
         for g in comp.groups:
             g.run.test_params[k] = v
     comp.global_.run_config.update(
         {k: _typed(v)
          for k, v in _key_values(getattr(args, "run_cfg", None)).items()})
+    if getattr(args, "runner_override", None):
+        comp.global_.runner = args.runner_override
     if getattr(args, "sweep_seeds", None) is not None:
         # `is not None`: --sweep-seeds 0 reaches Sweep.validate's error
         if comp.sweep is None:
             comp.sweep = Sweep()
         comp.sweep.seeds = args.sweep_seeds
+    if getattr(args, "mesh_shape", None) is not None:
+        raise _not_ported("--mesh (a sweep's 2-D device mesh)", 12,
+                          "multi-GPU")
     if getattr(args, "no_faults", False) and comp.faults is not None:
         comp.faults.disabled = True
     if getattr(args, "trace_on", False):
@@ -111,8 +146,6 @@ def apply_overrides(comp: Composition, args) -> None:
         comp.telemetry.enabled = True
     if getattr(args, "no_telemetry", False) and comp.telemetry is not None:
         comp.telemetry.enabled = False
-    if getattr(args, "no_replay", False) and comp.replay is not None:
-        comp.replay.enabled = False
     if getattr(args, "search_on", None) is not None:
         # no default [search] table: its param and grid cannot be guessed
         if comp.search is None and args.search_on:
@@ -145,15 +178,45 @@ def apply_overrides(comp: Composition, args) -> None:
     if getattr(args, "no_checkpoint", False):
         comp.checkpoint = comp.checkpoint or Checkpoint()
         comp.checkpoint.enabled = False
+    if getattr(args, "replay_file", None):
+        if comp.replay is None:
+            comp.replay = Replay(trace=args.replay_file)
+        comp.replay.trace = args.replay_file
+        comp.replay.enabled = True
+    if getattr(args, "replay_scale", None) is not None:
+        # `is not None`: --replay-scale 0 reaches Replay.validate's error
+        if comp.replay is None:
+            raise CompositionError(
+                "--replay-scale requires a [replay] table in the "
+                "composition (or --replay FILE to create one); see "
+                "docs/replay.md")
+        comp.replay.scale = args.replay_scale
+    if getattr(args, "no_replay", False) and comp.replay is not None:
+        comp.replay.enabled = False
+    if getattr(args, "drain_on", False):
+        if comp.trace is None and comp.telemetry is None:
+            raise CompositionError(
+                "--drain requires a [trace] or [telemetry] table in the "
+                "composition (there is no observer plane to drain); add "
+                "one, or combine with --trace / --telemetry-interval")
+        for t in (comp.trace, comp.telemetry):
+            if t is not None:
+                t.drain = True
+    if getattr(args, "no_drain", False):
+        for t in (comp.trace, comp.telemetry):
+            if t is not None:
+                t.drain = False
 
 
 def plan_dir_for(comp: Composition, comp_path, home) -> Path:
-    """Where the plan's manifest and data files are (module docstring)."""
+    """Where the plan's manifest and data files are (module docstring;
+    ``comp_path`` None for a composition made from flags)."""
     plan = comp.global_.plan
-    beside = Path(comp_path).resolve().parent
-    man = beside / "manifest.toml"
-    if man.exists() and TestPlanManifest.load(man).name == plan:
-        return beside
+    if comp_path is not None:
+        beside = Path(comp_path).resolve().parent
+        man = beside / "manifest.toml"
+        if man.exists() and TestPlanManifest.load(man).name == plan:
+            return beside
     for cand in (Path(home) / "plans" / plan, REPO_PLANS / plan):
         if (cand / "manifest.toml").exists():
             return cand
@@ -247,39 +310,310 @@ def _client(args, timeout: float = 600.0):
                   timeout=timeout)
 
 
-def _plan_dir(comp: Composition, comp_path, home):
-    """The plan's directory, or None when none is found (a daemon then
-    resolves the plan under its own home)."""
+def _plan_dir(args, comp: Composition):
+    """The plan's directory, or None when none is found (the engine, or
+    a daemon, then resolves the plan under its own home, as JAX's does,
+    and answers for it)."""
     try:
-        return plan_dir_for(comp, comp_path, home)
+        return plan_dir_for(comp, getattr(args, "composition", None),
+                            home_dir())
     except FileNotFoundError:
         return None
+
+
+# ------------------------------------------------- version, plan, describe
+
+def cmd_version(args) -> int:
+    from . import version
+
+    print(version.human())
+    return 0
+
+
+def cmd_plan_list(args) -> int:
+    for p in sorted(m.parent.name
+                    for m in _env(args).dirs.plans.glob("*/manifest.toml")):
+        print(p)
+    return 0
+
+
+def cmd_plan_import(args) -> int:
+    """Copy (or git-clone with ``--git``) a plan into
+    ``$TESTGROUND_HOME/plans``."""
+    import shutil
+
+    cfg = _env(args)
+    cfg.dirs.ensure()
+    if args.git:
+        import subprocess
+
+        name = args.name or Path(args.source).stem.removesuffix(".git")
+        dst = cfg.dirs.plans / name
+        if dst.exists():
+            print(f"plan already exists: {dst}", file=sys.stderr)
+            return 1
+        try:
+            cp = subprocess.run(
+                ["git", "clone", "--depth", "1", args.source, str(dst)],
+                capture_output=True, text=True, timeout=300)
+            err = cp.stderr.strip() if cp.returncode != 0 else ""
+        except (subprocess.TimeoutExpired, OSError) as e:
+            err = str(e)
+        if err:
+            shutil.rmtree(dst, ignore_errors=True)  # no half-clone left
+            print(f"git clone failed: {err}", file=sys.stderr)
+            return 1
+        print(f"imported plan {name} -> {dst}")
+        return 0
+    src = Path(args.source).resolve()
+    name = args.name or src.name
+    dst = cfg.dirs.plans / name
+    if dst.exists():
+        print(f"plan already exists: {dst}", file=sys.stderr)
+        return 1
+    shutil.copytree(src, dst)
+    print(f"imported plan {name} -> {dst}")
+    return 0
+
+
+def cmd_plan_rm(args) -> int:
+    import shutil
+
+    dst = _env(args).dirs.plans / args.name
+    if not dst.exists():
+        print(f"no such plan: {args.name}", file=sys.stderr)
+        return 1
+    shutil.rmtree(dst)
+    return 0
+
+
+# `plan create`'s scaffold, byte for byte the JAX command's: its sim.py
+# is written against the JAX package's builder API, which the port does
+# not load (it runs only the plans it carries)
+_SCAFFOLD_MANIFEST = (
+    'name = "{name}"\n\n'
+    "[defaults]\n"
+    'builder = "exec:python"\n'
+    'runner = "local:exec"\n\n'
+    "[builders]\n"
+    '"exec:python" = {{ enabled = true }}\n'
+    '"sim:module" = {{ enabled = true }}\n\n'
+    "[runners]\n"
+    '"local:exec" = {{ enabled = true }}\n'
+    '"sim:jax" = {{ enabled = true }}\n\n'
+    "[[testcases]]\n"
+    'name = "quickstart"\n'
+    "instances = {{ min = 1, max = 100, default = 2 }}\n"
+)
+_SCAFFOLD_MAIN = (
+    '"""Host-substrate entrypoint (local:exec)."""\n'
+    "from testground_tpu.sdk import invoke_map\n\n\n"
+    "def quickstart(runenv):\n"
+    '    seq = runenv.sync_client.signal_and_wait(\n'
+    '        "done", runenv.test_instance_count)\n'
+    '    runenv.record_message(f"hello, I am instance {seq}")\n'
+    "    return None\n\n\n"
+    'if __name__ == "__main__":\n'
+    '    invoke_map({"quickstart": quickstart})\n'
+)
+_SCAFFOLD_SIM = (
+    '"""sim:jax traceable entrypoint: one SPMD program per composition."""'
+    "\n\n\n"
+    "def quickstart(b):\n"
+    '    b.signal_and_wait("done")\n'
+    "    b.end_ok()\n\n\n"
+    'testcases = {"quickstart": quickstart}\n'
+)
+
+
+def cmd_plan_create(args) -> int:
+    import re
+
+    if not re.fullmatch(r"[A-Za-z0-9_-]+", args.name):
+        print(f"invalid plan name {args.name!r}: use letters, digits, "
+              "'-', '_'", file=sys.stderr)
+        return 1
+    cfg = _env(args)
+    cfg.dirs.ensure()
+    dst = cfg.dirs.plans / args.name
+    if dst.exists():
+        print(f"plan already exists: {dst}", file=sys.stderr)
+        return 1
+    dst.mkdir(parents=True)
+    (dst / "manifest.toml").write_text(
+        _SCAFFOLD_MANIFEST.format(name=args.name))
+    (dst / "main.py").write_text(_SCAFFOLD_MAIN)
+    (dst / "sim.py").write_text(_SCAFFOLD_SIM)
+    print(f"created plan {args.name} at {dst}")
+    return 0
+
+
+def cmd_describe(args) -> int:
+    mpath = _env(args).dirs.plans / args.plan / "manifest.toml"
+    if not mpath.exists():
+        print(f"no such plan: {args.plan}", file=sys.stderr)
+        return 1
+    m = TestPlanManifest.load(mpath)
+    print(f"plan: {m.name}")
+    print(f"builders: {', '.join(m.supported_builders())}")
+    print(f"runners: {', '.join(m.supported_runners())}")
+    for tc in m.test_cases:
+        print(f"  case {tc.name}: instances "
+              f"[{tc.instances.minimum}, {tc.instances.maximum}] "
+              f"default {tc.default_instances}")
+        for name, p in tc.parameters.items():
+            print(f"    param {name} ({p.type}): {p.description} "
+                  f"[default: {p.default!r}]")
+    return 0
+
+
+# ------------------------------------------------- compositions and plans
+
+def load_composition(path):
+    """(composition, rendered text) of a composition template, or None
+    after printing the JAX command's error for a template that fails."""
+    from .cmd.template import TemplateError, compile_composition_template
+
+    try:
+        text = compile_composition_template(path)
+    except TemplateError as e:
+        print(f"failed to process composition template: {e}",
+              file=sys.stderr)
+        return None
+    return Composition.from_toml(text), text
+
+
+def single_composition(args) -> Composition:
+    """The one-group composition of ``run single`` and ``build single``
+    (group id ``single``), as the JAX command builds it."""
+    from .api.composition import Global, Group, Instances
+
+    n = getattr(args, "instances", 1)
+    return Composition(
+        global_=Global(plan=args.plan, case=args.testcase or "quickstart",
+                       builder=args.builder,
+                       runner=getattr(args, "runner", ""),
+                       total_instances=n),
+        groups=[Group(id="single", instances=Instances(count=n))])
+
+
+# ----------------------------------------------------------------- build
+
+def _write_artifacts(args, comp, artifacts: dict) -> None:
+    """Write built artifacts back into the composition file; a templated
+    composition is left alone (its directives would be frozen at their
+    build-time values)."""
+    if Path(args.composition).read_text() != args.rendered_text:
+        print("composition is a template; not writing artifacts back "
+              "(artifacts printed above)", file=sys.stderr)
+        return
+    for g in comp.groups:
+        if g.id in artifacts:
+            g.run.artifact = artifacts[g.id]
+    comp.save(args.composition)
+    print(f"artifacts written back to {args.composition}")
+
+
+def cmd_build_composition(args) -> int:
+    loaded = load_composition(args.composition)
+    if loaded is None:
+        return 1
+    comp, args.rendered_text = loaded
+    return _build_common(args, comp)
+
+
+def cmd_build_single(args) -> int:
+    args.write_artifacts = False
+    return _build_common(args, single_composition(args))
+
+
+def _build_finish(args, comp, tid, outcome, arts) -> int:
+    print(f"build {tid} outcome: {outcome}")
+    if outcome != "success":
+        return 1
+    for gid, path in arts.items():
+        print(f"  group {gid}: {path}")
+    if args.write_artifacts and arts:
+        _write_artifacts(args, comp, arts)
+    return 0
+
+
+def _build_common(args, comp) -> int:
+    plan_dir = _plan_dir(args, comp)
+    src = str(plan_dir) if plan_dir else None
+    if _remote(args):
+        cli = _client(args, timeout=args.timeout)
+        tid = cli.build(comp, plan_dir=src)
+        print(f"build task queued: {tid}")
+        outcome = cli.wait(tid, on_line=print)
+        arts = (cli.status(tid).get("result") or {}).get("artifacts", {})
+        return _build_finish(args, comp, tid, outcome, arts)
+    eng = _engine(args)
+    try:
+        tid = eng.queue_build(comp, sources_dir=src)
+        print(f"build task queued: {tid}")
+        t = eng.wait(tid, timeout=args.timeout)
+        print(eng.logs(tid), end="")
+        arts = (t.result or {}).get("artifacts", {})
+        return _build_finish(args, comp, tid, t.outcome, arts)
+    finally:
+        eng.close()
+
+
+def cmd_build_purge(args) -> int:
+    if _remote(args):
+        n = _client(args).build_purge(args.plan)
+    else:
+        eng = _engine(args)
+        try:
+            n = eng.build_purge(args.plan)
+        finally:
+            eng.close()
+    print(f"purged {n} cached artifact(s) for plan {args.plan}")
+    return 0
 
 
 # ----------------------------------------------------------------- run
 
 def cmd_run_composition(args) -> int:
-    home = home_dir()
-    comp = Composition.load(args.composition)
+    loaded = load_composition(args.composition)
+    if loaded is None:
+        return 1
+    comp = loaded[0]
     apply_overrides(comp, args)
+    return _run_common(args, comp)
+
+
+def cmd_run_single(args) -> int:
+    comp = single_composition(args)
+    apply_overrides(comp, args)
+    return _run_common(args, comp)
+
+
+def _run_common(args, comp) -> int:
+    """Queue the run (or, with ``--resume``, requeue it) on the daemon or
+    an in-process engine, wait for it, and print the JAX command's
+    lines: ``task queued``, the task's log, ``run TID outcome: O``."""
+    plan_dir = _plan_dir(args, comp)
     if _remote(args):
-        return _run_remote(args, comp, _plan_dir(comp, args.composition,
-                                                 home))
+        return _run_remote(args, comp, plan_dir)
     from .device import resolve_device
     from .sim.runner import load_plan_module
 
     resolve_device(args.device)
-    plan_dir = plan_dir_for(comp, args.composition, home)
-    load_plan_module(TestPlanManifest.load(plan_dir / "manifest.toml").name)
+    if plan_dir is not None:
+        load_plan_module(
+            TestPlanManifest.load(plan_dir / "manifest.toml").name)
     eng = _engine(args, device=args.device)
     prev = signal.getsignal(signal.SIGTERM)
     eng.install_preemption_handler()
     try:
-        if args.resume:
+        if getattr(args, "resume", None):
             tid = _resume(eng, comp, args.resume, plan_dir)
         else:
-            tid = eng.queue_run(comp, sources_dir=str(plan_dir),
-                                task_id=args.run_id)
+            tid = eng.queue_run(
+                comp, sources_dir=str(plan_dir) if plan_dir else None,
+                task_id=args.run_id)
         print(f"task queued: {tid}", flush=True)
         if not args.wait:
             return 0
@@ -289,17 +623,12 @@ def cmd_run_composition(args) -> int:
         # the worker has stored the task when wait returns
         eng.close()
     print(eng.logs(tid), end="")
-    if not isinstance(t.result, dict):
-        print(f"run {tid}: outcome {t.outcome} ({t.error})")
-        return 1
-    r = t.result
-    run_dir = eng.env.dirs.outputs / t.plan / tid
-    print(f"run {tid}: outcome {r['outcome']} "
-          + json.dumps(r.get("outcomes", {})))
-    print(f"outputs: {run_dir}")
-    if args.collect:
-        _collect_local(run_dir, Path(args.collect_file or f"{tid}.tgz"))
-    return 0 if r["outcome"] == "success" else 1
+    print(f"run {tid} outcome: {t.outcome}")
+    if args.collect and t.result:
+        _collect_local(eng.env.dirs.outputs / comp.global_.plan
+                       / t.result.get("run_id", tid),
+                       Path(args.collect_file or f"{tid}.tgz"))
+    return exit_code_for_outcome(t.outcome)
 
 
 def _resume(eng, comp, tid: str, plan_dir) -> str:
@@ -307,8 +636,9 @@ def _resume(eng, comp, tid: str, plan_dir) -> str:
     the task store does not hold (its outputs from elsewhere) is queued
     under its id with a resume request."""
     if eng.get_task(tid) is None:
-        return eng.queue_run(comp, sources_dir=str(plan_dir), task_id=tid,
-                             resume=True)
+        return eng.queue_run(
+            comp, sources_dir=str(plan_dir) if plan_dir else None,
+            task_id=tid, resume=True)
     try:
         return eng.resume_task(tid)
     except EngineError as e:
@@ -322,7 +652,7 @@ def _run_remote(args, comp, plan_dir) -> int:
     task queued, its log followed, its outputs collected on request
     (``testground_tpu/cmd/root.py`` ``_run_remote``)."""
     cli = _client(args, timeout=args.timeout)
-    if args.resume:
+    if getattr(args, "resume", None):
         cli.resume(args.resume)
         tid = args.resume
         print(f"task requeued for resume: {tid}")
@@ -345,6 +675,49 @@ def _run_remote(args, comp, plan_dir) -> int:
     return exit_code_for_outcome(outcome)
 
 
+def cmd_run_resume(args) -> int:
+    """``run --resume TASK_ID`` (no subcommand): requeue an interrupted
+    run task to continue from its last checkpoint, and wait for it.
+    Without ``--resume`` it prints the usage line, exit 2."""
+    tid = args.resume_task
+    if not tid:
+        print("usage: testground run single|composition ...  or  "
+              "testground run --resume <task_id>", file=sys.stderr)
+        return 2
+    if _remote(args):
+        cli = _client(args, timeout=args.timeout)
+        cli.resume(tid)
+        print(f"task requeued for resume: {tid}")
+        if not args.wait:
+            return 0
+        outcome = cli.wait(tid, on_line=print)
+        print(f"run {tid} outcome: {outcome}")
+        return exit_code_for_outcome(outcome)
+    from .device import resolve_device
+
+    eng = _engine(args, device=args.device)
+    try:
+        if eng.get_task(tid) is not None:
+            # the run's device, checked before the task is requeued
+            resolve_device(args.device)
+        try:
+            eng.resume_task(tid)
+            print(f"task requeued for resume: {tid}")
+        except EngineError as e:
+            if "still processing" not in str(e):
+                print(f"error: {e}", file=sys.stderr)
+                return 1
+            # the engine's boot-time auto-resume already picked the
+            # interrupted task up: nothing to requeue, just wait
+            print(f"task {tid} already resuming (auto-resume) — waiting")
+        # the in-process engine dies with this command: always wait
+        t = eng.wait(tid, timeout=args.timeout)
+        print(f"run {tid} outcome: {t.outcome}")
+        return exit_code_for_outcome(t.outcome)
+    finally:
+        eng.close()
+
+
 def _collect_local(run_dir, out: Path) -> None:
     from .runner.outputs import tar_outputs
 
@@ -357,9 +730,11 @@ def cmd_prewarm(args) -> int:
     """Build and capture the composition's executor into the runner's
     pool without running it (the JAX command's ``prewarm``); the next
     run of the same program on that engine captures nothing."""
-    home = home_dir()
-    comp = Composition.load(args.composition)
-    plan_dir = _plan_dir(comp, args.composition, home)
+    loaded = load_composition(args.composition)
+    if loaded is None:
+        return 1
+    comp = loaded[0]
+    plan_dir = _plan_dir(args, comp)
     if _remote(args):
         cli = _client(args, timeout=args.timeout)
         tid = cli.prewarm(comp, plan_dir=str(plan_dir) if plan_dir else None)
@@ -602,32 +977,29 @@ def cmd_daemon(args) -> int:
 
 def _common(sub: bool) -> argparse.ArgumentParser:
     """``--home`` and ``--endpoint``, taken before or after a command's
-    name (after it, into ``sub_*``, merged in ``main``)."""
+    name (after it, into ``sub_*``, merged in ``main``; unset there, so
+    that a subcommand's parser leaves what its parent took)."""
     p = argparse.ArgumentParser(add_help=False)
     pre = "sub_" if sub else ""
-    p.add_argument("--home", default=None, dest=f"{pre}home",
+    default = argparse.SUPPRESS if sub else None
+    p.add_argument("--home", default=default, dest=f"{pre}home",
                    help="TESTGROUND_HOME override")
-    p.add_argument("--endpoint", default=None, dest=f"{pre}endpoint",
+    p.add_argument("--endpoint", default=default, dest=f"{pre}endpoint",
                    help="daemon endpoint (e.g. http://localhost:8042); "
                    "without it, commands run against an in-process engine")
     return p
 
 
-def build_parser() -> argparse.ArgumentParser:
-    common = _common(sub=True)
-    p = argparse.ArgumentParser(prog="python -m testground_tpu_torch",
-                                parents=[_common(sub=False)])
-    sub = p.add_subparsers(dest="cmd", required=True)
-    run = sub.add_parser("run").add_subparsers(dest="run_cmd", required=True)
-    rp = run.add_parser("composition", parents=[common],
-                        help="run a composition file")
-    rp.add_argument("composition")
-    rp.add_argument("--device", default="cuda",
-                    help="cuda (the default) or cpu")
+def _device_flag(p, what="cuda (the default) or cpu"):
+    p.add_argument("--device", default="cuda", help=what)
+
+
+def _run_flags(rp) -> None:
+    """The flags ``run single`` and ``run composition`` share: the JAX
+    command's, and the port's ``--device`` and ``--run-id``."""
+    _device_flag(rp)
     rp.add_argument("--run-id", default=None,
                     help="the run's task id (its outputs directory's name)")
-    rp.add_argument("--resume", default=None, metavar="TASK_ID",
-                    help="continue task TASK_ID from its last checkpoint")
     rp.add_argument("--wait", action=argparse.BooleanOptionalAction,
                     default=True)
     rp.add_argument("--collect", action="store_true")
@@ -635,10 +1007,17 @@ def build_parser() -> argparse.ArgumentParser:
     rp.add_argument("--timeout", type=float, default=600.0)
     rp.add_argument("--test-param", action="append", dest="test_param")
     rp.add_argument("--run-cfg", action="append", dest="run_cfg")
+    rp.add_argument("--runner", dest="runner_override", default=None,
+                    help="the composition's runner (sim:jax: the port's "
+                    "sim runner)")
     rp.add_argument("--sweep-seeds", type=int, default=None,
                     dest="sweep_seeds",
                     help="run N seed scenarios as one batched program "
                     "(adds/overrides the composition's [sweep] seeds)")
+    rp.add_argument("--mesh", default=None, dest="mesh_shape",
+                    metavar="DsxDi",
+                    help="a sweep's 2-D device mesh (not ported: "
+                    "multi-GPU)")
     rp.add_argument("--trace", action="store_true", dest="trace_on")
     rp.add_argument("--search", action=argparse.BooleanOptionalAction,
                     default=None, dest="search_on",
@@ -660,13 +1039,97 @@ def build_parser() -> argparse.ArgumentParser:
                     dest="live_interval")
     rp.add_argument("--checkpoint-interval", type=float, default=None,
                     dest="checkpoint_interval")
+    rp.add_argument("--drain", action="store_true", dest="drain_on",
+                    help="stream the observer planes out at every chunk "
+                    "boundary (drain = true on [trace] and [telemetry])")
+    rp.add_argument("--no-drain", action="store_true", dest="no_drain",
+                    help="clear drain on [trace] and [telemetry]")
+    rp.add_argument("--replay", default=None, dest="replay_file",
+                    metavar="FILE",
+                    help="drive the run from a recorded workload trace "
+                    "(sets, or creates, the [replay] table's trace)")
+    rp.add_argument("--replay-scale", type=float, default=None,
+                    dest="replay_scale",
+                    help="request-load multiplier of the replayed trace "
+                    "(the [replay] table's scale)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    common = _common(sub=True)
+    p = argparse.ArgumentParser(prog="python -m testground_tpu_torch",
+                                parents=[_common(sub=False)])
+    sub = p.add_subparsers(dest="cmd")
+
+    sub.add_parser("version", parents=[common]).set_defaults(fn=cmd_version)
+    plan = sub.add_parser("plan").add_subparsers(dest="plan_cmd")
+    pl = plan.add_parser("list", parents=[common])
+    pl.set_defaults(fn=cmd_plan_list)
+    pi = plan.add_parser("import", parents=[common])
+    pi.add_argument("--from", dest="source", required=True)
+    pi.add_argument("--name", default=None)
+    pi.add_argument("--git", action="store_true",
+                    help="treat --from as a git URL and clone it")
+    pi.set_defaults(fn=cmd_plan_import)
+    pr = plan.add_parser("rm", parents=[common])
+    pr.add_argument("name")
+    pr.set_defaults(fn=cmd_plan_rm)
+    pc = plan.add_parser("create", parents=[common])
+    pc.add_argument("name")
+    pc.set_defaults(fn=cmd_plan_create)
+    d = sub.add_parser("describe", parents=[common])
+    d.add_argument("plan")
+    d.set_defaults(fn=cmd_describe)
+
+    runp = sub.add_parser("run", parents=[common])
+    runp.add_argument("--resume", default=None, dest="resume_task",
+                      metavar="TASK_ID",
+                      help="continue an interrupted run task from its last "
+                      "checkpoint (see tasks --failed)")
+    runp.add_argument("--wait", action=argparse.BooleanOptionalAction,
+                      default=True)
+    runp.add_argument("--timeout", type=float, default=600.0)
+    _device_flag(runp)
+    runp.set_defaults(fn=cmd_run_resume)
+    run = runp.add_subparsers(dest="run_cmd")
+    rp = run.add_parser("composition", parents=[common],
+                        help="run a composition file")
+    rp.add_argument("composition")
+    _run_flags(rp)
+    rp.add_argument("--resume", default=None, metavar="TASK_ID",
+                    help="continue task TASK_ID from its last checkpoint")
     rp.set_defaults(fn=cmd_run_composition)
+    rs = run.add_parser("single", parents=[common],
+                        help="run one group of a plan's test case")
+    rs.add_argument("--plan", required=True)
+    rs.add_argument("--testcase", required=True)
+    rs.add_argument("--builder", default="exec:python")
+    rs.add_argument("--instances", type=int, default=1)
+    _run_flags(rs)
+    rs.set_defaults(fn=cmd_run_single, runner="local:exec")
+
+    build = sub.add_parser("build").add_subparsers(dest="build_cmd")
+    bc = build.add_parser("composition", parents=[common])
+    bc.add_argument("composition")
+    bc.add_argument("--wait", action=argparse.BooleanOptionalAction,
+                    default=True)
+    bc.add_argument("--timeout", type=float, default=600.0)
+    bc.add_argument("--write-artifacts", "-w", action="store_true",
+                    dest="write_artifacts")
+    bc.set_defaults(fn=cmd_build_composition)
+    bs = build.add_parser("single", parents=[common])
+    bs.add_argument("--plan", required=True)
+    bs.add_argument("--testcase", default=None)
+    bs.add_argument("--builder", default="exec:python")
+    bs.add_argument("--timeout", type=float, default=600.0)
+    bs.set_defaults(fn=cmd_build_single)
+    bp = build.add_parser("purge", parents=[common])
+    bp.add_argument("--plan", required=True)
+    bp.set_defaults(fn=cmd_build_purge)
 
     pw = sub.add_parser("prewarm", parents=[common],
                         help="capture a composition's executor, no run")
     pw.add_argument("composition")
-    pw.add_argument("--device", default="cuda",
-                    help="cuda (the default) or cpu")
+    _device_flag(pw)
     pw.add_argument("--wait", action=argparse.BooleanOptionalAction,
                     default=True)
     pw.add_argument("--timeout", type=float, default=600.0)
@@ -677,8 +1140,7 @@ def build_parser() -> argparse.ArgumentParser:
     dm.add_argument("--listen", default=None,
                     help="HOST:PORT (default: env.toml's [daemon] listen, "
                     "localhost:8042; port 0 picks a free one)")
-    dm.add_argument("--device", default="cuda",
-                    help="the runs' device: cuda (the default) or cpu")
+    _device_flag(dm, "the runs' device: cuda (the default) or cpu")
     dm.set_defaults(fn=cmd_daemon)
 
     t = sub.add_parser("tasks", parents=[common])
@@ -708,8 +1170,7 @@ def build_parser() -> argparse.ArgumentParser:
     tm = sub.add_parser("terminate", parents=[common])
     tm.add_argument("--runner", default=None)
     tm.set_defaults(fn=cmd_terminate)
-    cache = sub.add_parser("cache").add_subparsers(dest="cache_cmd",
-                                                   required=True)
+    cache = sub.add_parser("cache").add_subparsers(dest="cache_cmd")
     cls_ = cache.add_parser("ls", parents=[common])
     cls_.add_argument("--json", action="store_true", help="raw JSON")
     cls_.set_defaults(fn=cmd_cache)
@@ -728,7 +1189,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if getattr(args, "fn", None) is None:
+        parser.print_help()
+        return 2
     for k in ("home", "endpoint"):
         if getattr(args, f"sub_{k}", None) is not None:
             setattr(args, k, getattr(args, f"sub_{k}"))
@@ -741,9 +1206,12 @@ def main(argv=None) -> int:
     except (RPCError, EngineError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
-    except (CompositionError, FileNotFoundError, ValueError) as e:
+    except (CompositionError, ValueError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+    except NotImplementedError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
     except ConnectionError as e:
         if _remote(args):
             print(f"error: cannot reach daemon {args.endpoint}: {e}",

@@ -124,6 +124,14 @@ def _args(**kw):
     {"search_on": False},
     {"search_on": True, "search_budget": 8},
     {"search_budget": 0},
+    {"runner_override": "sim:jax"},
+    {"drain_on": True},
+    {"no_drain": True},
+    {"drain_on": True, "no_drain": True},
+    {"trace_on": True, "drain_on": True, "no_telemetry": True},
+    {"replay_file": "plans/election/replay.jsonl"},
+    {"replay_file": "r.jsonl", "replay_scale": 2.5},
+    {"replay_file": "r.jsonl", "no_replay": True},
 ])
 def test_run_flags_shape_the_composition_as_jax_does(flags, tmp_path):
     path = REPO / "plans" / "faultsdemo" / "composition.toml"
@@ -168,6 +176,23 @@ def test_search_flags_without_a_search_table_fail_as_jax_does(flags):
     assert "requires a [search] table" in str(terr.value)
 
 
+@pytest.mark.parametrize("flags", [
+    {"drain_on": True}, {"replay_scale": 2.0}, {"search_on": True},
+])
+def test_table_flags_without_their_table_fail_as_jax_does(flags):
+    """``--drain`` without a [trace] or [telemetry] table and
+    ``--replay-scale`` without a [replay] table: the JAX command's
+    errors."""
+    d = {"global": {"plan": "placebo", "case": "ok", "runner": "sim:jax",
+                    "total_instances": 2},
+         "groups": [{"id": "g", "instances": {"count": 2}}]}
+    with pytest.raises(Exception) as jerr:
+        _apply_overrides(JComposition.from_dict(d), _args(**flags))
+    with pytest.raises(CompositionError) as terr:
+        cli.apply_overrides(Composition.from_dict(d), _args(**flags))
+    assert str(terr.value) == str(jerr.value)
+
+
 def test_sweep_seeds_zero_fails_as_jax_does(tmp_path):
     path = REPO / "plans" / "faultsdemo" / "composition.toml"
     from testground_tpu_torch.api.manifest import TestPlanManifest
@@ -195,7 +220,7 @@ def test_cli_runs_faultsdemo_as_the_jax_runner_does(tmp_path):
     proc = _cli("run", "composition", path, "--device", "cpu",
                 "--run-id", "cli1", home=tmp_path / "home")
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
-    assert "run cli1: outcome success" in proc.stdout
+    assert "run cli1 outcome: success" in proc.stdout
     port_dir = tmp_path / "home" / "data" / "outputs" / "faultsdemo" / "cli1"
     s = json.loads((port_dir / "sim_summary.json").read_text())
     assert s["outcome"] == "success"
@@ -221,7 +246,7 @@ def test_cli_sweep_and_search_run_as_the_jax_runner_does(flags, tmp_path):
                 "--run-id", "cli2", "--run-cfg", "max_ticks=2000", *flags,
                 home=tmp_path / "home")
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
-    assert "run cli2: outcome success" in proc.stdout
+    assert "run cli2 outcome: success" in proc.stdout
     port_dir = tmp_path / "home" / "data" / "outputs" / "faultsdemo" / "cli2"
     comp = JComposition.load(REPO / path)
     _apply_overrides(comp, _args(
@@ -304,7 +329,8 @@ def test_sigterm_preempts_the_cli_run_and_resume_finishes_it(tmp_path,
     try:
         sender = threading.Thread(target=send_when_running, daemon=True)
         sender.start()
-        assert cli.main(flags + ["--run-id", "stopped"]) == 1
+        # the JAX command's exit code for a preempted run
+        assert cli.main(flags + ["--run-id", "stopped"]) == 3
         sender.join(timeout=60)
         # the command restores the handler it found
         assert signal.getsignal(signal.SIGTERM) is guard
@@ -370,7 +396,7 @@ def test_local_run_journals_a_task_that_tasks_and_status_list(tmp_path,
     out = capsys.readouterr().out
     assert out.startswith("task queued: loc1\n")
     assert "starting run loc1: plan=placebo case=ok instances=2" in out
-    assert "run loc1: outcome success" in out
+    assert "run loc1 outcome: success" in out
     assert cli.main(["tasks"]) == 0
     assert capsys.readouterr().out.split() == [
         "loc1", "run", "complete", "success", "placebo/ok"]
@@ -459,8 +485,8 @@ def test_endpoint_commands_answer_as_jax_does(tmp_path, monkeypatch,
     the JAX command's output and exit code against a JAX daemon, the
     run's own log lines aside: run composition, tasks (plain, --json,
     --failed), status, logs (and --follow), collect, kill, terminate,
-    prewarm, cache ls/purge, healthcheck --runner, an unknown task and an
-    unreachable daemon. SIGTERM then stops the daemon, exit code 0."""
+    prewarm, cache ls/purge, run single, build composition, run --resume,
+    healthcheck --runner, an unknown task and an unreachable daemon. SIGTERM then stops the daemon, exit code 0."""
     from testground_tpu.cmd import root as jroot
 
     homes = {s: tmp_path / f"{s}-client" for s in ("jax", "port")}
@@ -569,6 +595,38 @@ def _drive_both(jmain, jend, tend, homes, monkeypatch, capsys, tmp):
         assert (r[s][0], lines[0].replace(tid, "<t>"),
                 lines[-1].replace(tid, "<t>")) == (
             0, "prewarm task queued: <t>", "prewarm <t> outcome: success")
+    # run single, build composition and run --resume, with --endpoint
+    single = ("run", "single", "--plan", "placebo", "--testcase", "metrics",
+              "--instances", "3", "--runner", "sim:jax", "--builder",
+              "sim:module")
+    got = {}
+    for s in tids:
+        rc, out, err = call(s, *single)
+        lines = out.splitlines()
+        tid = lines[0].split()[-1]
+        got[s] = (rc, _mask(lines[0], tid), _mask(lines[-1], tid), err)
+    assert got["port"] == got["jax"] == (
+        0, "task queued: <tid>", "run <tid> outcome: success", "")
+    for s in tids:
+        rc, out, err = call(s, "build", "composition", comp)
+        lines = [ln for ln in out.splitlines() if not ln[:1].isdigit()]
+        tid = lines[0].split()[-1]
+        dhome = str(tmp / f"{s}-daemon")
+        got[s] = (rc, [_mask(ln, tid).replace(dhome, "<dhome>")
+                       for ln in lines], err)
+    assert got["port"] == got["jax"]
+    assert got["port"][1][:2] == ["build task queued: <tid>",
+                                  "build <tid> outcome: success"]
+    assert got["port"][1][2].startswith("  group single: <dhome>/data/work/")
+    r = {s: call(s, "run", "--resume", tids[s]) for s in tids}
+    for s in r:
+        lines = _mask(r[s][1], tids[s]).splitlines()
+        r[s] = (r[s][0], lines[0], lines[-1], r[s][2])
+    assert r["port"] == r["jax"] == (
+        0, "task requeued for resume: <tid>", "run <tid> outcome: success",
+        "")
+    r = both("run", "--resume", "nope", same=False)
+    assert r["port"][:2] == r["jax"][:2] == (1, "")
     r = both("healthcheck", "--runner", "nosuch", same=False)
     for s in r:
         assert r[s][0] == 1
