@@ -196,7 +196,9 @@ failure there fails the phase.
    (``run_composition``, its chunk the watchdog tier of 8,192 ticks):
    success, phase 11's ticks and count-scatter launches, the combined
    results.out and every summary key; its host spans, and its dispatch
-   wall within 10% of phase 11's;
+   wall within 10% of the direct run's (phase 11's executor, built again
+   and run right after it, so that both meet the card and the host in
+   the same state; phase 11's own wall is reported beside it);
 37. phase 4's dht at n = 10,000 with the fused front through the runner:
    phase 4's ticks, outcomes and front and merge launches;
 38. prewarm, then the storm composition: memory_hit, compiles 0, no
@@ -303,7 +305,31 @@ failure there fails the phase.
    counts), ``--drain`` on faultsdemo (traced and sampled), ``--replay
    plans/election/replay.jsonl --replay-scale 2`` on election, ``--runner
    sim:jax`` on a local:exec placebo; then ``build composition`` and
-   ``build purge``.
+   ``build purge``;
+59. the fleet comes up: a coordinator and two worker daemons on the card
+   (``python -m testground_tpu_torch daemon``, the coordinator with a
+   ``--peer`` for each worker; each worker's ``/metrics`` also carries
+   its kernels' launch counts), each its own process and home: the
+   seconds until ``/federation`` shows both workers alive, each one's
+   fingerprint naming the card;
+60. compile-on-upload: dht @ 10,000 with the fused front prewarmed
+   through the coordinator (``miss`` on the worker it routes to), then
+   run once that worker's heartbeat names its affinity digest: routed to
+   the same worker, ``memory_hit``, ``compiles: 0``, the worker's front
+   and merge launches across prewarm and run equal to [37]'s, and
+   results.out, run.out and the summary (collected through the
+   coordinator) equal to [37]'s; submit-to-complete of both tasks;
+61. dht @ 10,000 (to its warm worker) and storm @ 10,000 cut at 1,000
+   ticks (to the other; an in-process run of the same cut, made just
+   before [59], is its reference) submitted at once: each with its
+   in-process run's outcome and files,
+   ``tg_fed_routes_total`` at least 3 under ``worker=`` labels and
+   ``tg_tasks_queue_depth`` from 3 sources in the coordinator's merged
+   ``/metrics``; the fleet's wall beside the two runs' serial sum;
+62. storm @ 10,000 routed to the worker that holds it warm, SIGKILLed
+   while it runs: the coordinator marks the worker lost and requeues the
+   run on the survivor (``resume``), where it ends ``success`` with the
+   attempt counted and [36]'s files; then the fleet is stopped.
 
 The last lines are a table of the ten slowest phases, the card's
 nvidia-smi line, one JSON object with the kernel measurements, and
@@ -2473,19 +2499,31 @@ def runner_storm_phase(torch, dev, report, tmp, storm):
     """[36] bench.py's storm @ 10,000 as a composition through the
     runner: success, phase 11's ticks and count-scatter launches, the
     combined results.out, every summary key; the host spans, and the
-    dispatch wall against phase 11's."""
+    dispatch wall against the direct run's, made right after it: phase
+    11's wall is taken ~500 s earlier, beside other work of the CPU
+    child, and has varied by 13% between runs of this script."""
+    from testground_tpu_torch import bench
     from testground_tpu_torch.sim import runner
 
     runner.clear_executor_pool()
     ri = storm_input(os.path.join(tmp, "storm"))
     out, s, launches = runner_run(torch, dev, ri)
     spans = {r["name"]: r["seconds"] for r in s["host_spans"]}
-    ratio = s["wall_seconds"] / storm["wall_seconds"]
+    direct = bench.storm_executable(10_000, dev, False, 32)
+    direct.tick_fn()
+    res = direct.run()
+    del direct
+    assert res.ticks == storm["ticks"], (res.ticks, storm["ticks"])
+    ratio = s["wall_seconds"] / res.wall_seconds
+    ratio11 = s["wall_seconds"] / storm["wall_seconds"]
     row = {"outcome": s["outcome"], "ticks": s["ticks"],
            "ticks_executed": s["ticks_executed"], "launches": launches,
            "wall_seconds": s["wall_seconds"],
-           "direct_wall_seconds": storm["wall_seconds"],
-           "wall_ratio": ratio, "compile_seconds": s["compile_seconds"],
+           "direct_wall_seconds": res.wall_seconds,
+           "wall_ratio": ratio,
+           "phase11_wall_seconds": storm["wall_seconds"],
+           "phase11_wall_ratio": ratio11,
+           "compile_seconds": s["compile_seconds"],
            "compile_breakdown": s["compile_breakdown"],
            "host_spans": s["host_spans"],
            "device_profile": s["device_profile"],
@@ -2496,8 +2534,9 @@ def runner_storm_phase(torch, dev, report, tmp, storm):
     report["runner_storm10k"] = row
     log(f"  runner storm@10k: {s['outcome']}, {s['ticks']} ticks "
         f"({s['ticks_executed']} executed), dispatch {s['wall_seconds']:.3f}"
-        f" s against phase 11's {storm['wall_seconds']:.3f} s "
-        f"(x{ratio:.3f}); host spans "
+        f" s against the direct run's {res.wall_seconds:.3f} s right "
+        f"after it (x{ratio:.3f}; phase 11's {storm['wall_seconds']:.3f} s,"
+        f" x{ratio11:.3f}); host spans "
         + ", ".join(f"{k} {v:.3f} s" for k, v in spans.items())
         + f"; count-scatter launches {launches['count_scatter']} "
         f"(phase 11: {storm['launches']['count_scatter']})")
@@ -2508,7 +2547,8 @@ def runner_storm_phase(torch, dev, report, tmp, storm):
     assert not missing, missing
     assert os.path.exists(os.path.join(ri.run_dir, "results.out"))
     assert not os.path.exists(os.path.join(ri.run_dir, "single"))
-    assert ratio <= 1.10, f"runner dispatch wall x{ratio:.3f} of phase 11's"
+    assert ratio <= 1.10, (
+        f"runner dispatch wall x{ratio:.3f} of the direct run's")
     return row
 
 
@@ -3276,6 +3316,9 @@ def batched_parity_phase(torch, dev, report, tmp):
 # ------------------------------------------------- the daemon ([48]-[50])
 
 DAEMON_TOKEN = "chip-smoke-token"
+# the daemons' dispatch heartbeat off: its progress rows count wall
+# time, so that their summaries compare with [36]'s and [37]'s
+DAEMON_ENV = {"TG_DISPATCH_HEARTBEAT_S": "86400"}
 # [49]'s storm@10k runs watched, terminated and preempted: 512-tick
 # chunks, a progress row and a checkpoint at every boundary
 WATCH_TABLES = {"live": {"enabled": True, "interval": 0.0},
@@ -3305,82 +3348,17 @@ def composition_of(plan, case, n, params, run_config, groups=("single",),
     }
 
 
-class DaemonProc:
-    """``python -m testground_tpu_torch daemon --listen 127.0.0.1:0``
-    as users start it: a home of its own whose ``.env.toml`` requires a
-    bearer token, its output to a log file in that home."""
+def daemon_proc(home, device="cuda", threads=None):
+    """``python -m testground_tpu_torch daemon`` as users start it
+    (``bench.DaemonProcess``): a home of its own whose ``.env.toml``
+    requires a bearer token, its output to a log file in that home,
+    ``threads`` torch threads."""
+    from testground_tpu_torch import bench
 
-    def __init__(self, home, device="cuda", threads=None):
-        self.home, self.device, self.threads = home, device, threads
-        os.makedirs(home, exist_ok=True)
-        with open(os.path.join(home, ".env.toml"), "w") as f:
-            f.write(f'[daemon]\ntokens = ["{DAEMON_TOKEN}"]\n'
-                    f'[client]\ntoken = "{DAEMON_TOKEN}"\n')
-        self.starts = 0
-        self.start()
-
-    def start(self):
-        env = dict(os.environ, TESTGROUND_HOME=self.home,
-                   TG_DISPATCH_HEARTBEAT_S="86400")
-        if self.threads:
-            env["OMP_NUM_THREADS"] = str(self.threads)
-        self.starts += 1
-        self.log_path = os.path.join(self.home, f"daemon{self.starts}.log")
-        self.log = open(self.log_path, "w")
-        self.t0 = time.monotonic()
-        self.proc = subprocess.Popen(
-            [sys.executable, "-m", "testground_tpu_torch", "daemon",
-             "--listen", "127.0.0.1:0", "--device", self.device],
-            stdout=self.log, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
-        self.endpoint = None
-
-    def ready(self, timeout=120.0):
-        """The daemon's client once it listens; the seconds it took."""
-        from testground_tpu_torch.client import Client
-
-        deadline = time.monotonic() + timeout
-        while self.endpoint is None:
-            with open(self.log_path) as f:
-                for line in f:
-                    if line.startswith("daemon listening on "):
-                        self.endpoint = line.split()[-1]
-            if self.endpoint is None:
-                if self.proc.poll() is not None:
-                    raise RuntimeError(
-                        f"the daemon exited {self.proc.returncode}: "
-                        + open(self.log_path).read()[-3000:])
-                assert time.monotonic() < deadline, "the daemon never listened"
-                time.sleep(0.05)
-        self.ready_seconds = time.monotonic() - self.t0
-        return Client(self.endpoint, token=DAEMON_TOKEN, timeout=600.0)
-
-    def stop(self, timeout=120.0) -> int:
-        """SIGTERM, as a scheduler stops a job; its exit code."""
-        import signal
-
-        if self.proc.poll() is None:
-            self.proc.send_signal(signal.SIGTERM)
-            try:
-                self.proc.wait(timeout)
-            except subprocess.TimeoutExpired:
-                self.proc.kill()
-                self.proc.wait()
-        self.log.close()
-        return self.proc.returncode
-
-    def run_dir(self, plan, tid):
-        return os.path.join(self.home, "data", "outputs", plan, tid)
-
-
-def wait_task(client, tid, states=("complete", "canceled"), timeout=600.0):
-    """Task ``tid``'s status once its state is one of ``states``."""
-    deadline = time.monotonic() + timeout
-    while True:
-        st = client.status(tid)
-        if st["state"] in states:
-            return st
-        assert time.monotonic() < deadline, (tid, st["state"])
-        time.sleep(0.05)
+    env = dict(DAEMON_ENV)
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    return bench.DaemonProcess(home, device, env=env, token=DAEMON_TOKEN)
 
 
 def task_timing(st) -> dict:
@@ -3397,30 +3375,18 @@ def task_timing(st) -> dict:
                 st["states"][-1]["created"] - st["created"]}
 
 
-def collected(client, tid, dest):
-    """Task ``tid``'s outputs tarball (GET /outputs) unpacked into
-    ``dest``; its run directory there."""
-    import io
-    import tarfile
-
-    buf = io.BytesIO()
-    client.collect_outputs(tid, buf)
-    buf.seek(0)
-    with tarfile.open(fileobj=buf, mode="r:gz") as tf:
-        tf.extractall(dest, filter="data")
-    return os.path.join(dest, tid)
-
-
-def assert_like_ref(st, got_dir, orig_dir, ref_dir, skip=()):
+def assert_like_ref(st, got_dir, orig_dir, ref_dir, skip=(),
+                    ref_orig=None):
     """A daemon run's collected files against an in-process run's:
     results.out byte for byte, run.out but its wall, and every
     deterministic summary key (but ``skip``); the summaries' paths are
-    each run's own directory, written ``<run_dir>``."""
+    each run's own directory (``orig_dir``; ``ref_orig`` when
+    ``ref_dir`` is a copy), written ``<run_dir>``."""
     from testground_tpu_torch.runner.outputs import (
         deterministic, output_files, run_out_lines, summary)
 
     a = _without(deterministic(summary(got_dir), orig_dir), skip)
-    b = _without(deterministic(summary(ref_dir), ref_dir), skip)
+    b = _without(deterministic(summary(ref_dir), ref_orig or ref_dir), skip)
     for d in (a, b):
         d.get("hbm_preflight", {}).pop("executor_cache", None)
     assert a == b, {k: (a.get(k), b.get(k)) for k in set(a) | set(b)
@@ -3438,22 +3404,23 @@ def daemon_phase(report, tmp, card, refs, comps):
     tarball's results.out, run.out and deterministic summary keys equal
     the in-process run's (``refs``); queue wait, dispatch and
     submit-to-complete against [36]'s and [37]'s walls."""
+    from testground_tpu_torch import bench
     from testground_tpu_torch.runner.outputs import summary
 
-    c = card.ready()
-    log(f"  card daemon listening on {card.endpoint} after "
+    c = card.client()
+    log(f"  card daemon listening on {card.endpoint()} after "
         f"{card.ready_seconds:.1f} s")
     tids = {k: c.run(comp, plan_dir=os.path.join(
         ROOT, "plans", comp["global"]["plan"])) for k, comp in comps.items()}
     rows = {}
     for k, tid in tids.items():
-        st = wait_task(c, tid)
+        st = bench.wait_task(c, tid)
         # dht's churned instances crash: its outcome is [37]'s failure
         want = summary(refs[k][0])["outcome"]
         assert st["state"] == "complete" and st["outcome"] == want, (
             k, st["state"], st["outcome"], want, st.get("error"))
         plan = comps[k]["global"]["plan"]
-        got = collected(c, tid, os.path.join(tmp, "d48", k))
+        got = bench.collect(c, tid, os.path.join(tmp, "d48", k))
         # the live plane's snapshots count wall time (the dispatch
         # heartbeat's rows): the daemon's are not [36]'s
         assert_like_ref(st, got, card.run_dir(plan, tid), refs[k][0],
@@ -3488,6 +3455,8 @@ def serving_phase(report, tmp, card, c, ref_storm, storm10k):
     (POST /resume) to [36]'s results.out."""
     import urllib.request
 
+    from testground_tpu_torch import bench
+
     row = {}
     short = dict(storm10k, **{"global": dict(
         storm10k["global"], run_config=dict(STORM_RUN_CONFIG,
@@ -3495,7 +3464,7 @@ def serving_phase(report, tmp, card, c, ref_storm, storm10k):
     plan_dir = os.path.join(ROOT, "plans", "benchmarks")
     sts = []
     for _ in range(2):
-        sts.append(wait_task(c, c.run(short, plan_dir=plan_dir)))
+        sts.append(bench.wait_task(c, c.run(short, plan_dir=plan_dir)))
     j1, j2 = (st["result"]["journal"] for st in sts)
     assert j2["hbm_preflight"]["executor_cache"] == "memory_hit", j2
     assert j2["compiles"] == 0 and j2["compile_breakdown"] is None
@@ -3510,7 +3479,7 @@ def serving_phase(report, tmp, card, c, ref_storm, storm10k):
         f"then {j2['compile_seconds']:.3f} s); /cache: "
         f"{info['memory']['keys']} pooled key(s), "
         f"{info['memory']['memory_hits']} hit(s)")
-    req = urllib.request.Request(card.endpoint + "/metrics", headers={
+    req = urllib.request.Request(card.endpoint() + "/metrics", headers={
         "Authorization": f"Bearer {DAEMON_TOKEN}"})
     with urllib.request.urlopen(req, timeout=30) as r:
         text = r.read().decode()
@@ -3528,7 +3497,7 @@ def serving_phase(report, tmp, card, c, ref_storm, storm10k):
     b = c.run(watched, plan_dir=plan_dir)
     snaps = {}
     for tid in (a, b):
-        wait_task(c, tid, states=("processing",))
+        bench.wait_task(c, tid, states=("processing",))
         deadline = time.monotonic() + 120
         while True:
             got = []
@@ -3542,9 +3511,9 @@ def serving_phase(report, tmp, card, c, ref_storm, storm10k):
     q = c.run(short, plan_dir=plan_dir)
     assert c.status(q)["state"] == "scheduled"
     assert c.kill(q) == {"killed": q}
-    assert wait_task(c, q)["state"] == "canceled"
+    assert bench.wait_task(c, q)["state"] == "canceled"
     assert c.kill(b) == {"killed": b}
-    sb = wait_task(c, b)
+    sb = bench.wait_task(c, b)
     jb = sb["result"]["journal"]
     assert sb["state"] == "canceled" and sb["result"]["outcome"] == \
         "terminated", (sb["state"], sb["result"]["outcome"])
@@ -3556,7 +3525,7 @@ def serving_phase(report, tmp, card, c, ref_storm, storm10k):
     stop_s = time.monotonic() - t0
     assert rc == 0, (rc, open(card.log_path).read()[-3000:])
     card.start()
-    c = card.ready()
+    c = card.client()
     sa = c.status(a)
     assert sa["state"] == "complete" and sa["outcome"] == "preempted", (
         sa["state"], sa["outcome"])
@@ -3565,11 +3534,11 @@ def serving_phase(report, tmp, card, c, ref_storm, storm10k):
     assert ja["ticks"] % RESUME_CHUNK == 0 and ja["checkpoint"][
         "snapshots"] >= 1
     assert c.resume(a) == {"resumed": a}
-    sr = wait_task(c, a)
+    sr = bench.wait_task(c, a)
     assert sr["outcome"] == "success", (sr["outcome"], sr.get("error"))
     jr = sr["result"]["journal"]
     assert jr["resumed_from_tick"] == ja["ticks"]
-    got = collected(c, a, os.path.join(tmp, "d49"))
+    got = bench.collect(c, a, os.path.join(tmp, "d49"))
     assert_like_ref(sr, got, card.run_dir("benchmarks", a), ref_storm,
                     skip=RESUME_KEYS)
     row.update({"snapshots_while_running": snaps,
@@ -3622,14 +3591,15 @@ def daemon_parity_phase(report, card, c, cpu, cpu_tids):
     through the card daemon and the ``--device cpu`` daemon (submitted
     at [48]): every deterministic key, run.out, output file, scenario row
     and progress row equal."""
+    from testground_tpu_torch import bench
     from testground_tpu_torch.runner.outputs import assert_runs_equal
 
-    cc = cpu.ready()
+    cc = cpu.client()
     plan_dir = os.path.join(ROOT, "plans", "benchmarks")
     rows = {}
     for k, comp in plane_comps().items():
-        st = wait_task(c, c.run(comp, plan_dir=plan_dir))
-        sc = wait_task(cc, cpu_tids[k])
+        st = bench.wait_task(c, c.run(comp, plan_dir=plan_dir))
+        sc = bench.wait_task(cc, cpu_tids[k])
         assert st["outcome"] == sc["outcome"] == "success", (
             k, st["outcome"], sc["outcome"], sc.get("error"))
         gdir = card.run_dir("benchmarks", st["id"])
@@ -3658,11 +3628,11 @@ def daemon_phases(report, tmp, refs):
                               STORM_RUN_CONFIG)
     dht10k = composition_of("dht", "find-providers", 10_000, DHT_PARAMS,
                             DHT_RUN_CONFIG)
-    card = DaemonProc(os.path.join(tmp, "card-home"))
-    cpu = DaemonProc(os.path.join(tmp, "cpu-home"), device="cpu",
+    card = daemon_proc(os.path.join(tmp, "card-home"))
+    cpu = daemon_proc(os.path.join(tmp, "cpu-home"), device="cpu",
                      threads=cpu_threads())
     try:
-        cc = cpu.ready()
+        cc = cpu.client()
         plan_dir = os.path.join(ROOT, "plans", "benchmarks")
         cpu_tids = {k: cc.run(comp, plan_dir=plan_dir)
                     for k, comp in plane_comps().items()}
@@ -4044,6 +4014,371 @@ def cli_rest_phase(dev, report, tmp):
     return rows
 
 
+# ---------------------------------------------------- the fleet ([59]-[62])
+
+FLEET_WORKER_ENTRY = (sys.executable, "-c",
+                      "import sys, chip_smoke; "
+                      "sys.exit(chip_smoke.fleet_worker())")
+LAUNCH_FAMILY = "chip_smoke_kernel_launches"
+# [61]'s storm@10k, cut (its outcome is a cut run's, failure): the phase
+# holds it against an in-process run of the same cut, made before [59]
+FLEET_STORM_CUT = {"max_ticks": 1_000}
+
+
+def fleet_worker() -> int:
+    """A fleet worker as users start one (``python -m testground_tpu_torch
+    daemon ...``: ``cli.main`` with this process's arguments), with the
+    three kernels' launch counts on its ``/metrics`` as
+    ``chip_smoke_kernel_launches{kernel=...}``, so that [60] reads how
+    often a run in this process launched each. A count read syncs the
+    card, so the script scrapes a worker only while it runs nothing (a
+    read during another thread's CUDA-graph capture would break the
+    capture)."""
+    sys.path.insert(0, ROOT)
+    from testground_tpu_torch import cli, obs
+
+    gauge = obs.gauge(LAUNCH_FAMILY,
+                      "Kernel launches in this process, by kernel.")
+
+    def collect():
+        # the wrappers' modules load with the first run: before it, 0
+        if "testground_tpu_torch.sim.deliver_front" in sys.modules:
+            from testground_tpu_torch import bench
+
+            for k, v in bench.kernel_launches().items():
+                gauge.set(v, kernel=k)
+
+    obs.REGISTRY.register_collector(collect)
+    return cli.main(sys.argv[1:])
+
+
+def scrape(endpoint) -> dict:
+    """A daemon's ``/metrics``, parsed (the bearer token of [48]'s)."""
+    import urllib.request
+
+    from testground_tpu_torch import obs
+
+    req = urllib.request.Request(endpoint.rstrip("/") + "/metrics")
+    req.add_header("Authorization", f"Bearer {DAEMON_TOKEN}")
+    with urllib.request.urlopen(req, timeout=30) as r:
+        return obs.parse_exposition(r.read().decode())
+
+
+def worker_launches(endpoint) -> dict:
+    """A worker's launch counts, by kernel (0 before its first run)."""
+    fams = scrape(endpoint)
+    got = {k: 0 for k in KERNELS}
+    for _, labels, value in fams.get(LAUNCH_FAMILY, {"samples": []})[
+            "samples"]:
+        got[labels["kernel"]] = int(value)
+    return got
+
+
+def fleet_up_phase(report, tmp, device="cuda"):
+    """[59] a coordinator and two worker daemons on the card, each its own
+    process and home: the seconds until ``/federation`` shows both
+    alive, each worker's fingerprint naming the card."""
+    from testground_tpu_torch import bench
+
+    name = report["device"]
+    fleet = bench.Fleet(os.path.join(tmp, "fleet"), 2, device, DAEMON_ENV,
+                        DAEMON_TOKEN, worker_entry=FLEET_WORKER_ENTRY)
+    alive_s = fleet.wait_alive()
+    c = fleet.client()
+    info = c.federation()
+    workers = [w.endpoint() for w in fleet.workers]
+    assert info["role"] == "coordinator" and info["peers"] == workers, info
+    for w in info["workers"]:
+        fp = w["fingerprint"]
+        # a CPU worker never initialises CUDA: it reports none
+        assert (fp.get("platform") == "cuda" and fp.get("device_kind")
+                == name) if device == "cuda" else fp == {}, fp
+    row = {"alive_seconds": alive_s,
+           "listening_seconds": {"coordinator":
+                                 fleet.coordinator.ready_seconds,
+                                 **{f"w{i}": w.ready_seconds
+                                    for i, w in enumerate(fleet.workers)}},
+           "fingerprint": info["workers"][0]["fingerprint"]}
+    report["fleet_up"] = row
+    log(f"  coordinator and 2 workers alive in /federation {alive_s:.1f} s "
+        "after their start (listening after "
+        + ", ".join(f"{k} {v:.1f} s"
+                    for k, v in row["listening_seconds"].items())
+        + f"); each worker's fingerprint names {name}")
+    return fleet, c
+
+
+def fleet_upload_phase(report, tmp, fleet, c, dht10k, ref_dht, ref_launches):
+    """[60] compile-on-upload: dht@10k (fused front) prewarmed through
+    the coordinator (a miss on the worker it routes to), then run once
+    that worker's heartbeat names its digest: the run routes there,
+    journals memory_hit and compiles 0, and its files (collected through
+    the coordinator's proxy) equal [37]'s (``ref_dht``: its copy and the
+    directory it was written in). The worker's launch counts
+    across the prewarm (its eager warm-ups) and the run (the replays of
+    the captured iteration) are [37]'s."""
+    from testground_tpu_torch.runner.outputs import summary
+
+    a = bench_upload(fleet, dht10k, os.path.join(tmp, "d60"))
+    warm = a["run"]["routed_to"]
+    w = fleet.by_endpoint(warm)
+    lp, lr = a["prewarm_launches"], a["run_launches"]
+    total = {k: lp[k] + lr[k] for k in KERNELS}
+    assert total == ref_launches, (total, ref_launches)
+    st = a["run"]
+    want = summary(ref_dht[0])["outcome"]
+    assert st["outcome"] == want, (st["outcome"], want, st.get("error"))
+    assert_like_ref(st, a["dir"], w.run_dir("dht", st["id"]), ref_dht[0],
+                    skip=("live", "compiles"), ref_orig=ref_dht[1])
+    row = {"worker": warm, "prewarm": task_timing(a["prewarm"]),
+           "run": task_timing(st), "prewarm_launches": lp,
+           "run_launches": lr,
+           "prewarm_submit_to_complete_seconds": a["prewarm_seconds"],
+           "run_submit_to_complete_seconds": a["run_seconds"]}
+    report["fleet_upload"] = row
+    log(f"  prewarm routed to {warm}: miss, build and capture "
+        f"{row['prewarm']['compile_seconds']:.3f} s, submit to complete "
+        f"{a['prewarm_seconds']:.2f} s; the run routed there: memory_hit, "
+        f"compiles 0, build and capture {row['run']['compile_seconds']:.3f}"
+        f" s, dispatch {row['run']['dispatch_seconds']:.3f} s, submit to "
+        f"complete {a['run_seconds']:.2f} s; launches prewarm {lp}, run "
+        f"{lr} ([37]: {ref_launches}); files equal to [37]'s")
+    return warm
+
+
+def bench_upload(fleet, comp, dest) -> dict:
+    """``bench.routed_prewarm`` then ``bench.routed_run``, the routed
+    worker's launch counts read around each (while it runs nothing)."""
+    from testground_tpu_torch import bench
+
+    before = {w.endpoint(): worker_launches(w.endpoint())
+              for w in fleet.workers}
+    pw, pw_s = bench.routed_prewarm(fleet, comp)
+    warm = pw["routed_to"]
+    mid = worker_launches(warm)
+    st, run_s = bench.routed_run(fleet, comp, warm)
+    after = worker_launches(warm)
+    return {"prewarm": pw, "run": st,
+            "dir": bench.collect(fleet.client(), st["id"], dest),
+            "prewarm_seconds": pw_s, "run_seconds": run_s,
+            "prewarm_launches": {k: mid[k] - before[warm][k]
+                                 for k in KERNELS},
+            "run_launches": {k: after[k] - mid[k] for k in KERNELS}}
+
+
+def fleet_pair_phase(report, tmp, fleet, c, warm, comps, refs,
+                     want_launches):
+    """[61] dht@10k (its worker warm from [60]) and storm@10k cut at
+    ``FLEET_STORM_CUT`` submitted at once: dht routes to the warm worker
+    by affinity, storm to the other (no lease read yet: unbounded
+    headroom); each ends with its in-process run's outcome and files
+    ([37]'s, the cut's) and each worker's launches with
+    ``want_launches`` (dht: [60]'s routed run's; storm: the in-process
+    cut's); the merged ``/metrics``
+    (scraped once both are done) carries ``tg_fed_routes_total`` under
+    ``worker=`` labels, at least 3, and ``tg_tasks_queue_depth`` from 3
+    sources. The fleet's wall beside the two runs' serial sum, reported
+    (both workers share the card)."""
+    import threading
+
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.federation import affinity_key
+
+    # [60]'s run checked its executor back in: wait for the heartbeat
+    # that says so (a checked-out executor is not offered)
+    fleet.wait_cache_key(warm, affinity_key(comps["dht10k"]))
+    before = {w.endpoint(): worker_launches(w.endpoint())
+              for w in fleet.workers}
+    plan = {k: comp["global"]["plan"] for k, comp in comps.items()}
+    t0 = time.monotonic()
+    tids = {k: c.run(comp, plan_dir=os.path.join(ROOT, "plans", plan[k]))
+            for k, comp in comps.items()}
+    sts, done = {}, {}
+
+    def waiter(k):
+        sts[k] = bench.wait_task(fleet.client(), tids[k])
+        done[k] = time.monotonic() - t0
+
+    threads = [threading.Thread(target=waiter, args=(k,)) for k in tids]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.monotonic() - t0
+    assert set(sts) == set(comps), sts
+    assert sts["dht10k"]["routed_to"] == warm, sts["dht10k"]["routed_to"]
+    assert sts["storm10k"]["routed_to"] not in ("", warm), (
+        sts["storm10k"]["routed_to"])
+    rows = {}
+    for k, st in sts.items():
+        from testground_tpu_torch.runner.outputs import summary
+
+        want = summary(refs[k][0])["outcome"]
+        assert st["state"] == "complete" and st["outcome"] == want, (
+            k, st["outcome"], want, st.get("error"))
+        w = fleet.by_endpoint(st["routed_to"])
+        got = bench.collect(c, st["id"], os.path.join(tmp, "d61", k))
+        assert_like_ref(st, got, w.run_dir(plan[k], st["id"]), refs[k][0],
+                        skip=("live", "compiles"), ref_orig=refs[k][1])
+        after = worker_launches(st["routed_to"])
+        launches = {n: after[n] - before[st["routed_to"]][n]
+                    for n in KERNELS}
+        assert launches == want_launches[k], (k, launches, want_launches[k])
+        rows[k] = {"worker": st["routed_to"], **task_timing(st),
+                   "done_after_seconds": done[k], "launches": launches}
+    fams = scrape(fleet.coordinator.endpoint())
+    routes = fams["tg_fed_routes_total"]["samples"]
+    assert routes and all(lab.get("worker") for _, lab, _ in routes), routes
+    n_routes = sum(v for _, _, v in routes)
+    assert n_routes >= 3, n_routes
+    sources = {lab.get("worker")
+               for _, lab, _ in fams["tg_tasks_queue_depth"]["samples"]}
+    assert None in sources and len(sources) == 3, sources
+    serial = sum(r["submit_to_complete_seconds"] for r in rows.values())
+    report["fleet_pair"] = {"runs": rows, "wall_seconds": wall,
+                            "serial_sum_seconds": serial,
+                            "routes_total": n_routes}
+    log("  " + "; ".join(
+        f"{k} on {r['worker']}: {sts[k]['outcome']}, build and capture "
+        f"{r['compile_seconds']:.3f} s, dispatch {r['dispatch_seconds']:.3f}"
+        f" s, submit to complete {r['submit_to_complete_seconds']:.2f} s,"
+        f" launches {r['launches']}"
+        for k, r in rows.items()) + f"; files and launches equal to the "
+        f"in-process "
+        f"runs'; the fleet's wall {wall:.2f} s against the serial sum "
+        f"{serial:.2f} s (one card); tg_fed_routes_total {n_routes:g}, "
+        f"queue depth from {len(sources)} sources")
+    return sts["storm10k"]["routed_to"], {
+        w: worker_launches(w) for w in before}
+
+
+def fleet_loss_phase(report, tmp, fleet, c, storm_worker, storm10k,
+                     ref_storm, before, want_launches):
+    """[62] storm@10k (whole: the digest leaves ``max_ticks`` out) routed
+    to the worker holding it warm from [61] (``storm_worker``);
+    SIGKILL that worker while the run is processing: the coordinator
+    marks it lost and requeues the run on the survivor with ``resume``,
+    where it completes with ``success``, the attempt counted, and
+    [36]'s files and launches (``want_launches``; the survivor's counts
+    were ``before``)."""
+    from testground_tpu_torch import bench
+    from testground_tpu_torch.federation import affinity_key
+
+    fleet.wait_cache_key(storm_worker, affinity_key(storm10k))
+    plan_dir = os.path.join(ROOT, "plans", "benchmarks")
+    t0 = time.monotonic()
+    tid = c.run(storm10k, plan_dir=plan_dir)
+    owner = None
+    while owner is None:
+        routes = {r["task_id"]: r for r in c.federation()["routes"]}
+        r = routes.get(tid, {})
+        if r.get("state") == "processing":
+            owner = r["worker"]
+            assert owner == storm_worker, (owner, storm_worker)
+        assert time.monotonic() - t0 < 120, ("never processing", r)
+        time.sleep(0.05)
+    processing_s = time.monotonic() - t0
+    fleet.by_endpoint(owner).kill()
+    t_kill = time.monotonic()
+    while any(w["alive"] for w in c.federation()["workers"]
+              if w["worker"] == owner):
+        assert time.monotonic() - t_kill < 60, "the killed worker stayed alive"
+        time.sleep(0.05)
+    lost_s = time.monotonic() - t_kill
+    st = bench.wait_task(c, tid)
+    done_s = time.monotonic() - t_kill
+    j = st["result"]["journal"]
+    assert st["outcome"] == "success", (st["outcome"], st.get("error"))
+    assert st["routed_to"] not in ("", owner), st["routed_to"]
+    assert st["attempts"] >= 1 and j.get("attempt", 0) >= 1, (
+        st["attempts"], j.get("attempt"))
+    survivor = fleet.by_endpoint(st["routed_to"])
+    got = bench.collect(c, tid, os.path.join(tmp, "d62"))
+    assert_like_ref(st, got, survivor.run_dir("benchmarks", tid),
+                    ref_storm[0], skip=("live", "attempt", "resume"),
+                    ref_orig=ref_storm[1])
+    after = worker_launches(st["routed_to"])
+    launches = {n: after[n] - before[st["routed_to"]][n] for n in KERNELS}
+    assert launches == want_launches, (launches, want_launches)
+    row = {"killed": owner, "survivor": st["routed_to"],
+           "processing_after_seconds": processing_s,
+           "lost_after_seconds": lost_s,
+           "complete_after_kill_seconds": done_s,
+           "attempts": st["attempts"], "journal_attempt": j.get("attempt"),
+           "survivor_run": task_timing(st), "survivor_launches": launches}
+    report["fleet_loss"] = row
+    log(f"  processing on {owner} after {processing_s:.2f} s; SIGKILL: lost "
+        f"in /federation {lost_s:.2f} s later, requeued on {st['routed_to']}"
+        f" (attempts {st['attempts']}), success {done_s:.2f} s after the "
+        f"kill (build and capture {row['survivor_run']['compile_seconds']:.3f}"
+        f" s, dispatch {row['survivor_run']['dispatch_seconds']:.3f} s); "
+        f"launches {launches}; files and launches equal to [36]'s")
+
+
+def fleet_phases(report, tmp, refs, ref_launches, device="cuda", n=10_000):
+    """[59]-[62] on one fleet (its daemons on ``device``, the runs at
+    ``n``; ``refs`` and ``ref_launches`` the in-process runs' directories
+    (a copy, and where it was written) and launch counts, by key); its
+    daemons stopped (the killed worker reaped) at the end."""
+    from testground_tpu_torch import bench
+
+    storm10k = composition_of("benchmarks", "storm", n, bench.PARAMS,
+                              STORM_RUN_CONFIG)
+    storm_cut = composition_of("benchmarks", "storm", n, bench.PARAMS,
+                               dict(STORM_RUN_CONFIG, **FLEET_STORM_CUT))
+    dht10k = composition_of("dht", "find-providers", n, DHT_PARAMS,
+                            DHT_RUN_CONFIG)
+    log(f"[59] (before it) storm @ 10,000 cut at "
+        f"{FLEET_STORM_CUT['max_ticks']:,d} ticks in this process: [61]'s "
+        "reference")
+    t_ref = time.monotonic()
+    cut_dir = os.path.join(tmp, "storm_cut")
+    reset_launch_counts()
+    s = bench.in_process_run(storm_cut, cut_dir, device)
+    cut_launches = other_launches()
+    from testground_tpu_torch.sim import runner as trunner
+
+    trunner.clear_executor_pool()
+    report["fleet_storm_cut_reference"] = {
+        "outcome": s["outcome"], "ticks": s["ticks"],
+        "launches": cut_launches, "seconds": time.monotonic() - t_ref}
+    log(f"  {s['outcome']} at tick {s['ticks']} (timed out: "
+        f"{s['timed_out']}), launches {cut_launches}, "
+        f"{time.monotonic() - t_ref:.1f} s")
+    assert s["ticks"] == FLEET_STORM_CUT["max_ticks"] and s["timed_out"]
+    t0 = time.monotonic()
+    log("[59] the fleet comes up: a coordinator and two worker daemons on "
+        "the card")
+    fleet, c = fleet_up_phase(report, tmp, device)
+    try:
+        log("[60] compile-on-upload: dht @ 10,000 (fused front) prewarmed "
+            "through the coordinator, then run")
+        warm = fleet_upload_phase(report, tmp, fleet, c, dht10k,
+                                  refs["dht10k"], ref_launches["dht10k"])
+        log(f"[61] dht @ 10,000 and storm @ 10,000 (cut at "
+            f"{FLEET_STORM_CUT['max_ticks']:,d} ticks) submitted at once to "
+            "the fleet")
+        storm_worker, counts = fleet_pair_phase(
+            report, tmp, fleet, c, warm,
+            {"dht10k": dht10k, "storm10k": storm_cut},
+            {"dht10k": refs["dht10k"], "storm10k": (cut_dir, cut_dir)},
+            {"dht10k": report["fleet_upload"]["run_launches"],
+             "storm10k": cut_launches})
+        log("[62] a lost worker: storm @ 10,000's worker SIGKILLed "
+            "mid-run, the run requeued on the survivor")
+        fleet_loss_phase(report, tmp, fleet, c, storm_worker, storm10k,
+                         refs["storm10k"], counts, ref_launches["storm10k"])
+        report["fleet_phases_seconds"] = time.monotonic() - t0
+    finally:
+        rcs = fleet.close()
+    killed = report.get("fleet_loss", {}).get("killed")
+    assert all(rc == 0 for home, rc in rcs.items()
+               if not killed or home != fleet.by_endpoint(killed).home), rcs
+    log(f"  [59]-[62]: {report['fleet_phases_seconds']:.1f} s; the other "
+        f"daemons stopped by SIGTERM, exit 0 "
+        f"({time.monotonic() - t0 - report['fleet_phases_seconds']:.1f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -4399,6 +4734,9 @@ def phases(torch) -> int:
         cli_tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-cli-")
         storm36 = os.path.join(cli_tmp.name, "storm36")
         shutil.copytree(os.path.join(tmp, "storm"), storm36)
+        # and [37]'s, for [60]-[61]
+        dht37 = os.path.join(cli_tmp.name, "dht37")
+        shutil.copytree(os.path.join(tmp, "dht"), dht37)
 
     for k, plane in ((51, "live"), (52, "metrics"), (53, "ckpt")):
         log(f"[{k}] bench --{plane} @ 10,000: sparsetimer dense in "
@@ -4423,11 +4761,16 @@ def phases(torch) -> int:
         log("[58] a templated composition, --drain, --replay with "
             "--replay-scale, --runner, build composition and build purge")
         cli_rest_phase(dev, report, cli_tmp.name)
-    from testground_tpu_torch.sim import runner as trunner
+        from testground_tpu_torch.sim import runner as trunner
 
-    trunner.clear_executor_pool()
-    report["cli_phases_seconds"] = time.monotonic() - t_cli
-    log(f"  [56]-[58]: {report['cli_phases_seconds']:.1f} s")
+        trunner.clear_executor_pool()
+        report["cli_phases_seconds"] = time.monotonic() - t_cli
+        log(f"  [56]-[58]: {report['cli_phases_seconds']:.1f} s")
+        fleet_phases(report, cli_tmp.name,
+                     {"storm10k": (storm36, os.path.join(tmp, "storm")),
+                      "dht10k": (dht37, os.path.join(tmp, "dht"))},
+                     {"storm10k": runner_storm["launches"],
+                      "dht10k": runner_dht["launches"]})
 
     front_row = next(r for r in rows if r["n"] == 10_000
                      and r["regime"] == "mixed")

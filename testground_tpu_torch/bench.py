@@ -10,13 +10,14 @@ and ``TG_BENCH_SEARCH``'s (``sweep_main`` and ``search_main``); with
 ``--live``, ``--metrics``, ``--ckpt`` and ``--compile``,
 ``TG_BENCH_LIVE``'s, ``TG_BENCH_METRICS``', ``TG_BENCH_CKPT``'s and
 ``TG_BENCH_COMPILE``'s (``live_main``, ``metrics_main``, ``ckpt_main``
-and ``compile_main``).
+and ``compile_main``); with ``--feder``, ``TG_BENCH_FEDER``'s
+(``feder_main``).
 
     python -m testground_tpu_torch.bench [--shaped | --skip | --faults |
                                           --trace | --telem | --replay |
                                           --drain | --sweep | --search |
                                           --live | --metrics | --ckpt |
-                                          --compile]
+                                          --compile | --feder]
 
 Runs the storm plan (testground_tpu_torch/plans/benchmarks.py) with
 ``bench.py``'s ``PARAMS`` and ``SimConfig`` (10 ms quantum, max 100,000
@@ -108,6 +109,18 @@ overhead against the 5% target.
 With ``--compile``: the faultsdemo chaos ladder
 (``tools/compile_ladder.py``): each combo's build and capture seconds,
 its ops and its graph nodes, each within ``tools/op_budgets.json``.
+
+With ``--feder``: the federation plane (``feder_leg``). (a) A coordinator
+and two worker daemons, each a process of its own on the card: the
+sparsetimer at 10,000 (``TG_BENCH_TIMER_ROUNDS``, default 20, beats 50
+ms apart) prewarmed through the coordinator journals ``miss`` on the
+worker it routes to; once that worker's heartbeat names the
+composition's affinity digest, its run routes there and journals
+``memory_hit`` and ``compiles: 0``, and its outputs equal a cold
+in-process run's. (b) Two distinct compositions on a two-worker fleet
+against a one-worker fleet: the wall ratio, reported and not asserted
+(both workers share the one card). ``TG_BENCH_FEDER_DAEMONS=0`` skips
+(b).
 
 The other builders here (``barrier_executable``, ``subtree_executable``)
 are those of ``testground_tpu_torch.tools.bench_barrier`` and
@@ -1424,6 +1437,405 @@ def search_main() -> int:
     return 0
 
 
+# ------------------------------------------------------------ federation
+
+FEDER_ROUNDS = 20  # TG_BENCH_TIMER_ROUNDS' default in feder_main
+FEDER_CHUNK = 4_096  # TG_BENCH_CHUNK's default there
+# the fleet's liveness and retry knobs (feder_main boots its daemons with
+# a 0.3 s beat and a 3 s staleness): beats a quarter second apart, a
+# worker lost after 4 s without one (a worker's first run imports torch's
+# dispatch machinery for seconds; a shorter bound would take that for a
+# loss), a lost worker's run redispatched after 0.1 s
+FEDER_ENV = {"TG_FED_HEARTBEAT_S": "0.25", "TG_FED_STALE_S": "4",
+             "TG_TASK_RETRY_BACKOFF_S": "0.1"}
+_PKG_ROOT = str(Path(__file__).resolve().parent.parent)
+
+
+class DaemonProcess:
+    """``python -m testground_tpu_torch daemon --listen 127.0.0.1:0`` as a
+    process of its own, as users start it: its own ``home`` (with an
+    ``.env.toml`` requiring ``token`` when one is given), its runs on
+    ``device``, ``peers`` making it their coordinator, ``env`` added to
+    its environment; its output in ``home/daemon<k>.log``. ``entry``
+    replaces ``python -m testground_tpu_torch`` (a command that takes
+    the same arguments)."""
+
+    def __init__(self, home, device="cuda", peers=(), env=None, token="",
+                 entry=None):
+        import os
+
+        self.home, self.device, self.peers = str(home), device, list(peers)
+        self.env, self.token = dict(env or {}), token
+        self.entry = list(entry or (sys.executable, "-m",
+                                    "testground_tpu_torch"))
+        os.makedirs(self.home, exist_ok=True)
+        if token:
+            with open(os.path.join(self.home, ".env.toml"), "w") as f:
+                f.write(f'[daemon]\ntokens = ["{token}"]\n'
+                        f'[client]\ntoken = "{token}"\n')
+        self.starts = 0
+        self.start()
+
+    def start(self) -> None:
+        import os
+
+        env = dict(os.environ, TESTGROUND_HOME=self.home, **self.env)
+        self.starts += 1
+        self.log_path = os.path.join(self.home, f"daemon{self.starts}.log")
+        self._log = open(self.log_path, "w")
+        self.t0 = time.monotonic()
+        cmd = self.entry + ["daemon", "--listen", "127.0.0.1:0",
+                            "--device", str(self.device)]
+        for peer in self.peers:
+            cmd += ["--peer", peer]
+        self.proc = subprocess.Popen(cmd, stdout=self._log,
+                                     stderr=subprocess.STDOUT,
+                                     cwd=_PKG_ROOT, env=env)
+        self._endpoint = None
+
+    def endpoint(self, timeout=120.0) -> str:
+        """The daemon's URL once it listens (its log's first line);
+        ``ready_seconds`` is how long that took from its start."""
+        deadline = time.monotonic() + timeout
+        while self._endpoint is None:
+            with open(self.log_path) as f:
+                for line in f:
+                    if line.startswith("daemon listening on "):
+                        self._endpoint = line.split()[3]
+                        self.ready_seconds = time.monotonic() - self.t0
+            if self._endpoint is None:
+                if self.proc.poll() is not None:
+                    raise RuntimeError(
+                        f"the daemon exited {self.proc.returncode}: "
+                        + open(self.log_path).read()[-3000:])
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"no daemon listening after {timeout} s")
+                time.sleep(0.05)
+        return self._endpoint
+
+    def client(self, timeout=600.0):
+        from .client import Client
+
+        return Client(self.endpoint(), token=self.token, timeout=timeout)
+
+    def kill(self) -> None:
+        """SIGKILL, as a host that dies takes it."""
+        self.proc.kill()
+        self.proc.wait()
+        self._log.close()
+
+    def stop(self, timeout=120.0) -> int:
+        """SIGTERM, as a scheduler stops a job; its exit code."""
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self._log.close()
+        return self.proc.returncode
+
+    def run_dir(self, plan, tid) -> str:
+        return str(Path(self.home) / "data" / "outputs" / plan / tid)
+
+
+class Fleet:
+    """A coordinator daemon and ``workers`` worker daemons, each its own
+    process and home under ``root``, all on ``device``: the workers
+    (by ``worker_entry``, DaemonProcess's ``entry``) start together, each
+    on a port it picks, then the coordinator with a ``--peer`` for each
+    worker's endpoint."""
+
+    def __init__(self, root, workers=2, device="cuda", env=None, token="",
+                 worker_entry=None):
+        env = dict(FEDER_ENV, **(env or {}))
+        self.t0 = time.monotonic()
+        self.workers = [DaemonProcess(Path(root) / f"w{i}", device, (), env,
+                                      token, worker_entry)
+                        for i in range(workers)]
+        try:
+            peers = [w.endpoint() for w in self.workers]
+            self.coordinator = DaemonProcess(Path(root) / "coord", device,
+                                             peers, env, token)
+            self.coordinator.endpoint()
+        except BaseException:
+            for w in self.workers:
+                w.stop()
+            if hasattr(self, "coordinator"):
+                self.coordinator.stop()
+            raise
+
+    def client(self, timeout=600.0):
+        return self.coordinator.client(timeout)
+
+    def by_endpoint(self, endpoint) -> DaemonProcess:
+        return next(w for w in self.workers if w.endpoint() == endpoint)
+
+    def wait_alive(self, n=None, timeout=120.0) -> float:
+        """Seconds from the fleet's start until ``/federation`` shows
+        ``n`` (default: every) workers alive."""
+        n = len(self.workers) if n is None else n
+        cli = self.client(timeout=10.0)
+        deadline = time.monotonic() + timeout
+        while sum(w["alive"] for w in cli.federation()["workers"]) != n:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{n} workers never alive: "
+                                   f"{cli.federation()['workers']}")
+            time.sleep(0.05)
+        return time.monotonic() - self.t0
+
+    def wait_cache_key(self, worker, affinity, timeout=60.0) -> None:
+        """Until ``worker``'s heartbeat names ``affinity``."""
+        cli = self.client(timeout=10.0)
+        deadline = time.monotonic() + timeout
+        while not any(w["worker"] == worker and affinity in w["cache_keys"]
+                      for w in cli.federation()["workers"]):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{worker} never named {affinity}")
+            time.sleep(0.05)
+
+    def close(self) -> dict:
+        """Every daemon stopped by SIGTERM; their exit codes."""
+        procs = [self.coordinator] + self.workers
+        return {p.home: (p.stop() if p.proc.returncode is None
+                         else p.proc.returncode) for p in procs}
+
+
+def wait_task(client, tid, states=("complete", "canceled"), timeout=600.0):
+    """Task ``tid``'s status once its state is one of ``states``."""
+    deadline = time.monotonic() + timeout
+    while True:
+        st = client.status(tid)
+        if st["state"] in states:
+            return st
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{tid} still {st['state']}")
+        time.sleep(0.05)
+
+
+def collect(client, tid, dest) -> str:
+    """Task ``tid``'s outputs tarball unpacked into ``dest``; its run
+    directory there."""
+    import io
+    import tarfile
+
+    buf = io.BytesIO()
+    client.collect_outputs(tid, buf)
+    buf.seek(0)
+    with tarfile.open(fileobj=buf, mode="r:gz") as tf:
+        tf.extractall(dest, filter="data")
+    return str(Path(dest) / tid)
+
+
+def feder_composition(n, period_ms, rounds=FEDER_ROUNDS,
+                      chunk_ticks=FEDER_CHUNK) -> dict:
+    """feder_main's sparsetimer composition at ``n`` (POST /run's dict
+    form)."""
+    return {
+        "metadata": {},
+        "global": {"plan": "benchmarks", "case": "sparsetimer",
+                   "runner": "sim:jax", "builder": "sim:module",
+                   "total_instances": n,
+                   "run_config": {"quantum_ms": 1.0,
+                                  "chunk_ticks": chunk_ticks,
+                                  "max_ticks": max(20_000, rounds * 100 * 3),
+                                  "metrics_capacity": 16}},
+        "groups": [{"id": "single", "instances": {"count": n},
+                    "run": {"test_params": {
+                        "timer_rounds": str(rounds),
+                        "timer_period_ms": str(period_ms)}}}],
+    }
+
+
+def in_process_run(comp, run_dir, device="cuda"):
+    """``comp`` (one group) run by this process's runner, as the engine
+    would prepare it; its summary."""
+    from .api.contracts import RunGroup, RunInput
+    from .runner.outputs import summary
+    from .sim import runner
+
+    g, grp = comp["global"], comp["groups"][0]
+    ri = RunInput(
+        run_id=Path(run_dir).name, env_config=None, run_dir=str(run_dir),
+        test_plan=g["plan"], test_case=g["case"],
+        total_instances=g["total_instances"],
+        groups=[RunGroup(id=grp["id"], instances=grp["instances"]["count"],
+                         artifact_path=str(Path(_PKG_ROOT) / "plans"
+                                           / g["plan"]),
+                         parameters=dict(grp["run"]["test_params"]))],
+        run_config=dict(g["run_config"]))
+    runner.run_composition(ri, device=device)
+    return summary(run_dir)
+
+
+def routed_prewarm(fleet, comp) -> tuple:
+    """``comp`` prewarmed through ``fleet``'s coordinator: a ``miss`` on
+    the worker it routes to. (Its status, the seconds from submission to
+    completion.)"""
+    cli = fleet.client()
+    plan_dir = str(Path(_PKG_ROOT) / "plans" / comp["global"]["plan"])
+    t0 = time.monotonic()
+    pw = wait_task(cli, cli.prewarm(comp, plan_dir=plan_dir))
+    jp = pw["result"]["journal"]
+    assert pw["outcome"] == "success", (pw["outcome"], pw.get("error"))
+    assert jp["prewarm"] is True and jp["executor_cache"] == "miss", jp
+    assert pw["routed_to"], "the prewarm was not routed"
+    return pw, time.monotonic() - t0
+
+
+def routed_run(fleet, comp, warm) -> tuple:
+    """``comp`` run through ``fleet``'s coordinator once worker
+    ``warm``'s heartbeat names its digest: routed there, ``memory_hit``,
+    ``compiles: 0``. (Its status, the seconds from submission to
+    completion.)"""
+    from .federation import affinity_key
+
+    fleet.wait_cache_key(warm, affinity_key(comp))
+    cli = fleet.client()
+    plan_dir = str(Path(_PKG_ROOT) / "plans" / comp["global"]["plan"])
+    t0 = time.monotonic()
+    st = wait_task(cli, cli.run(comp, plan_dir=plan_dir))
+    j = st["result"]["journal"]
+    assert st["routed_to"] == warm == j["routed_to"], (st["routed_to"], warm)
+    assert j["hbm_preflight"]["executor_cache"] == "memory_hit", j
+    assert j["compiles"] == 0, j
+    return st, time.monotonic() - t0
+
+
+def compile_on_upload(fleet, comp, tmp) -> dict:
+    """Leg (a) on a live ``fleet``: ``routed_prewarm``, then
+    ``routed_run`` on the worker it chose. Returns both tasks' statuses,
+    the run's directory collected through the coordinator and the
+    seconds from each submission to its completion."""
+    pw, pw_s = routed_prewarm(fleet, comp)
+    st, run_s = routed_run(fleet, comp, pw["routed_to"])
+    assert st["outcome"] == "success", (st["outcome"], st.get("error"))
+    got = collect(fleet.client(), st["id"], Path(tmp) / "collected")
+    return {"prewarm": pw, "run": st, "dir": got,
+            "prewarm_submit_to_complete_seconds": pw_s,
+            "run_submit_to_complete_seconds": run_s}
+
+
+def fleet_wall(root, workers, comps, device="cuda") -> tuple:
+    """Leg (b): a fresh fleet of ``workers`` workers runs ``comps``
+    submitted at once; (seconds from the first submission to the last
+    completion, the workers the coordinator used)."""
+    import threading
+
+    fleet = Fleet(root, workers, device)
+    try:
+        fleet.wait_alive()
+        cli = fleet.client()
+        plan_dir = str(Path(_PKG_ROOT) / "plans" / "benchmarks")
+        t0 = time.monotonic()
+        tids = [cli.run(c, plan_dir=plan_dir) for c in comps]
+        outcomes = {}
+
+        def waiter(tid):
+            outcomes[tid] = wait_task(fleet.client(), tid)["outcome"]
+
+        threads = [threading.Thread(target=waiter, args=(t,)) for t in tids]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.monotonic() - t0
+        used = {r["worker"] for r in cli.federation()["routes"]}
+        assert set(outcomes.values()) == {"success"}, outcomes
+    finally:
+        rcs = fleet.close()
+    assert set(rcs.values()) == {0}, rcs
+    return wall, used
+
+
+def feder_leg(n=N, device="cuda", rounds=FEDER_ROUNDS, daemons=True) -> dict:
+    """bench.py feder_main in the port's terms, on ``device``.
+
+    (a) compile-on-upload: a coordinator and two workers, each a
+    daemon process; the sparsetimer at ``n`` (``rounds`` beats 50 ms
+    apart) prewarmed through the coordinator, then run: the run routes
+    to the prewarmed worker, journals ``memory_hit`` and ``compiles: 0``,
+    and its results.out (every output file) and run.out equal a cold
+    in-process run's. The worker's prewarm (a fresh process: its first
+    build and capture) against the routed run's build and capture is
+    the headline.
+
+    (b) with ``daemons``: two distinct compositions (100 and 50 ms
+    beats) submitted at once to a fresh two-worker fleet and to a fresh
+    one-worker fleet; the wall ratio, reported and not asserted: the
+    workers share one card (JAX asserts < 0.9x only with a CPU device
+    for each worker)."""
+    from .runner.outputs import output_files, run_out_lines
+
+    tmp = tempfile.mkdtemp(prefix="tg-bench-feder-")
+    comp = feder_composition(n, 50, rounds)
+    ref = Path(tmp) / "cold"
+    assert in_process_run(comp, ref, device)["outcome"] == "success"
+    fleet = Fleet(Path(tmp) / "fleet-a", 2, device)
+    try:
+        alive_s = fleet.wait_alive()
+        a = compile_on_upload(fleet, comp, tmp)
+    finally:
+        rcs = fleet.close()
+    assert set(rcs.values()) == {0}, rcs
+    assert output_files(a["dir"]) == output_files(ref), "outputs differ"
+    assert run_out_lines(a["dir"]) == run_out_lines(ref)
+    jp = a["prewarm"]["result"]["journal"]
+    j = a["run"]["result"]["journal"]
+    warm_s = j["compile_seconds"]
+    line = {
+        "metric": ("prewarmed first-run speedup (the worker's cold build "
+                   f"and capture / the routed run's) at {n} instances"),
+        "value": jp["compile_seconds"] / warm_s if warm_s > 0 else None,
+        "unit": "x",
+        "vs_baseline": None,
+        "fleet_alive_seconds": alive_s,
+        "prewarm_compile_seconds": jp["compile_seconds"],
+        "prewarmed_first_run_compile_seconds": warm_s,
+        "prewarmed_first_run_executor_cache":
+            j["hbm_preflight"]["executor_cache"],
+        "prewarmed_first_run_compiles": j["compiles"],
+        "routed_to_prewarmed_worker": True,
+        "outputs_equal_cold_in_process": True,
+        "prewarm_submit_to_complete_seconds":
+            a["prewarm_submit_to_complete_seconds"],
+        "run_submit_to_complete_seconds": a["run_submit_to_complete_seconds"],
+        "fleet_measured": False,
+    }
+    if daemons:
+        comps = [feder_composition(n, 100, rounds), comp]
+        wall_2w, used_2w = fleet_wall(Path(tmp) / "fleet-2w", 2, comps,
+                                      device)
+        assert len(used_2w) == 2, (
+            "two distinct compositions should spread over both workers, "
+            f"used only {used_2w}")
+        wall_1w, _ = fleet_wall(Path(tmp) / "fleet-1w", 1, comps, device)
+        line.update({
+            "fleet_measured": True,
+            "wall_2workers_s": wall_2w,
+            "wall_1worker_s": wall_1w,
+            "fleet_speedup_ratio": wall_2w / wall_1w,
+            "fleet_asserted": False,
+            "workers_used_2w": len(used_2w),
+        })
+    return line
+
+
+def feder_main() -> int:
+    import os
+
+    line = feder_leg(
+        rounds=int(os.environ.get("TG_BENCH_TIMER_ROUNDS", FEDER_ROUNDS)),
+        daemons=os.environ.get("TG_BENCH_FEDER_DAEMONS", "1") != "0")
+    line["device"] = device_line()
+    print(json.dumps(line))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     mode = ap.add_mutually_exclusive_group()
@@ -1438,7 +1850,10 @@ def main(argv=None) -> int:
     for plane in HOST_PLANE_LEGS:
         mode.add_argument(f"--{plane}", action="store_true")
     mode.add_argument("--compile", action="store_true")
+    mode.add_argument("--feder", action="store_true")
     args = ap.parse_args(argv)
+    if args.feder:
+        return feder_main()
     for plane in HOST_PLANE_LEGS:
         if getattr(args, plane):
             return host_plane_main(plane)

@@ -18,7 +18,11 @@ lines and exits with its code:
                                    stage a plan's artifacts, or purge them
     prewarm FILE                   build and capture its executor into the
                                    runner's pool, without running it
-    daemon [--listen] [--device]   serve the engine over HTTP
+    daemon [--listen] [--device] [--peer HOST:PORT ...] [--advertise]
+                                   serve the engine over HTTP (with
+                                   peers: as their fleet's coordinator)
+    fleet ls [--json]              a daemon's fleet: role, workers,
+                                   routes (needs --endpoint)
     tasks | status | logs | kill | collect | terminate | cache ls|purge
                                    the task store, logs, outputs and the
                                    executor cache
@@ -970,7 +974,79 @@ def cmd_daemon(args) -> int:
     from .daemon import serve
 
     return serve(home=getattr(args, "home", None), listen=args.listen,
-                 device=args.device)
+                 device=args.device, peers=args.peers,
+                 advertise=args.advertise)
+
+
+def cmd_fleet(args) -> int:
+    """``fleet ls [--json]`` — the federation plane's fleet
+    view (GET /federation): role, per-worker heartbeat age / lease
+    headroom / warm cache keys / routed-task counts, and the route
+    table."""
+    if not _remote(args):
+        print(
+            "fleet ls needs --endpoint (fleet state lives on the "
+            "daemon), e.g. "
+            "testground --endpoint http://localhost:8042 fleet ls",
+            file=sys.stderr,
+        )
+        return 2
+    info = _client(args).federation()
+    if args.json:
+        print(json.dumps(info, indent=2, default=str))
+        return 0
+    role = info.get("role", "standalone")
+    print(f"role: {role}  endpoint: {info.get('endpoint', '')}")
+    if role == "worker":
+        enr = info.get("enrolled", {})
+        print(
+            f"enrolled with coordinator {enr.get('coordinator', '')} "
+            f"({enr.get('heartbeats_sent', 0)} heartbeats sent)"
+        )
+        return 0
+    if role != "coordinator":
+        print("standalone daemon (no [daemon] peers configured)")
+        return 0
+    workers = info.get("workers", [])
+    print(
+        f"{len(workers)} worker(s); heartbeat every "
+        f"{info.get('heartbeat_interval_s', 0):g}s, stale after "
+        f"{info.get('stale_after_s', 0):g}s"
+    )
+    if workers:
+        print(
+            f"{'worker':<28} {'alive':<6} {'hb age':>7} {'queue':>5} "
+            f"{'headroom':>10} {'keys':>5} {'tasks':>5}"
+        )
+    for w in workers:
+        free = (w.get("lease") or {}).get("free_bytes")
+        headroom = f"{free / 1e9:.1f} GB" if free is not None else "-"
+        print(
+            f"{w.get('worker', ''):<28} "
+            f"{'yes' if w.get('alive') else 'LOST':<6} "
+            f"{w.get('heartbeat_age_s', 0.0):>6.1f}s "
+            f"{w.get('queue_depth', 0):>5} {headroom:>10} "
+            f"{len(w.get('cache_keys', [])):>5} "
+            f"{w.get('routed_tasks', 0):>5}"
+        )
+    routes = [
+        r for r in info.get("routes", [])
+        if r.get("state") not in ("complete", "canceled")
+    ]
+    if routes:
+        print(f"{len(routes)} routed task(s) in flight:")
+        for r in routes:
+            print(
+                f"  {r['task_id']}  {r.get('kind', 'run'):<7} "
+                f"{r.get('plan', '')}/{r.get('case', '')}  "
+                f"{r.get('state', '')}  @{r.get('worker', '')}"
+                + (
+                    f"  attempts={r['attempts']}"
+                    if r.get("attempts")
+                    else ""
+                )
+            )
+    return 0
 
 
 # ------------------------------------------------------------- parser
@@ -1141,7 +1217,24 @@ def build_parser() -> argparse.ArgumentParser:
                     help="HOST:PORT (default: env.toml's [daemon] listen, "
                     "localhost:8042; port 0 picks a free one)")
     _device_flag(dm, "the runs' device: cuda (the default) or cpu")
+    dm.add_argument(
+        "--peer", action="append", dest="peers", metavar="HOST:PORT",
+        help="a worker daemon to federate (repeatable); listing any "
+        "peer makes this daemon the fleet COORDINATOR — submitted "
+        "runs route to the best worker by cache affinity + headroom "
+        "(docs/federation.md)",
+    )
+    dm.add_argument(
+        "--advertise", default=None,
+        help="endpoint workers dial back for heartbeats (default: the "
+        "listen address; set it when workers reach this daemon "
+        "through a different address)",
+    )
     dm.set_defaults(fn=cmd_daemon)
+    fleet = sub.add_parser("fleet").add_subparsers(dest="fleet_cmd")
+    fls = fleet.add_parser("ls", parents=[common])
+    fls.add_argument("--json", action="store_true", help="raw JSON")
+    fls.set_defaults(fn=cmd_fleet)
 
     t = sub.add_parser("tasks", parents=[common])
     t.add_argument("--limit", type=int, default=20)

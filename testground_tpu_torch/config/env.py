@@ -2,12 +2,15 @@
 ``testground_tpu/config/env.py``; reference pkg/config/env.go:11-59,
 dirs.go:5-31).
 
-The port reads every key the JAX package reads. The ``[daemon]`` keys of
-what the port has not ported raise naming the ROADMAP item instead of
-being ignored: ``peers``, ``advertise`` and ``executor_cache_shared_dir``
-(federation, item 11.5b), an ``executor_cache_dir`` other than ``off``
-(the disk tier, item 11.3; the port keeps executors in memory only) and an
-``executor_pool`` above 1 (the port pools one executor a key).
+The port reads every key the JAX package reads; the daemon reads
+``[daemon] peers`` and ``advertise`` as the JAX daemon does (a
+federation coordinator's workers and its callback endpoint). The
+``[daemon]`` keys of what the port has not ported raise naming the
+ROADMAP item instead of being ignored, all of them the executor cache's
+disk tier (item 11.3; the port keeps executors in memory only):
+``executor_cache_shared_dir`` (the fleet-shared tier), an
+``executor_cache_dir`` other than ``off`` and an ``executor_pool`` above
+1 (the port pools one executor a key).
 
 Directory layout (same as the reference):
   $TESTGROUND_HOME/
@@ -78,16 +81,15 @@ class DaemonConfig:
     # both to the runner's env vars at startup.
     executor_cache_dir: str = ""
     executor_pool: int = 0
-    # federation plane (testground_tpu/federation/, docs/federation.md):
-    # a daemon listing peers acts as COORDINATOR of those worker
-    # daemons — it enrolls them, routes submitted runs by
-    # cache-affinity/headroom and proxies task endpoints through.
-    # `advertise` is the endpoint workers dial back for heartbeats
-    # (default: the listen address — set it when workers reach the
-    # coordinator through a different address). The shared executor
-    # cache dir (an NFS/object-store mount all workers see) lets any
-    # worker warm-start from any other worker's compile; exported to
-    # the runner as TG_EXECUTOR_CACHE_SHARED_DIR.
+    # federation plane (federation/, docs/federation.md): a daemon
+    # listing peers acts as COORDINATOR of those worker daemons — it
+    # enrolls them, routes submitted runs by cache-affinity/headroom
+    # and proxies task endpoints through. `advertise` is the endpoint
+    # workers dial back for heartbeats (default: the listen address —
+    # set it when workers reach the coordinator through a different
+    # address); the daemon reads both. The JAX package's shared
+    # executor cache dir (a mount all workers see) waits for the disk
+    # tier (item 11.3) and raises.
     peers: list[str] = field(default_factory=list)
     advertise: str = ""
     executor_cache_shared_dir: str = ""
@@ -206,11 +208,12 @@ def _refuse_unported(d: DaemonConfig) -> None:
     """Raise for a ``[daemon]`` setting the port does not carry out."""
     from ..sim.program import _not_ported
 
-    fed = [k for k in ("peers", "advertise", "executor_cache_shared_dir")
-           if getattr(d, k)]
-    if fed:
-        raise _not_ported(f"[daemon] {', '.join(fed)} in .env.toml", 11,
-                          "the daemon's federation (11.5b)")
+    if d.executor_cache_shared_dir:
+        raise _not_ported(
+            f"[daemon] executor_cache_shared_dir = "
+            f"{d.executor_cache_shared_dir!r} in .env.toml", 11,
+            "the executor cache's disk tier (11.3); the port has no "
+            "fleet-shared tier")
     if d.executor_cache_dir and d.executor_cache_dir.lower() != "off":
         raise _not_ported(
             f"[daemon] executor_cache_dir = {d.executor_cache_dir!r} in "

@@ -1,15 +1,16 @@
 """HTTP daemon exposing the engine (a copy of
-``testground_tpu/daemon/server.py`` without federation; reference
+``testground_tpu/daemon/server.py``; reference
 pkg/daemon/daemon.go:34-101).
 
 The port's daemon answers every route of the JAX daemon, from the port's
 engine: its runs run on the engine's device (the card unless the daemon
-was started with ``--device cpu``). It federates nothing (ROADMAP item
-11.5b): ``--peer``/``--advertise`` and their ``[daemon]`` keys raise,
-``/federation`` and ``/fleet`` answer as a JAX daemon with no peers,
-``/federation/heartbeat`` answers as one, and ``/federation/enroll``
-answers a malformed request as one and refuses a well-formed one, since
-the port cannot act as a federation worker.
+was started with ``--device cpu``). With peers (``--peer`` or ``[daemon]
+peers``) it is a federation coordinator (federation/): it routes each
+``/run`` and ``/prewarm`` to a worker daemon, proxies the task-scoped
+routes to the owning worker and merges the fleet's ``/metrics``; with no
+live worker it queues the submission on its own engine. Any daemon
+becomes a worker when a coordinator enrolls it
+(``/federation/enroll``), and heartbeats to it from then on.
 
 Route surface mirrors the reference's mux table::
 
@@ -62,6 +63,7 @@ from urllib.parse import parse_qs, urlparse
 from ..api import Composition
 from ..config import EnvConfig
 from ..engine import Engine, EngineError
+from ..federation.coordinator import _normalize
 from ..rpc.chunks import BinaryChunkWriter, OutputWriter
 from ..task import STATE_CANCELED, STATE_COMPLETE
 from .dashboard import render_dashboard
@@ -77,11 +79,6 @@ class Daemon:
         advertise: Optional[str] = None,
         device: str = "cuda",
     ) -> None:
-        if [p for p in (peers or []) if p] or advertise:
-            from ..sim.program import _not_ported
-
-            raise _not_ported("the daemon's --peer and --advertise", 11,
-                              "the daemon's federation (11.5b)")
         env = EnvConfig.load(home)
         self.engine = engine or Engine(env_config=env, device=device)
         self.env = self.engine.env
@@ -91,20 +88,104 @@ class Daemon:
         self._httpd = ThreadingHTTPServer((host or "localhost", int(port)), handler)
         self._httpd.daemon_threads = True
         self._thread: Optional[threading.Thread] = None
+        # federation plane (docs/federation.md): peers (from --peer or
+        # [daemon] peers) make this daemon the fleet COORDINATOR —
+        # workers enroll + heartbeat, submitted runs route to the best
+        # worker, task endpoints proxy through. A daemon can also BE a
+        # worker (self._heartbeat, started by /federation/enroll).
+        self.federation = None
+        self._heartbeat = None
+        # --advertise / [daemon] advertise: the endpoint OTHER fleet
+        # members dial — both the coordinator's heartbeat callback and
+        # this daemon's worker-side endpoint in heartbeats (the bind
+        # address may be 0.0.0.0/localhost and undialable off-host);
+        # scheme-less values ("10.0.0.5:8042") are normalized once here
+        self._advertise = _normalize(
+            advertise or self.env.daemon.advertise or "")
+        peer_list = [p for p in (peers or self.env.daemon.peers) if p]
+        if peer_list:
+            from ..federation import FederationPlane
+
+            self.federation = FederationPlane(
+                self.engine,
+                peer_list,
+                self._advertise or self.endpoint,
+                token=self.env.client.token,
+            ).start()
+
+    def ensure_heartbeat(
+        self, coordinator: str, worker: str, interval_s: float
+    ) -> str:
+        """Start (or retarget) this daemon's worker-side heartbeat loop
+        — the /federation/enroll handler's body."""
+        from ..federation import HeartbeatLoop
+
+        worker = worker or self._advertise or self.endpoint
+        if self._heartbeat is None:
+            self._heartbeat = HeartbeatLoop(
+                self.engine,
+                coordinator,
+                worker,
+                self._advertise or self.endpoint,
+                interval_s=interval_s,
+                token=self.env.client.token,
+            ).start()
+        else:
+            self._heartbeat.retarget(coordinator, worker, interval_s)
+        return worker
 
     def federation_info(self) -> dict:
-        """GET /federation: a standalone daemon's fleet state."""
-        return {"role": "standalone", "endpoint": self.endpoint}
+        """GET /federation: this daemon's fleet role + state (both
+        sides — a coordinator's registry/routes, a worker's enrolled
+        coordinator)."""
+        if self.federation is not None:
+            info = {**self.federation.info(), "endpoint": self.endpoint}
+        else:
+            info = {"role": "standalone", "endpoint": self.endpoint}
+        if self._heartbeat is not None:
+            info["enrolled"] = {
+                "coordinator": self._heartbeat.coordinator,
+                "name": self._heartbeat.worker,
+                "heartbeats_sent": self._heartbeat.sent,
+                "interval_s": self._heartbeat.interval_s,
+            }
+            if info["role"] == "standalone":
+                info["role"] = "worker"
+        return info
 
     def metrics_text(self) -> str:
-        """GET /metrics body: this process's Prometheus exposition
-        (docs/observability.md). Each render also appends a point to
-        the obs history rings (the /fleet sparklines' data source)."""
+        """GET /metrics body (fleet metrics plane, docs/observability.md):
+        this process's Prometheus exposition. A coordinator additionally
+        scrapes each alive worker's /metrics and merges the fleet into
+        one body — every worker sample relabeled ``worker="name"``, one
+        HELP/TYPE pair per family — so one scrape target covers the
+        whole fleet. Each render also appends a point to the obs history
+        rings (the /fleet sparklines' data source)."""
         from .. import obs
 
         local = obs.render()
         obs.REGISTRY.sample_history()
-        return local
+        fed = self.federation
+        if fed is None:
+            return local
+        import urllib.request
+
+        per_worker = {}
+        for row in fed.registry.alive():
+            name = row["worker"]
+            endpoint = (fed.registry.endpoint(name) or name).rstrip("/")
+            try:
+                req = urllib.request.Request(endpoint + "/metrics")
+                token = self.env.client.token
+                if token:
+                    req.add_header("Authorization", f"Bearer {token}")
+                with urllib.request.urlopen(req, timeout=3.0) as resp:
+                    per_worker[name] = resp.read().decode(
+                        "utf-8", "replace"
+                    )
+            except Exception:  # noqa: BLE001 — dark worker: skip it
+                continue
+        return obs.merge_expositions(per_worker, local=local)
 
     @property
     def port(self) -> int:
@@ -144,6 +225,10 @@ class Daemon:
         return self
 
     def close(self) -> None:
+        if self.federation is not None:
+            self.federation.close()
+        if self._heartbeat is not None:
+            self._heartbeat.stop()
         self._httpd.shutdown()
         self._httpd.server_close()
         self.engine.close()
@@ -217,7 +302,9 @@ def _make_handler(daemon: Daemon):
             return self.rfile.read(n) if n else b""
 
         def _parse_request_raw(self) -> tuple[dict, Optional[bytes]]:
-            """Returns (payload dict, raw plan-zip bytes or None)."""
+            """Returns (payload dict, raw plan-zip bytes or None) —
+            the zip stays bytes so a federation coordinator can forward
+            the submission verbatim instead of unpacking it locally."""
             body = self._read_body()
             ctype = self.headers.get("Content-Type", "")
             if ctype.startswith("multipart/form-data"):
@@ -244,6 +331,15 @@ def _make_handler(daemon: Daemon):
             payload, zip_bytes = self._parse_request_raw()
             return payload, self._unpack_zip(zip_bytes)
 
+        # federation: task-scoped endpoints a coordinator proxies raw
+        # to the owning worker (the route table knows which one) —
+        # existing Client/command-line code works unchanged against the
+        # coordinator
+        _PROXY_GET = (
+            "/status", "/logs", "/progress", "/events", "/outputs",
+            "/journal",
+        )
+
         # ----------------------------------------------------------- verbs
         def do_GET(self):  # noqa: N802 (http.server API)
             if not self._authorized():
@@ -251,6 +347,11 @@ def _make_handler(daemon: Daemon):
             route = self._route()
             q = self._query()
             try:
+                fed = daemon.federation
+                if fed is not None and route in self._PROXY_GET:
+                    endpoint = fed.worker_endpoint(q.get("task_id", ""))
+                    if endpoint is not None:
+                        return self._h_proxy(endpoint, q.get("task_id", ""))
                 if route == "/tasks":
                     self._h_tasks(q)
                 elif route == "/status":
@@ -350,6 +451,38 @@ def _make_handler(daemon: Daemon):
                 comp = Composition.from_dict(payload["composition"])
                 created_by = payload.get("created_by") or {}
                 priority = int(payload.get("priority", 0))
+                fed = daemon.federation
+                # a payload already carrying routed_to was forwarded BY
+                # a coordinator — execute it here, never route it again
+                # (symmetric --peer configs would otherwise forward in
+                # a cycle forever, each hop a blocking nested POST)
+                already_routed = bool(payload.get("routed_to"))
+                if (
+                    fed is not None
+                    and not already_routed
+                    and kind in ("run", "prewarm")
+                ):
+                    # federation coordinator: route to the best worker
+                    # (cache-affinity first, headroom second) and
+                    # forward the submission verbatim; with no live
+                    # worker the coordinator serves it locally — a
+                    # booting fleet degrades to single-daemon behavior
+                    comp.validate_for_run()  # fail fast, pre-routing
+                    # forward the NORMALIZED dict (from_dict→to_dict):
+                    # the worker engine computes the affinity digest on
+                    # exactly this form, so routing and the worker's
+                    # cache-key heartbeats agree byte-for-byte
+                    routed = fed.submit(
+                        kind,
+                        {**payload, "composition": comp.to_dict()},
+                        zip_bytes,
+                    )
+                    if routed is not None:
+                        tid, worker = routed
+                        ow.info(f"task routed to worker {worker}: {tid}")
+                        ow.result({"task_id": tid, "routed_to": worker})
+                        return
+                    ow.info("no live federation worker; queuing locally")
                 sources_dir = self._unpack_zip(zip_bytes)
                 common = dict(
                     sources_dir=sources_dir,
@@ -380,18 +513,105 @@ def _make_handler(daemon: Daemon):
                     json.JSONDecodeError, zipfile.BadZipFile) as e:
                 ow.error(str(e))
 
+        def _h_proxy(self, endpoint: str, tid: str,
+                     body: Optional[bytes] = None) -> None:
+            """Raw pass-through of this request to the worker owning
+            ``tid`` — the response streams back byte-for-byte (chunk
+            protocol, keepalives, binary tar frames), so the
+            coordinator is transparent to Client/CLI. A dead worker
+            answers /status from the coordinator's route record and
+            errors cleanly elsewhere; a worker dying MID-stream
+            truncates the stream, which the client's follow-retry
+            (Client since=) resumes."""
+            import http.client as _hc
+            from urllib.parse import urlparse as _up
+
+            u = _up(endpoint)
+            try:
+                conn = _hc.HTTPConnection(
+                    # 8042: the same default port Client uses, so a
+                    # port-less worker endpoint proxies where dispatch
+                    # and status refresh already dial
+                    u.hostname or "localhost", u.port or 8042, timeout=30
+                )
+                headers = {}
+                token = daemon.env.client.token
+                if token:
+                    headers["Authorization"] = f"Bearer {token}"
+                if body is not None:
+                    headers["Content-Type"] = self.headers.get(
+                        "Content-Type", "application/json"
+                    )
+                    headers["Content-Length"] = str(len(body))
+                conn.request(
+                    self.command, self.path, body=body, headers=headers
+                )
+                resp = conn.getresponse()
+            except OSError:
+                fed = daemon.federation
+                rec = fed.route_record(tid) if fed is not None else None
+                ow = self._begin_chunks()
+                if self._route() == "/status" and rec is not None:
+                    # last-known view: state/outcome kept fresh by the
+                    # coordinator's monitor polls
+                    ow.result(fed.synthesized_task(rec))
+                elif self._route() == "/kill" and rec is not None:
+                    # the owner is dark but the user's intent is
+                    # recorded: the requeue path cancels the route
+                    # instead of resurrecting a killed run elsewhere
+                    fed.mark_kill_requested(tid)
+                    ow.result({"killed": tid, "deferred": True})
+                else:
+                    ow.error(
+                        f"routed worker unreachable for task {tid}"
+                    )
+                return
+            try:
+                self.send_response(resp.status)
+                self.send_header(
+                    "Content-Type",
+                    resp.getheader(
+                        "Content-Type", "application/x-ndjson"
+                    ),
+                )
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+                out = _ChunkedBody(self.wfile)
+                try:
+                    while True:
+                        data = resp.read(65536)
+                        if not data:
+                            break
+                        out.write(data)
+                        out.flush()
+                except (OSError, ConnectionError, _hc.HTTPException):
+                    pass  # worker died mid-stream: client retries
+                try:
+                    out.finish()
+                except (OSError, ConnectionError):
+                    pass
+            finally:
+                conn.close()
+
         def _h_fed_heartbeat(self) -> None:
             """POST /federation/heartbeat (worker → coordinator): one
             liveness + capacity report into the registry."""
-            self._read_body()
             ow = self._begin_chunks()
-            ow.error("not a federation coordinator (no [daemon] peers)")
+            if daemon.federation is None:
+                return ow.error(
+                    "not a federation coordinator (no [daemon] peers)"
+                )
+            try:
+                payload = json.loads(self._read_body() or b"{}")
+                name = daemon.federation.heartbeat(payload)
+            except (ValueError, json.JSONDecodeError) as e:
+                return ow.error(str(e))
+            ow.result({"ok": True, "worker": name})
 
         def _h_fed_enroll(self) -> None:
-            """POST /federation/enroll (coordinator → worker): a
-            malformed request answered as the JAX daemon answers it; a
-            well-formed one refused, since the port's daemon cannot be a
-            federation worker (ROADMAP item 11.5b)."""
+            """POST /federation/enroll (coordinator → worker): start or
+            retarget this daemon's heartbeat loop toward the
+            coordinator's callback endpoint."""
             ow = self._begin_chunks()
             try:
                 payload = json.loads(self._read_body() or b"{}")
@@ -400,10 +620,14 @@ def _make_handler(daemon: Daemon):
             coordinator = str(payload.get("coordinator", ""))
             if not coordinator:
                 return ow.error("enroll carries no coordinator endpoint")
-            from ..sim.program import _not_ported
-
-            ow.error(str(_not_ported("enrolling as a federation worker",
-                                     11, "the daemon's federation (11.5b)")))
+            try:
+                interval = float(payload.get("interval", 2.0))
+            except (TypeError, ValueError):
+                interval = 2.0
+            name = daemon.ensure_heartbeat(
+                coordinator, str(payload.get("worker", "")), interval
+            )
+            ow.result({"enrolled": name, "coordinator": coordinator})
 
         def _h_federation(self, q: dict) -> None:
             """GET /federation: fleet state — role, workers (heartbeat
@@ -415,7 +639,8 @@ def _make_handler(daemon: Daemon):
 
         def _h_metrics(self, q: dict) -> None:
             """GET /metrics: Prometheus text exposition (fleet metrics
-            plane)."""
+            plane). On a coordinator the body aggregates every alive
+            worker's families under ``worker=`` labels."""
             from ..obs import CONTENT_TYPE
 
             self._send_plain(daemon.metrics_text().encode(), CONTENT_TYPE)
@@ -438,8 +663,25 @@ def _make_handler(daemon: Daemon):
             except ValueError:
                 ow.error(f"invalid limit: {q.get('limit')!r}")
                 return
-            tasks = daemon.engine.tasks(states=states, limit=limit)
+            fed = daemon.federation
+            tasks = daemon.engine.tasks(
+                states=states, limit=0 if fed is not None else limit
+            )
             rows = [t.to_dict() for t in tasks]
+            if fed is not None:
+                # merge the routed tasks (each marked routed_to) into
+                # the listing so the coordinator shows the WHOLE fleet
+                fed_rows = fed.task_rows()
+                if states:
+                    fed_rows = [
+                        d for d in fed_rows if d.get("state") in states
+                    ]
+                rows += fed_rows
+                rows.sort(
+                    key=lambda d: d.get("created", 0.0), reverse=True
+                )
+                if limit:
+                    rows = rows[:limit]
             ow.result(rows)
 
         def _h_status(self, q: dict) -> None:
@@ -657,6 +899,11 @@ def _make_handler(daemon: Daemon):
                 ow = self._begin_chunks()
                 return ow.error(str(e))
             tid = payload.get("task_id", "")
+            fed = daemon.federation
+            if fed is not None:
+                endpoint = fed.worker_endpoint(tid)
+                if endpoint is not None:
+                    return self._h_proxy(endpoint, tid, body=body)
             ow = self._begin_chunks()
             if daemon.engine.kill(tid):
                 ow.result({"killed": tid})
@@ -677,6 +924,11 @@ def _make_handler(daemon: Daemon):
                 ow = self._begin_chunks()
                 return ow.error(str(e))
             tid = payload.get("task_id", "")
+            fed = daemon.federation
+            if fed is not None:
+                endpoint = fed.worker_endpoint(tid)
+                if endpoint is not None:
+                    return self._h_proxy(endpoint, tid, body=body)
             ow = self._begin_chunks()
             try:
                 daemon.engine.resume_task(tid)
@@ -691,6 +943,35 @@ def _make_handler(daemon: Daemon):
             except (ValueError, json.JSONDecodeError) as e:
                 return ow.error(str(e))
             n = daemon.engine.terminate(payload.get("runner"))
+            fed = daemon.federation
+            # fanout=False marks a request forwarded BY a coordinator:
+            # terminate locally only, or symmetric --peer configs would
+            # bounce the fan-out between each other forever
+            if fed is not None and payload.get("fanout", True):
+                # fan out to every live worker: /terminate is
+                # runner-scoped, not task-scoped, so the coordinator
+                # sums the whole fleet's count
+                from ..client import Client
+
+                for w in fed.registry.alive():
+                    try:
+                        res = Client(
+                            w["endpoint"] or w["worker"],
+                            token=daemon.env.client.token,
+                            timeout=10.0,
+                        )._call(
+                            "POST",
+                            "/terminate",
+                            body=json.dumps(
+                                {
+                                    "runner": payload.get("runner"),
+                                    "fanout": False,
+                                }
+                            ).encode(),
+                        )
+                        n += int(res.get("terminated", 0))
+                    except Exception:  # noqa: BLE001 — best-effort
+                        pass
             ow.result({"terminated": n})
 
         def _h_healthcheck(self, q: dict) -> None:

@@ -20,8 +20,6 @@ and shared tiers are reported as off, as the JAX engine reports them with
 
 from __future__ import annotations
 
-import hashlib
-import json
 import sys
 import threading
 import time
@@ -89,51 +87,6 @@ _M_QUEUE_OLDEST = _OBS.gauge(
 
 class EngineError(RuntimeError):
     pass
-
-
-# the runtime-only config fields the affinity digest strips
-_RUNTIME_KEYS = ("chunk_ticks", "max_ticks")
-
-
-def affinity_key(comp_dict: dict) -> str:
-    """The JAX package's portable composition digest (a copy of
-    ``testground_tpu/federation/affinity.py`` ``affinity_key``), computed
-    at queue time and carried on the task's input: 32 hex chars over the
-    plan, case, runner, groups, run config without its runtime fields and
-    every program-shaping table."""
-    g = comp_dict.get("global", {}) or {}
-    run_config = {
-        k: v
-        for k, v in sorted((g.get("run_config") or {}).items())
-        if k not in _RUNTIME_KEYS
-    }
-    groups = []
-    for grp in comp_dict.get("groups", []) or []:
-        inst = grp.get("instances", {}) or {}
-        run = grp.get("run", {}) or {}
-        groups.append(
-            [
-                grp.get("id", ""),
-                inst.get("count", 0),
-                inst.get("percentage", 0.0),
-                sorted((run.get("test_params") or {}).items()),
-            ]
-        )
-    material = {
-        "plan": g.get("plan", ""),
-        "case": g.get("case", ""),
-        "runner": g.get("runner", ""),
-        "total_instances": g.get("total_instances", 0),
-        "run_config": run_config,
-        "groups": groups,
-        "sweep": comp_dict.get("sweep"),
-        "faults": comp_dict.get("faults"),
-        "trace": comp_dict.get("trace"),
-        "telemetry": comp_dict.get("telemetry"),
-        "search": comp_dict.get("search"),
-    }
-    raw = json.dumps(material, sort_keys=True, default=str)
-    return hashlib.sha256(raw.encode()).hexdigest()[:32]
 
 
 # the runner's modules, once a run has imported them
@@ -277,9 +230,12 @@ class Engine:
 
     @staticmethod
     def _affinity(comp_dict: dict) -> str:
-        """The portable composition digest, computed at queue time —
-        BEFORE build/prepare mutate the composition — as the JAX engine
-        computes it (a routing hint its federation reads)."""
+        """The federation plane's portable composition digest, computed
+        at queue time — BEFORE build/prepare mutate the composition —
+        so it matches what a coordinator computed on the identical
+        submitted dict (federation/affinity.py)."""
+        from ..federation.affinity import affinity_key
+
         try:
             return affinity_key(comp_dict)
         except Exception:  # noqa: BLE001 — routing hint only
@@ -295,9 +251,11 @@ class Engine:
         routed_to: str = "",
     ) -> str:
         """Queue a PREWARM task (compile-on-upload, docs/federation.md):
-        build + compile + persist the composition's executor to the
-        durable cache tiers without dispatching a run. Only runners
-        exposing ``prewarm`` (sim:jax) support it."""
+        build + capture the composition's executor into the runner's
+        in-memory pool without dispatching a run, so its next run on
+        this engine — the one a coordinator routes here by affinity —
+        builds nothing. Only runners exposing ``prewarm`` (sim:jax)
+        support it."""
         runner = composition.global_.runner
         if runner not in self.runners:
             raise EngineError(f"unknown runner: {runner}")

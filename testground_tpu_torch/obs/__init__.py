@@ -1,12 +1,14 @@
-"""Fleet metrics plane (a copy of ``testground_tpu/obs/__init__.py``
-without the federation coordinator's exposition merge): a minimal
-counter/gauge/histogram registry with Prometheus text exposition
-(``text/plain; version=0.0.4``) and no third-party deps.
+"""Fleet metrics plane (a copy of ``testground_tpu/obs/__init__.py``):
+a minimal counter/gauge/histogram registry with Prometheus text
+exposition (``text/plain; version=0.0.4``) and no third-party deps.
 
 Upstream Testground's daemon continuously pushes runtime metrics so
 operators can watch the *platform*, not just individual runs. This
 module is our scrape-side equivalent: every daemon serves
-``GET /metrics`` from the process-global ``REGISTRY`` here.
+``GET /metrics`` from the process-global ``REGISTRY`` here, and a
+federation coordinator additionally pulls each worker's exposition and
+re-emits it with a ``worker=`` label (``parse_exposition``/
+``merge_expositions``).
 
 It is host-only: it is shared by the daemon and by the runner's
 instrumentation, which bumps its counters at chunk boundaries and lease
@@ -388,7 +390,12 @@ def render() -> str:
 
 
 # ------------------------------------------------------------------
-# Exposition parsing (the /fleet page's per-family totals).
+# Exposition parsing + fleet aggregation (coordinator side).
+#
+# The coordinator scrapes each alive worker's /metrics, injects a
+# worker="name" label into every sample, and merges families so the
+# fleet exposition has exactly one HELP/TYPE pair per family even when
+# N workers all emit it.
 # ------------------------------------------------------------------
 
 
@@ -473,3 +480,43 @@ def parse_exposition(text: str) -> dict:
             continue
         fam(name)["samples"].append((name, labels, value))
     return fams
+
+
+def merge_expositions(per_source: "dict[str, str]", label: str = "worker",
+                      local: str = "") -> str:
+    """Fleet aggregation: relabel each source's families with
+    ``label="source"`` and merge with the coordinator's own ``local``
+    exposition (kept unlabeled) into one valid text body."""
+    merged: dict = {}
+
+    def absorb(fams, inject=None):
+        for name, fam in fams.items():
+            ent = merged.setdefault(
+                name, {"type": fam["type"], "help": fam["help"],
+                       "samples": []}
+            )
+            if ent["type"] == "untyped" and fam["type"] != "untyped":
+                ent["type"] = fam["type"]
+            if not ent["help"]:
+                ent["help"] = fam["help"]
+            for sname, labels, value in fam["samples"]:
+                if inject:
+                    labels = {**labels, label: inject}
+                ent["samples"].append((sname, labels, value))
+
+    if local:
+        absorb(parse_exposition(local))
+    for source in sorted(per_source):
+        absorb(parse_exposition(per_source[source]), inject=source)
+
+    out = []
+    for name in sorted(merged):
+        fam = merged[name]
+        if fam["help"]:
+            out.append(f"# HELP {name} {_escape_help(fam['help'])}")
+        if fam["type"] != "untyped":
+            out.append(f"# TYPE {name} {fam['type']}")
+        for sname, labels, value in fam["samples"]:
+            out.append(f"{sname}{_labels_text(_labels_key(labels))}"
+                       f" {_fmt(value)}")
+    return "\n".join(out) + "\n"

@@ -36,6 +36,9 @@ A built and captured executor is pooled in memory, keyed by the plan
 module's source, the config without its runtime fields, the tables, the
 torch version and the device: a repeat run of the same program builds
 and captures nothing (``executor_cache: "memory_hit"``, ``compiles: 0``).
+While the pool holds it, the affinity digest its run or prewarm carried
+(``RunInput.affinity``) is noted in federation/notes.py, which a fleet
+worker's heartbeat reports as its ``cache_keys``.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ import torch
 from ..api.contracts import GroupOutcome, RunInput, RunOutput, RunResult
 from ..config.coalescing import CoalescedConfig
 from ..device import resolve_device
+from ..federation import notes as affinity_notes
 from ..utils.timing import StageClock
 from .context import BuildContext, GroupSpec
 from .core import SimConfig, compile_program, watchdog_chunk_ticks
@@ -372,6 +376,7 @@ def clear_executor_pool() -> None:
     """Drop every pooled executor (and the card memory it holds)."""
     with _EX_CACHE_LOCK:
         _EX_CACHE.clear()
+        affinity_notes.clear()
 
 
 def _dict_of(t):
@@ -433,6 +438,11 @@ def _executor_cache_key(mod, rinput: RunInput, cfg: SimConfig,
     return json.dumps(material, default=str)
 
 
+def _affinity(rinput) -> str:
+    """The run's affinity digest (set by the engine at queue time)."""
+    return getattr(rinput, "affinity", "") or ""
+
+
 def _executor_checkout(key):
     """(pooled (executor, pre-flight report) or None, status):
     ``memory_hit``, ``miss``, or ``evicted`` when this run's checkin will
@@ -440,6 +450,8 @@ def _executor_checkout(key):
     with _EX_CACHE_LOCK:
         entry = _EX_CACHE.pop(key, None)
         if entry is not None:
+            # checked out: the next identical run would build its own
+            affinity_notes.drop(key)
             _EX_STATS["memory_hits"] += 1
             _excache_obs("hit")
             return entry, "memory_hit"
@@ -450,9 +462,11 @@ def _executor_checkout(key):
         return None, status
 
 
-def _executor_checkin(key, ex, report=None) -> None:
+def _executor_checkin(key, ex, report=None, affinity="") -> None:
     """Pool ``ex`` (with its pre-flight report, minus the per-run keys)
-    for the next run of the same program."""
+    for the next run of the same program, noting ``affinity`` (the run's
+    or prewarm's digest) for the fleet heartbeat while the pool holds
+    it."""
     clean = {k: v for k, v in (report or {}).items()
              if k not in ("executor_cache", "observer_drain", "lease")}
     evicted = 0
@@ -460,8 +474,9 @@ def _executor_checkin(key, ex, report=None) -> None:
         _EX_STATS["checkins"] += 1
         _EX_CACHE[key] = (ex, clean)
         _EX_CACHE.move_to_end(key)
+        affinity_notes.hold(key, affinity)
         while len(_EX_CACHE) > _EXECUTOR_CACHE_N:
-            _EX_CACHE.popitem(last=False)
+            affinity_notes.drop(_EX_CACHE.popitem(last=False)[0])
             evicted += 1
     _excache_obs("checkin")
     _excache_obs("evict", evicted)
@@ -490,6 +505,7 @@ def _make_room(report, device, log) -> bool:
         while _EX_CACHE and need + sum(
                 _held_bytes(r) for _, r in _EX_CACHE.values()) > budget:
             evicted.append(_EX_CACHE.popitem(last=False))
+            affinity_notes.drop(evicted[-1][0])
     if not evicted:
         return False
     _excache_obs("evict", len(evicted))
@@ -1153,7 +1169,7 @@ def run_composition(rinput: RunInput, ow=None, device="cuda") -> RunOutput:
     })
     log(f"sim:torch done: outcome={result.outcome} ticks={res.ticks} "
         f"wall={res.wall_seconds:.3f}s (compile {compile_s:.1f}s)")
-    _executor_checkin(ex_key, ex, hbm_report)
+    _executor_checkin(ex_key, ex, hbm_report, _affinity(rinput))
     return RunOutput(result=result)
 
 
@@ -1199,10 +1215,12 @@ def prewarm_composition(rinput: RunInput, ow=None,
                         device="cuda") -> RunOutput:
     """Build and capture a composition's executor (a sweep's too) into
     the pool without running it: the next run of it journals
-    ``executor_cache: "memory_hit"`` and ``compiles: 0``. (The JAX
-    runner's prewarm fills its disk tier; the port has no disk tier
-    yet.) A [search] composition is refused, as by the JAX runner: its
-    executor's shape depends on the driver's round-0 probes."""
+    ``executor_cache: "memory_hit"`` and ``compiles: 0``, and the
+    pool's note of its affinity digest routes a fleet's next run of it
+    here. (The JAX runner's prewarm fills its disk tiers; the port has
+    none yet: its journal's ``persisted_local`` and ``persisted_shared``
+    are false.) A [search] composition is refused, as by the JAX runner:
+    its executor's shape depends on the driver's round-0 probes."""
     log = ow or (lambda msg: None)
     if _search_table(rinput) is not None:
         raise ValueError(
@@ -1220,8 +1238,11 @@ def prewarm_composition(rinput: RunInput, ow=None,
             f"{ctx.n_instances} (sweep) device={device}")
     t0 = time.monotonic()
     ex_key = _executor_cache_key(mod, rinput, cfg, device)
+    aff = _affinity(rinput)
     with _EX_CACHE_LOCK:
         pooled = ex_key in _EX_CACHE
+        if pooled:
+            affinity_notes.hold(ex_key, aff)
     if pooled:
         status, hbm_report = "memory_hit", {}
     else:
@@ -1235,7 +1256,7 @@ def prewarm_composition(rinput: RunInput, ow=None,
             _sweep_chunk_ticks(ex, rinput, ctx)
         _make_room(hbm_report, device, log)
         ex.warmup()
-        _executor_checkin(ex_key, ex, hbm_report)
+        _executor_checkin(ex_key, ex, hbm_report, aff)
         status = "miss"
     compile_s = time.monotonic() - t0
     result = RunResult(outcome="success")
@@ -1244,8 +1265,13 @@ def prewarm_composition(rinput: RunInput, ow=None,
         "executor_cache": status,
         "compiles": 0 if status in _WARM_STATUSES else 1,
         "compile_seconds": round(compile_s, 3),
+        # the JAX prewarm's disk tiers: the port has none (item 11.3)
+        "persisted_local": False,
+        "persisted_shared": False,
         "hbm_preflight": hbm_report,
     }
+    if aff:
+        result.journal["affinity"] = aff
     log(f"sim:torch prewarm done: executor_cache={status} "
         f"compile={compile_s:.1f}s")
     return RunOutput(result=result)
@@ -1631,7 +1657,7 @@ def run_sweep_composition(rinput: RunInput, ow=None,
     log(f"sim:torch sweep done: outcome={result.outcome} "
         f"{ok_n}/{len(scenarios)} scenarios ok wall={wall:.3f}s "
         f"(compile {compile_s:.1f}s, one program)")
-    _executor_checkin(ex_key, ex, hbm_report)
+    _executor_checkin(ex_key, ex, hbm_report, _affinity(rinput))
     return RunOutput(result=result)
 
 
@@ -1905,5 +1931,5 @@ def run_search_composition(rinput: RunInput, ow=None,
         f"probed={driver.scenarios_probed} of "
         f"{result.journal['exhaustive_scenarios']} exhaustive "
         f"(compile {compile_s:.1f}s, {compiles} compile(s))")
-    _executor_checkin(ex_key, ex, hbm_report)
+    _executor_checkin(ex_key, ex, hbm_report, _affinity(rinput))
     return RunOutput(result=result)

@@ -12,7 +12,8 @@ the families and label sets of ``/metrics``; the error text of an unknown
 runner, a disabled runner, a missing task and a missing token (401);
 ``kill`` of a queued task, ``delete``, a ``kill`` that terminates a run
 at its chunk boundary, ``terminate``, and ``resume`` after
-``preempt_all``; the federation routes of a daemon with no peers; the
+``preempt_all``; the federation routes of a daemon with no peers, and a
+coordinator's enroll making it a worker; the
 HTML pages and data routes. Every wait is on a task's state, never on a
 sleep."""
 
@@ -375,14 +376,31 @@ def test_federation_routes_of_a_daemon_without_peers(pair):
     j, t = both_errors(pair, lambda c: c._call(
         "POST", "/federation/enroll", body=b"{}"))
     assert t == j == "enroll carries no coordinator endpoint"
-    with pytest.raises(TRPCError, match="item 11"):
-        pair.tc._call("POST", "/federation/enroll",
-                      body=b'{"coordinator": "http://localhost:1"}')
     import urllib.request
 
     for d in (pair.jd, pair.td):
         with urllib.request.urlopen(d.endpoint + "/fleet") as r:
             assert "standalone" in r.read().decode()
+    # a well-formed enroll makes either daemon a worker of that
+    # coordinator (here a dead one: no heartbeat is delivered)
+    body = (b'{"coordinator": "http://localhost:1", "worker": "w", '
+            b'"interval": 60}')
+    got = [c._call("POST", "/federation/enroll", body=body)
+           for c in (pair.jc, pair.tc)]
+    assert got[1] == got[0] == {"enrolled": "w",
+                                "coordinator": "http://localhost:1"}
+    try:
+        infos = [c.federation() for c in (pair.jc, pair.tc)]
+        for info, d in zip(infos, (pair.jd, pair.td)):
+            assert info["role"] == "worker" and info["endpoint"] == d.endpoint
+        assert infos[1]["enrolled"] == infos[0]["enrolled"] == {
+            "coordinator": "http://localhost:1", "name": "w",
+            "heartbeats_sent": 0, "interval_s": 60.0}
+    finally:
+        # back to standalone for the module's other tests
+        for d in (pair.jd, pair.td):
+            d._heartbeat.stop()
+            d._heartbeat = None
 
 
 def _running(pair, tid):
